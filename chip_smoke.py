@@ -1,0 +1,449 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU (written for an H100).
+
+    python3 chip_smoke.py        # from the repository root; needs one card
+
+Builds the port's CUDA kernels from ``slenderobjdet_torch/ops/csrc`` (at
+first use, into ``build/torch_kernels/``), then, each phase failing the run
+if it fails:
+
+1. NMS kernel vs its plain version at B=8, N=5000, max_out 100, thr 0.6,
+   integer-pixel boxes: indices and validity must be identical.
+2. Fused stem kernel vs ``reference_stem`` at (8, 800, 1344, 3): max abs
+   error / max abs value <= 1e-4 in fp32, <= 3e-2 in bf16.
+3. Fused bottleneck kernel vs ``reference_bottleneck`` at the five distinct
+   stride-1 block shapes of R-50 at 800x1344, B=8, same tolerances.
+4. The main path: ``build_model`` on configs/fcos/fcos_R_50_FPN_1x.yaml with
+   FUSED_STEM and FUSED_BLOCKS on, bf16, seeded random weights, answering 3
+   requests of 8 uint8 800x1344 images. Launch counts are reset just before
+   and read just after; all three kernels must have run. The outputs are
+   checked for shape and finiteness and against the same weights with the
+   flags off (the cuDNN path).
+5. Timings with CUDA events after warm-up: each kernel against its plain
+   version at the main-path shapes, and predict img/s at B=8 and B=32 with
+   the fused flags on and off.
+
+Prints the card's ``nvidia-smi`` name and power limit, a JSON line of the
+kernels, and as the last line ``{"ok": true, "device": {...}}``. Exits
+non-zero, printing no result, without a CUDA device or on any failure.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+import torch
+
+FP32_TOL = 1e-4      # max|diff| / max|ref|, fp32 kernel vs fp32 plain
+BF16_TOL = 3e-2      # the same ratio, bf16 kernel vs bf16 plain
+HEAD_FACTOR = 1.5    # head outputs: fused error vs fp32 <= 1.5 x unfused's
+HEAD_TOL = 0.15      # and <= this ratio (bf16 rounds ~60 layers deep)
+SCORE_TOL = 2e-2     # fused vs unfused: scores of matched detections
+MATCH_MIN = 0.99     # fused vs unfused: share of detection slots matched
+
+# R-50 stride-1 bottleneck shapes at 800x1344: name, H, W, Cin, Cm, Cout,
+# projection shortcut, and how many of the 13 fused blocks have this shape.
+BLOCKS = [
+    ("res2_0", 200, 336, 64, 64, 256, True, 1),
+    ("res2_1", 200, 336, 256, 64, 256, False, 2),
+    ("res3_1", 100, 168, 512, 128, 512, False, 3),
+    ("res4_1", 50, 84, 1024, 256, 1024, False, 5),
+    ("res5_1", 25, 42, 2048, 512, 2048, False, 2),
+]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of fn() over iters launches, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / (want.abs().max() + 1e-9))
+
+
+def phase_nms(kernels, dev):
+    from slenderobjdet_torch.ops.nms import batched_nms, cuda_batched_nms
+
+    rs = np.random.RandomState(0)
+    B, N = 8, 5000
+    worst = 0
+    for name, span, lo, hi, ncls in (("sparse", 1200, 8, 300, 80),
+                                     ("dense", 200, 20, 60, 4)):
+        xy = rs.randint(0, span, (B, N, 2))
+        wh = rs.randint(lo, hi, (B, N, 2))
+        boxes = torch.tensor(np.concatenate([xy, xy + wh], 2), dtype=torch.float32,
+                             device=dev)
+        scores = torch.tensor(rs.rand(B, N), dtype=torch.float32, device=dev)
+        classes = torch.tensor(rs.randint(0, ncls, (B, N)), device=dev)
+        valid = torch.tensor(rs.rand(B, N) > 0.1, device=dev)
+        ki, kv = cuda_batched_nms(boxes, scores, classes, 0.6, 100, valid)
+        ri, rv = batched_nms(boxes, scores, classes, 0.6, 100, valid)
+        torch.cuda.synchronize()
+        worst = max(worst, int((ki.long() - ri.long()).abs().max()))
+        if not (torch.equal(ki, ri) and torch.equal(kv, rv)):
+            raise AssertionError(f"NMS kernel != plain ({name}): "
+                                 f"{int((ki != ri).sum())} indices differ")
+        log(f"nms {name}: kernel == plain at B={B} N={N}, "
+            f"{int(kv.sum())} valid slots")
+    ms = cuda_ms(lambda: cuda_batched_nms(boxes, scores, classes, 0.6, 100, valid), 20)
+    plain_ms = cuda_ms(lambda: batched_nms(boxes, scores, classes, 0.6, 100, valid), 3)
+    log(f"time nms B=8 N=5000: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    kernels["nms"].update(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms)
+
+
+def phase_stem(kernels, dev):
+    from slenderobjdet_torch.ops.fused_stem import fused_stem, reference_stem
+
+    g = torch.Generator(device="cpu").manual_seed(1)
+    x = (torch.randn(8, 800, 1344, 3, generator=g) * 50).to(dev)
+    w = (torch.randn(7, 7, 3, 64, generator=g) / 147 ** 0.5).to(dev)
+    scale = (torch.rand(64, generator=g) * 0.5 + 0.75).to(dev)
+    bias = (torch.randn(64, generator=g) * 0.1).to(dev)
+    errs = {}
+    for dt, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        xd = x.to(dt)
+        got = fused_stem(xd, w, scale, bias)
+        want = reference_stem(xd, w, scale, bias)
+        torch.cuda.synchronize()
+        if got.shape != (8, 200, 336, 64) or got.dtype != dt:
+            raise AssertionError(f"stem output {tuple(got.shape)} {got.dtype}")
+        errs[dt] = ratio(got, want)
+        abs_err = float((got.double() - want.double()).abs().max())
+        log(f"stem {dt}: err ratio {errs[dt]:.3e} (tol {tol}), max abs err {abs_err:.4e}")
+        if not errs[dt] <= tol:
+            raise AssertionError(f"stem {dt} err {errs[dt]} > {tol}")
+        if dt == torch.bfloat16:
+            kernels["fused_stem"]["max_abs_err"] = abs_err
+    xb = x.to(torch.bfloat16)
+    ms = cuda_ms(lambda: fused_stem(xb, w, scale, bias), 10)
+    plain_ms = cuda_ms(lambda: reference_stem(xb, w, scale, bias), 10)
+
+    # the flags-off model path: bf16 cuDNN conv, FrozenBN, relu, maxpool
+    xc = xb.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last).to(torch.bfloat16)
+
+    def unfused():
+        y = torch.nn.functional.conv2d(xc, wc, stride=2, padding=3)
+        y = y * scale.to(torch.bfloat16).view(1, -1, 1, 1) + bias.to(torch.bfloat16).view(1, -1, 1, 1)
+        return torch.nn.functional.max_pool2d(torch.relu(y), 3, 2, 1)
+
+    unfused_ms = cuda_ms(unfused, 10)
+    log(f"time stem B=8 800x1344 bf16: kernel {ms:.4f} ms, plain (fp32 conv) "
+        f"{plain_ms:.4f} ms, unfused bf16 cuDNN path {unfused_ms:.4f} ms")
+    kernels["fused_stem"].update(ms=ms, plain_ms=plain_ms)
+
+
+def phase_bottleneck(kernels, dev):
+    from slenderobjdet_torch.models.backbones.resnet import BottleneckBlock
+    from slenderobjdet_torch.ops.fused_bottleneck import (fused_bottleneck,
+                                                          reference_bottleneck)
+
+    g = torch.Generator(device="cpu").manual_seed(2)
+    tot_ms = tot_plain = tot_unfused = 0.0
+    worst_abs = 0.0
+    for name, h, wd, cin, cm, cout, proj, count in BLOCKS:
+        def rnd(*shape, s=1.0):
+            return (torch.randn(*shape, generator=g) * s).to(dev)
+
+        x = torch.relu(rnd(8, h, wd, cin))
+        w1, b1 = rnd(cin, cm, s=cin ** -0.5), rnd(cm, s=0.1)
+        w2, b2 = rnd(3, 3, cm, cm, s=(9 * cm) ** -0.5), rnd(cm, s=0.1)
+        w3, b3 = rnd(cm, cout, s=cm ** -0.5), rnd(cout, s=0.1)
+        wsc, bsc = (rnd(cin, cout, s=cin ** -0.5), rnd(cout, s=0.1)) if proj else (None, None)
+        args = (w1, b1, w2, b2, w3, b3, wsc, bsc)
+        for dt, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+            xd = x.to(dt)
+            got = fused_bottleneck(xd, *args)
+            want = reference_bottleneck(xd, *args)
+            torch.cuda.synchronize()
+            if got.shape != (8, h, wd, cout) or got.dtype != dt:
+                raise AssertionError(f"{name} output {tuple(got.shape)} {got.dtype}")
+            err = ratio(got, want)
+            abs_err = float((got.double() - want.double()).abs().max())
+            log(f"bottleneck {name} {dt}: err ratio {err:.3e} (tol {tol}), "
+                f"max abs err {abs_err:.4e}")
+            if not err <= tol:
+                raise AssertionError(f"bottleneck {name} {dt} err {err} > {tol}")
+            if dt == torch.bfloat16:
+                worst_abs = max(worst_abs, abs_err)
+            del got, want
+        xb = x.to(torch.bfloat16)
+        ms = cuda_ms(lambda: fused_bottleneck(xb, *args), 5)
+        plain_ms = cuda_ms(lambda: reference_bottleneck(xb, *args), 5)
+        block = BottleneckBlock(cin, cout, cm).to(dev, memory_format=torch.channels_last)
+        xc = xb.permute(0, 3, 1, 2)
+        with torch.no_grad():
+            unfused_ms = cuda_ms(lambda: block(xc), 5)
+        log(f"time bottleneck {name} B=8 {h}x{wd} bf16: kernel {ms:.4f} ms, "
+            f"plain (fp32 convs) {plain_ms:.4f} ms, unfused bf16 cuDNN block "
+            f"{unfused_ms:.4f} ms")
+        tot_ms += count * ms
+        tot_plain += count * plain_ms
+        tot_unfused += count * unfused_ms
+        del x, xb, xc, block
+        torch.cuda.empty_cache()
+    log(f"time bottleneck, all 13 fused blocks of R-50 at B=8: kernel "
+        f"{tot_ms:.4f} ms, plain {tot_plain:.4f} ms, unfused bf16 cuDNN "
+        f"{tot_unfused:.4f} ms")
+    kernels["fused_bottleneck"].update(max_abs_err=worst_abs, ms=tot_ms,
+                                       plain_ms=tot_plain)
+
+
+def flagship_cfg(fused: bool, dtype: str = "bfloat16"):
+    from pathlib import Path
+
+    from slenderobjdet_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(str(Path(__file__).resolve().parent
+                            / "configs/fcos/fcos_R_50_FPN_1x.yaml"))
+    cfg.MODEL.RESNETS.FUSED_STEM = fused
+    cfg.MODEL.RESNETS.FUSED_BLOCKS = fused
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    cfg.freeze()
+    return cfg
+
+
+def requests(n: int, batch: int, seed: int):
+    rs = np.random.RandomState(seed)
+    return [{
+        "image": rs.randint(0, 256, (batch, 800, 1344, 3)).astype(np.uint8),
+        "scale": np.ones((batch,), np.float32),
+        "orig_size": np.tile(np.array([[800, 1344]], np.float32), (batch, 1)),
+    } for _ in range(n)]
+
+
+def build_models(dev):
+    """The fused bf16 model with seeded weights, and the same weights unfused
+    in bf16 (the cuDNN path) and unfused in fp32 (the reference for both).
+
+    FrozenBN buffers are drawn away from identity so the fused seams' folding
+    matters, and the cls_logits bias is 0 so scores pass INFERENCE_TH."""
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.models.layers import FrozenBatchNorm
+
+    gen = torch.Generator().manual_seed(0)
+    model = build_model(flagship_cfg(True), device=dev, generator=gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, FrozenBatchNorm):
+                n = m.scale.numel()
+                m.scale.copy_(torch.rand(n, generator=gen) * 0.5 + 0.75)
+                m.bias.copy_(torch.randn(n, generator=gen) * 0.05)
+        model.head.cls_logits.bias.zero_()
+    plain = build_model(flagship_cfg(False), device=dev)
+    plain.load_state_dict(model.state_dict())
+    ref32 = build_model(flagship_cfg(False, "float32"), device=dev)
+    ref32.load_state_dict(model.state_dict())
+    return model, plain, ref32
+
+
+def one_detection_per_class(gen, *models):
+    """Make the detections of two roundings of one network comparable.
+
+    Random weights give nearly tied scores, whose order two bf16 programs
+    need not share, so detections are compared class by class, and this
+    makes every class keep exactly one detection in both:
+    - the bbox_pred bias is 12, which saturates the head's exp clamp
+      (ltrb = e^9 everywhere): all boxes of a class overlap with IoU > 0.6,
+      so NMS keeps one per class;
+    - the cls_logits filters are one shared random filter plus a per-class
+      one a tenth its size: each location ranks all 80 classes together, so
+      every level's top-1000 candidates hold every class (with independent
+      filters, classes whose best pair sits near a level's 1000th place
+      appear in one program and not in the other)."""
+    w = models[0].head.cls_logits.weight
+    shared = torch.randn(w.shape[1:], generator=gen) * 0.01
+    per_class = torch.randn(w.shape, generator=gen) * 0.001
+    with torch.no_grad():
+        for m in models:
+            m.head.bbox_pred.bias.fill_(12.0)
+            m.head.cls_logits.weight.copy_(shared + per_class)
+
+
+def check_outputs(out, batch: int):
+    shapes = {"boxes": (batch, 100, 4), "scores": (batch, 100),
+              "classes": (batch, 100), "valid": (batch, 100)}
+    for k, s in shapes.items():
+        if tuple(out[k].shape) != s:
+            raise AssertionError(f"{k} shape {tuple(out[k].shape)} != {s}")
+    for k in ("boxes", "scores"):
+        if not bool(torch.isfinite(out[k]).all()):
+            raise AssertionError(f"non-finite {k}")
+
+
+def per_class(out, b):
+    v = out["valid"][b].cpu().numpy()
+    cls = out["classes"][b].cpu().numpy()[v]
+    sc = out["scores"][b].float().cpu().numpy()[v]
+    bx = out["boxes"][b].float().cpu().numpy()[v]
+    return {int(c): (float(s), x) for c, s, x in zip(cls, sc, bx)}
+
+
+def phase_main_path(kernels, dev, model, plain, ref32):
+    from slenderobjdet_torch.ops import _build
+
+    reqs = requests(3, 8, seed=3)
+    # Head outputs: the fused model may be no further from the fp32 model
+    # than the unfused bf16 model is, by more than HEAD_FACTOR.
+    with torch.inference_mode():
+        images = torch.as_tensor(reqs[0]["image"], device=dev)
+        heads = [m(images) for m in (model, plain, ref32)]
+    for part, f_l, p_l, r_l in zip(("logits", "reg", "ctr"), *heads):
+        e_f = max(ratio(f, r) for f, r in zip(f_l, r_l))
+        e_p = max(ratio(p, r) for p, r in zip(p_l, r_l))
+        log(f"head {part} vs fp32: fused bf16 err ratio {e_f:.3e}, unfused "
+            f"bf16 {e_p:.3e} (fused <= {HEAD_FACTOR} x unfused and <= {HEAD_TOL})")
+        if not (e_f <= HEAD_FACTOR * e_p and e_f <= HEAD_TOL):
+            raise AssertionError(f"head {part}: fused err {e_f}, unfused {e_p}")
+    del heads, images
+    one_detection_per_class(torch.Generator().manual_seed(5), model, plain)
+
+    _build.reset_launch_counts()
+    outs = [model.predict(r) for r in reqs]
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    log(f"main path launches over 3 requests of B=8: {counts}")
+    for name, n in counts.items():
+        kernels[name]["launches"] = n
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the main path")
+    for out in outs:
+        check_outputs(out, 8)
+    n_valid = sum(int(o["valid"].sum()) for o in outs)
+    log(f"main path: {n_valid} valid detections over 24 images")
+    if n_valid <= 0:
+        raise AssertionError("no valid detections")
+
+    # A slot matches when the other path kept the same class with a score
+    # within SCORE_TOL (and the same box, which the saturated regression
+    # makes the whole image).
+    matched = total = 0
+    diffs = []
+    for r, out in zip(reqs, outs):
+        ref = plain.predict(r)
+        check_outputs(ref, 8)
+        if not torch.equal(out["valid"].sum(1), ref["valid"].sum(1)):
+            raise AssertionError("valid counts differ between fused and unfused")
+        for b in range(8):
+            f, p = per_class(out, b), per_class(ref, b)
+            total += len(f)
+            for c, (s, x) in f.items():
+                if c in p and np.allclose(x, p[c][1], atol=1e-3):
+                    diffs.append(abs(s - p[c][0]))
+                    matched += diffs[-1] <= SCORE_TOL
+    share = matched / max(total, 1)
+    log(f"fused vs unfused detections: {matched}/{total} slots matched by class "
+        f"with score diff <= {SCORE_TOL}; score diff median "
+        f"{np.median(diffs):.3e}, max {np.max(diffs):.3e}")
+    if share < MATCH_MIN:
+        raise AssertionError(f"fused vs unfused: {share:.4f} of slots matched")
+
+
+def phase_throughput(model, plain):
+    for batch, iters in ((8, 5), (32, 3)):
+        req = requests(1, batch, seed=4)[0]
+        for label, m in (("fused", model), ("unfused", plain),
+                         ("fused", model), ("unfused", plain)):
+            for _ in range(2):
+                m.predict(req)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                m.predict(req)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / iters
+            log(f"time predict B={batch} {label}: {dt * 1e3:.3f} ms/batch, "
+                f"{batch / dt:.2f} img/s")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this run needs "
+              "a CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    from slenderobjdet_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
+        f"from {_build.library_path()}")
+
+    src = "slenderobjdet_torch/ops/csrc"
+    kernels = {
+        "nms": {"name": "nms", "route": "cuda", "source": f"{src}/nms.cu",
+                "replaces": "slenderobjdet_tpu/ops/pallas_nms.py:29"},
+        "fused_stem": {"name": "fused_stem", "route": "cuda",
+                       "source": f"{src}/fused_stem.cu",
+                       "replaces": "slenderobjdet_tpu/ops/fused_stem.py:111"},
+        "fused_bottleneck": {"name": "fused_bottleneck", "route": "cuda",
+                             "source": f"{src}/fused_bottleneck.cu",
+                             "replaces": "slenderobjdet_tpu/ops/fused_bottleneck.py:55"},
+    }
+    failed = []
+
+    def run(name, fn, *args):
+        t = time.perf_counter()
+        try:
+            fn(*args)
+            log(f"phase {name}: ok ({time.perf_counter() - t:.1f} s)")
+            return True
+        except Exception:  # every phase runs; any failure fails the run
+            traceback.print_exc()
+            log(f"phase {name}: FAILED")
+            failed.append(name)
+            return False
+
+    run("nms", phase_nms, kernels, dev)
+    run("stem", phase_stem, kernels, dev)
+    run("bottleneck", phase_bottleneck, kernels, dev)
+    torch.cuda.empty_cache()
+    models = []
+    if run("build", lambda: models.extend(build_models(dev))):
+        run("main_path", phase_main_path, kernels, dev, *models)
+        del models[2]
+        torch.cuda.empty_cache()
+        run("throughput", phase_throughput, *models)
+    if failed:
+        print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": list(kernels.values())}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,155 @@
+"""Packaging and boundaries of the PyTorch port: it never imports JAX or the
+JAX package, its config copy stays equal to the JAX package's, unported
+options raise, the kernel build targets sm_90a, and (on a CUDA card only)
+each kernel agrees with its plain version."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from slenderobjdet_torch.config import get_cfg as torch_get_cfg
+from slenderobjdet_torch.models import build_model
+from slenderobjdet_torch.ops import _build
+from slenderobjdet_tpu.config import get_cfg as jax_get_cfg
+
+ROOT = Path(__file__).resolve().parents[1]
+CONFIG = ROOT / "configs/fcos/fcos_R_50_FPN_1x.yaml"
+
+
+def test_port_imports_no_jax():
+    """Importing the port and building the flagship model leaves jax, flax
+    and the JAX package out of sys.modules (a fresh interpreter)."""
+    code = f"""
+import sys
+sys.path.insert(0, {str(ROOT)!r})
+import slenderobjdet_torch
+from slenderobjdet_torch.config import get_cfg
+from slenderobjdet_torch.models import build_model
+from slenderobjdet_torch.checkpoint import bridge
+cfg = get_cfg()
+cfg.merge_from_file({str(CONFIG)!r})
+cfg.MODEL.RESNETS.DEPTH = 18
+build_model(cfg)
+bad = [m for m in sys.modules
+       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'slenderobjdet_tpu')]
+print(bad)
+assert not bad, bad
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_config_copy_equals_jax_config():
+    want, got = jax_get_cfg(), torch_get_cfg()
+    assert got.dump() == want.dump()
+    want.merge_from_file(str(CONFIG))
+    got.merge_from_file(str(CONFIG))
+    assert got.dump() == want.dump()
+
+
+def _flagship(**overrides):
+    cfg = torch_get_cfg()
+    cfg.merge_from_file(str(CONFIG))
+    cfg.MODEL.RESNETS.DEPTH = 18
+    cfg.merge_from_list([x for kv in overrides.items() for x in kv])
+    return cfg
+
+
+@pytest.mark.parametrize("key,value", [
+    ("MODEL.FCOS.USE_DCN_IN_TOWER", True),
+    ("TPU.PACK_HEAD_LEVELS", True),
+    ("TPU.INT8_PREDICT", True),
+    ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, False, False]),
+    ("MODEL.RESNETS.NORM", "GN"),
+])
+def test_unported_options_raise(key, value):
+    with pytest.raises(NotImplementedError, match=key.split(".")[-1]):
+        build_model(_flagship(**{key: value}))
+
+
+def test_unknown_meta_architecture_lists_available():
+    cfg = _flagship(**{"MODEL.META_ARCHITECTURE": "RetinaNet"})
+    with pytest.raises(KeyError, match="FCOSV2"):
+        build_model(cfg)
+
+
+def test_build_model_dtype_and_seeded_weights():
+    cfg = _flagship()
+    a = build_model(cfg, generator=torch.Generator().manual_seed(3))
+    b = build_model(cfg, generator=torch.Generator().manual_seed(3))
+    assert a.dtype == torch.bfloat16
+    for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
+        assert va.dtype == torch.float32 and torch.equal(va, vb), k
+    assert float(a.head.cls_logits.bias[0].detach()) == pytest.approx(-np.log(99.0))
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    assert build_model(cfg).dtype == torch.float32
+
+
+def test_nvcc_command_targets_sm90a():
+    cmd = _build.nvcc_command("lib.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert cmd[cmd.index("-o") + 1] == "lib.so"
+    for src in _build.SOURCES:
+        assert (_build.CSRC / src).exists()
+        assert any(c.endswith(src) for c in cmd)
+    assert _build.BUILD_ROOT == ROOT / "build" / "torch_kernels"
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    x = torch.zeros(1, 8, 8, 3, device="meta")
+    with pytest.raises(ValueError):
+        _build.require_cuda("fused_stem", x)
+    with pytest.raises(TypeError):
+        _build.dtype_code("fused_stem", torch.float16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_match_plain_on_gpu(dtype):
+    """Each CUDA kernel against its plain version on the card, at small
+    shapes (chip_smoke.py covers the main path's shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from slenderobjdet_torch.ops import fused_bottleneck as fb
+    from slenderobjdet_torch.ops import fused_stem as fs
+    from slenderobjdet_torch.ops import nms
+
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    tol = 1e-4 if dt == torch.float32 else 3e-2
+    g = torch.Generator().manual_seed(0)
+    dev = torch.device("cuda")
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to(dev)
+
+    def err(a, b):
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+    x = rnd(2, 48, 40, 3).to(dt)
+    args = (rnd(7, 7, 3, 64, s=0.1), rnd(64).abs() + 0.5, rnd(64, s=0.1))
+    assert err(fs.fused_stem(x, *args), fs.reference_stem(x, *args)) <= tol
+
+    for cin, cm, cout, proj in ((64, 16, 64, True), (64, 32, 64, False),
+                                (96, 64, 96, False), (64, 32, 128, True)):
+        x = torch.relu(rnd(2, 13, 21, cin)).to(dt)
+        args = (rnd(cin, cm, s=0.1), rnd(cm, s=0.1), rnd(3, 3, cm, cm, s=0.1),
+                rnd(cm, s=0.1), rnd(cm, cout, s=0.1), rnd(cout, s=0.1))
+        args += (rnd(cin, cout, s=0.1), rnd(cout, s=0.1)) if proj else (None, None)
+        assert err(fb.fused_bottleneck(x, *args),
+                   fb.reference_bottleneck(x, *args)) <= tol
+
+    rs = np.random.RandomState(0)
+    xy = rs.randint(0, 40, (3, 500, 2))
+    boxes = torch.tensor(np.concatenate([xy, xy + rs.randint(5, 30, (3, 500, 2))], 2),
+                         dtype=torch.float32, device=dev)
+    scores = torch.rand(3, 500, generator=g).to(dev)
+    classes = torch.randint(0, 3, (3, 500), generator=g).to(dev)
+    got = nms.cuda_batched_nms(boxes, scores, classes, 0.6, 50)
+    want = nms.batched_nms(boxes, scores, classes, 0.6, 50)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
