@@ -13,15 +13,27 @@ if it fails:
    error / max abs value <= 1e-4 in fp32, <= 3e-2 in bf16.
 3. Fused bottleneck kernel vs ``reference_bottleneck`` at the five distinct
    stride-1 block shapes of R-50 at 800x1344, B=8, same tolerances.
-4. The main path: ``build_model`` on configs/fcos/fcos_R_50_FPN_1x.yaml with
-   FUSED_STEM and FUSED_BLOCKS on, bf16, seeded random weights, answering 3
-   requests of 8 uint8 800x1344 images. Launch counts are reset just before
-   and read just after; all three kernels must have run. The outputs are
-   checked for shape and finiteness and against the same weights with the
-   flags off (the cuDNN path).
+4. The predict path: ``build_model`` on configs/fcos/fcos_R_50_FPN_1x.yaml
+   with FUSED_STEM and FUSED_BLOCKS on, bf16, seeded random weights,
+   answering 3 requests of 8 uint8 800x1344 images. Launch counts are reset
+   just before and read just after; its three kernels must have run. The
+   outputs are checked for shape and finiteness and against the same
+   weights with the flags off (the cuDNN path).
 5. Timings with CUDA events after warm-up: each kernel against its plain
    version at the main-path shapes, and predict img/s at B=8 and B=32 with
    the fused flags on and off.
+6. The probe tools: every variant of the fused-kernel probe against its
+   plain version at res2_1, res4_1 and res5_1 (B=8; ``full`` bit-exact with
+   ``fused_bottleneck``, the others within 3e-2), the DMA-streams tokens
+   (relative 1e-5) and the copies (bit-exact); then the three tools'
+   ``main`` at B=8 with the launch counts reset before and read after.
+7. The train step at full width (800x1344, bf16, FUSED_STEM/FUSED_BLOCKS
+   on): one step's gradients of a res3, res4, res5 and head weight from the
+   fused bf16 model must be non-zero and no further from an fp32 model's
+   than 1.5 x the unfused bf16 model's (B=2); 11 steps on one batch of
+   SOLVER.IMS_PER_BATCH (16) images with WARMUP_ITERS 0 must launch both
+   fused kernels, keep every loss finite and end below step 0's total;
+   train img/s with the flags on and off and the peak device memory.
 
 Prints the card's ``nvidia-smi`` name and power limit, a JSON line of the
 kernels, and as the last line ``{"ok": true, "device": {...}}``. Exits
@@ -31,7 +43,6 @@ non-zero, printing no result, without a CUDA device or on any failure.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 import traceback
@@ -39,12 +50,20 @@ import traceback
 import numpy as np
 import torch
 
+from slenderobjdet_torch.tools.card import card_line, cuda_ms
+
 FP32_TOL = 1e-4      # max|diff| / max|ref|, fp32 kernel vs fp32 plain
 BF16_TOL = 3e-2      # the same ratio, bf16 kernel vs bf16 plain
 HEAD_FACTOR = 1.5    # head outputs: fused error vs fp32 <= 1.5 x unfused's
 HEAD_TOL = 0.15      # and <= this ratio (bf16 rounds ~60 layers deep)
 SCORE_TOL = 2e-2     # fused vs unfused: scores of matched detections
 MATCH_MIN = 0.99     # fused vs unfused: share of detection slots matched
+
+PREDICT_KERNELS = ("nms", "fused_stem", "fused_bottleneck")
+PROBE_KERNELS = ("fused_kernel_probe", "dma_streams_probe", "bw_probe")
+GRAD_FACTOR = 1.5    # train: fused gradient error vs fp32 <= 1.5 x unfused's
+TRAIN_STEPS = 10     # train: steps after step 0 on one batch
+DMA_RTOL = 1e-5      # DMA probe tokens: fp32 sums of the same bf16 values
 
 # R-50 stride-1 bottleneck shapes at 800x1344: name, H, W, Cin, Cm, Cout,
 # projection shortcut, and how many of the 13 fused blocks have this shape.
@@ -59,21 +78,6 @@ BLOCKS = [
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over iters launches, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def ratio(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -324,9 +328,9 @@ def phase_main_path(kernels, dev, model, plain, ref32):
     torch.cuda.synchronize()
     counts = _build.launch_counts()
     log(f"main path launches over 3 requests of B=8: {counts}")
-    for name, n in counts.items():
-        kernels[name]["launches"] = n
-        if n <= 0:
+    for name in PREDICT_KERNELS:
+        kernels[name]["launches"] = counts[name]
+        if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     for out in outs:
         check_outputs(out, 8)
@@ -377,14 +381,210 @@ def phase_throughput(model, plain):
                 f"{batch / dt:.2f} img/s")
 
 
+def phase_probes(kernels, dev):
+    """Each probe kernel against its plain version, then the probe tools'
+    entry points with the launch counts reset before and read after."""
+    from slenderobjdet_torch.ops import _build
+    from slenderobjdet_torch.ops.bw_probe import bw_copy, reference_copy
+    from slenderobjdet_torch.ops.dma_streams_probe import (dma_streams,
+                                                           reference_dma_streams)
+    from slenderobjdet_torch.ops.fused_bottleneck import (PROBE_MODES,
+                                                          fused_bottleneck,
+                                                          probe_variant,
+                                                          reference_probe_variant)
+    from slenderobjdet_torch.tools import bw_probe, dma_streams_probe, fused_kernel_probe
+
+    worst = 0.0
+    ms = plain_ms = 0.0
+    for name in ("res2_1", "res4_1", "res5_1"):
+        h, w, cin, cm, cout = fused_kernel_probe.BLOCKS[name]
+        x, weights = fused_kernel_probe.block_inputs(8, h, w, cin, cm, cout, dev, seed=5)
+        main = fused_bottleneck(x, *weights)
+        for mode in PROBE_MODES:
+            got = probe_variant(mode, x, *weights)
+            want = reference_probe_variant(mode, x, *weights)
+            torch.cuda.synchronize()
+            err = ratio(got, want)
+            worst = max(worst, float((got.double() - want.double()).abs().max()))
+            exact = torch.equal(got, main) if mode == "full" else None
+            log(f"probe {name} {mode}: err ratio {err:.3e} (tol {BF16_TOL})"
+                + ("" if exact is None else f", == fused_bottleneck: {exact}"))
+            if not err <= BF16_TOL or exact is False:
+                raise AssertionError(f"probe {name} {mode}: err {err}, exact {exact}")
+            if name == "res2_1":
+                ms += cuda_ms(lambda: probe_variant(mode, x, *weights), 5)
+                plain_ms += cuda_ms(lambda: reference_probe_variant(mode, x, *weights), 3)
+            del got, want
+        del x, weights, main
+        torch.cuda.empty_cache()
+    log(f"time fused-kernel probe, the six variants at res2_1 B=8: kernels "
+        f"{ms:.4f} ms, plain versions {plain_ms:.4f} ms")
+    kernels["fused_kernel_probe"].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(8, 200, 336, 256, generator=g, device=dev).to(torch.bfloat16)
+    worst = 0.0
+    for th, n in ((40, 1), (40, 2), (40, 4), (40, 8), (8, 3), (33, 5)):
+        got, want = dma_streams(x, th, n), reference_dma_streams(x, th)
+        torch.cuda.synchronize()
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-12)).max())
+        worst = max(worst, float((got - want).abs().max()))
+        log(f"dma streams th={th} N={n}: {tuple(got.shape)} tokens, max rel err {rel:.3e}")
+        if not rel <= DMA_RTOL:
+            raise AssertionError(f"dma streams th={th} N={n}: rel err {rel}")
+    kernels["dma_streams_probe"].update(
+        max_abs_err=worst, ms=cuda_ms(lambda: dma_streams(x, 40, 1), 10),
+        plain_ms=cuda_ms(lambda: reference_dma_streams(x, 40), 10))
+    for mode in ("blocked", "chunked"):
+        for th in (32, 7, 200):
+            if not torch.equal(bw_copy(x, th, mode), reference_copy(x)):
+                raise AssertionError(f"bw copy {mode} th={th} != x * 0.5")
+    log("bw copy blocked/chunked at th 32, 7, 200: bit-exact with x * 0.5")
+    kernels["bw_probe"].update(
+        max_abs_err=0.0, ms=cuda_ms(lambda: bw_copy(x, 32, "blocked"), 10),
+        plain_ms=cuda_ms(lambda: reference_copy(x), 10))
+    del x
+    torch.cuda.empty_cache()
+
+    _build.reset_launch_counts()
+    fused_kernel_probe.main(["--batch", "8", "--iters", "3"])
+    dma_streams_probe.main(["--batch", "8"])
+    bw_probe.main(["--batch", "8"])
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    log(f"probe tools launches at B=8: {counts}")
+    for name in PROBE_KERNELS:
+        kernels[name]["launches"] = counts[name]
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by its probe tool")
+
+
+def train_cfg(fused: bool, dtype: str = "bfloat16"):
+    cfg = flagship_cfg(fused, dtype)
+    cfg.defrost()
+    cfg.SOLVER.WARMUP_ITERS = 0      # a test setting: full LR from step 0
+    cfg.freeze()
+    return cfg
+
+
+def train_batch(batch: int, seed: int, gt_pad: int = 100):
+    """uint8 800x1344 images and gt_pad integer-pixel boxes per image, of
+    which 5-30 are valid."""
+    rs = np.random.RandomState(seed)
+    x1 = rs.randint(0, 1344 - 16, (batch, gt_pad))
+    y1 = rs.randint(0, 800 - 16, (batch, gt_pad))
+    x2 = np.minimum(x1 + rs.randint(16, 400, (batch, gt_pad)), 1344)
+    y2 = np.minimum(y1 + rs.randint(16, 400, (batch, gt_pad)), 800)
+    n_valid = rs.randint(5, 31, batch)
+    return {
+        "image": rs.randint(0, 256, (batch, 800, 1344, 3)).astype(np.uint8),
+        "gt_boxes": np.stack([x1, y1, x2, y2], -1).astype(np.float32),
+        "gt_classes": rs.randint(0, 80, (batch, gt_pad)).astype(np.int32),
+        "gt_valid": np.arange(gt_pad)[None, :] < n_valid[:, None],
+    }
+
+
+def phase_train(dev):
+    """The FCOS train step at full width, entered as a trainer does:
+    build_model, build_optimizer, make_train_step, step(batch)."""
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.models.layers import FrozenBatchNorm
+    from slenderobjdet_torch.ops import _build
+    from slenderobjdet_torch.solver import build_optimizer
+
+    gen = torch.Generator().manual_seed(7)
+    weights = None
+    models = {}
+    for key, fused, dtype in (("fused", True, "bfloat16"), ("unfused", False, "bfloat16"),
+                              ("fp32", False, "float32")):
+        m = build_model(train_cfg(fused, dtype), device=dev, generator=gen)
+        if weights is None:
+            with torch.no_grad():
+                for mod in m.modules():
+                    if isinstance(mod, FrozenBatchNorm):
+                        n = mod.scale.numel()
+                        mod.scale.copy_(torch.rand(n, generator=gen) * 0.5 + 0.75)
+                        mod.bias.copy_(torch.randn(n, generator=gen) * 0.05)
+            weights = {k: v.clone() for k, v in m.state_dict().items()}
+        else:
+            m.load_state_dict(weights)
+        models[key] = m
+
+    # (b) one step's gradients, three models from the same weights
+    names = ["backbone.bottom_up.res3_1.conv2.weight", "backbone.bottom_up.res4_1.conv2.weight",
+             "backbone.bottom_up.res5_1.conv2.weight", "head.cls_tower0.weight"]
+    small = train_batch(2, seed=8)
+    grads = {}
+    for key, m in models.items():
+        build_optimizer(train_cfg(key == "fused"), m)     # applies FREEZE_AT
+        _build.reset_launch_counts()
+        total, _ = m.loss(small)
+        total.backward()
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        if key == "fused" and not (counts["fused_stem"] > 0 and counts["fused_bottleneck"] > 0):
+            raise AssertionError(f"fused train forward launched {counts}")
+        params = dict(m.named_parameters())
+        grads[key] = {n: params[n].grad.detach().float().clone() for n in names}
+        log(f"train grads {key}: total loss {float(total.detach()):.5f}")
+        m.zero_grad(set_to_none=True)
+    for n in names:
+        gf, gu, g32 = grads["fused"][n], grads["unfused"][n], grads["fp32"][n]
+        e_f, e_u = ratio(gf, g32), ratio(gu, g32)
+        log(f"grad {n}: max|g| fused {float(gf.abs().max()):.3e}, err ratio vs fp32 "
+            f"fused {e_f:.3e}, unfused bf16 {e_u:.3e} (fused <= {GRAD_FACTOR} x unfused)")
+        if not (float(gf.abs().max()) > 0 and e_f <= GRAD_FACTOR * e_u):
+            raise AssertionError(f"grad {n}: fused err {e_f}, unfused {e_u}")
+    del models["fp32"], grads
+    torch.cuda.empty_cache()
+
+    # (a), (c), (d): steps on one batch of IMS_PER_BATCH images, the two
+    # models in turns; each one's first turn is the TRAIN_STEPS + 1 steps
+    # whose loss must fall
+    batch_size = train_cfg(True).SOLVER.IMS_PER_BATCH
+    batch = train_batch(batch_size, seed=9)
+    steps = {}
+    for key in ("fused", "unfused"):
+        cfg = train_cfg(key == "fused")
+        steps[key] = make_train_step(models[key], build_optimizer(cfg, models[key]), cfg)
+    for turn, key in enumerate(("fused", "unfused", "fused", "unfused")):
+        first = turn < 2
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        totals, times, parts = [], [], []
+        for i in range(TRAIN_STEPS + 1 if first else 4):
+            t0 = time.perf_counter()
+            metrics = steps[key](batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            if not all(np.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"train {key} step {i}: non-finite {metrics}")
+            totals.append(metrics["total_loss"])
+            parts.append(" ".join(f"{k.split('_')[0]} {metrics[k]:.3f}" for k in
+                                  ("cls_loss", "reg_loss", "centerness_loss", "num_pos")))
+        counts = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steady = times[2:] if first else times
+        log(f"train {key} B={batch_size}: totals {[round(t, 4) for t in totals]}; "
+            f"{np.mean(steady) * 1e3:.1f} ms/step, {batch_size / np.mean(steady):.2f} "
+            f"img/s, peak {peak:.2f} GiB; launches {counts}")
+        log(f"train {key}: first step {parts[0]}; last step {parts[-1]}")
+        if key == "fused" and not (counts["fused_stem"] > 0 and counts["fused_bottleneck"] > 0):
+            raise AssertionError(f"fused train steps launched {counts}")
+        if first and not totals[-1] < totals[0]:
+            raise AssertionError(f"train {key}: total {totals[-1]} after {TRAIN_STEPS} "
+                                 f"steps is not below step 0's {totals[0]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
               "a CUDA device", file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi, flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -409,6 +609,14 @@ def main() -> int:
         "fused_bottleneck": {"name": "fused_bottleneck", "route": "cuda",
                              "source": f"{src}/fused_bottleneck.cu",
                              "replaces": "slenderobjdet_tpu/ops/fused_bottleneck.py:55"},
+        "fused_kernel_probe": {"name": "fused_kernel_probe", "route": "cuda",
+                               "source": f"{src}/fused_bottleneck.cu",
+                               "replaces": "tools/fused_kernel_probe.py:38"},
+        "dma_streams_probe": {"name": "dma_streams_probe", "route": "cuda",
+                              "source": f"{src}/dma_streams_probe.cu",
+                              "replaces": "tools/dma_streams_probe.py:28"},
+        "bw_probe": {"name": "bw_probe", "route": "cuda", "source": f"{src}/bw_probe.cu",
+                     "replaces": "tools/pallas_bw_probe.py:37"},
     }
     failed = []
 
@@ -434,6 +642,11 @@ def main() -> int:
         del models[2]
         torch.cuda.empty_cache()
         run("throughput", phase_throughput, *models)
+    models.clear()
+    torch.cuda.empty_cache()
+    run("probes", phase_probes, kernels, dev)
+    torch.cuda.empty_cache()
+    run("train", phase_train, dev)
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

@@ -25,13 +25,16 @@ from typing import Dict, List, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("nms.cu", "fused_stem.cu", "fused_bottleneck.cu")
+SOURCES = ("nms.cu", "fused_stem.cu", "fused_bottleneck.cu",
+           "dma_streams_probe.cu", "bw_probe.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libslenderobjdet_kernels.so"
 # Hopper only: sm_90a, the target that also admits wgmma and setmaxnreg.
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-LAUNCHES: Dict[str, int] = {"nms": 0, "fused_stem": 0, "fused_bottleneck": 0}
+LAUNCHES: Dict[str, int] = {"nms": 0, "fused_stem": 0, "fused_bottleneck": 0,
+                            "fused_kernel_probe": 0, "dma_streams_probe": 0,
+                            "bw_probe": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -44,6 +47,10 @@ _SIGNATURES = {
     "fused_stem_smem_bytes": [_I],
     "fused_bottleneck_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _P],
+    "fused_probe_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _P],
+    "dma_streams_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bw_probe_launch": [_I, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -34,6 +34,12 @@
 // thread owning a 4 x 4 register tile of the chunk. The tile is the largest
 // of a fixed list whose a1 + a2 fit in shared memory: 8x16 pixels for
 // res2-res4 in bf16, 8x8 for res5.
+//
+// The tensor-core kernel takes a compile-time ProbeMode. The model runs
+// kFull; the other modes strip one part each for the bisection probe
+// (`fused_probe_launch`), which also replaces tools/fused_kernel_probe.py's
+// Pallas variants (`make_kernel`). They are separate instantiations, so the
+// model's kernel is the same machine code with or without them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -396,6 +402,98 @@ __device__ __forceinline__ __nv_bfloat162 relu_pair(float a, float b) {
   return __floats2bfloat162_rn(fmaxf(a, 0.f), fmaxf(b, 0.f));
 }
 
+// Variants of the tensor-core kernel for the bisection probe
+// (slenderobjdet_torch/tools/fused_kernel_probe.py; the TPU counterpart is
+// tools/fused_kernel_probe.py:make_kernel). kFull is the kernel the model
+// runs; each other mode is a separate instantiation that strips one part:
+//   kNoRolls  every 3x3 tap reads a1 without its column shift (the TPU
+//             probe's dropped pltpu.roll): the ldmatrix row gather keeps the
+//             tap's row shift only;
+//   kNoTap    conv2 is the centre tap only (Cm/32 steps instead of 9x that);
+//   kNoConv2  a2 = the a1 centre rows, no conv2;
+//   kDmaOnly  every channel of the halo tile streams through the cp.async
+//             ring, as conv1 reads it; out[p, c] = x[p, c % cc] * 0.5 with
+//             cc = min(Cin, Cout, 128) (the TPU probe's channel chunk);
+//   kNoDma    no read: out[b, y, x, c] = b + y, the output write alone.
+enum ProbeMode { kFull = 0, kNoRolls, kNoTap, kNoConv2, kDmaOnly, kNoDma };
+
+__device__ __forceinline__ uint4 half_bf16x8(uint4 v) {
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = __floats2bfloat162_rn(__low2float(h[i]) * 0.5f,
+                                 __high2float(h[i]) * 0.5f);
+  return v;
+}
+
+// kDmaOnly: stream the halo tile of x through the ring 32 channels at a
+// time, keep the centre pixels' first cc channels in `keep` ([P][cc + 8]),
+// then write the output from them.
+__device__ __forceinline__ void probe_dma_only(const Args<bf16>& p, bf16* As,
+                                               bf16* keep, int b, int h0,
+                                               int w0) {
+  const int TH = p.TH, TW = p.TW, HW2 = TW + 2;
+  const int P = TH * TW, P1 = (TH + 2) * HW2;
+  const int H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
+  const int cc = min(min(Cin, Cout), 128), ldk = cc + 8;
+  const int tid = threadIdx.x, m = tid >> 2, q = tid & 3;
+  const bf16* xb = p.x + (size_t)b * H * W * Cin;
+  const int nsteps = Cin / KT;
+  for (int m0 = 0; m0 < P1; m0 += MT) {
+    const int hp = m0 + m;
+    const int gy = h0 - 1 + hp / HW2, gx = w0 - 1 + hp % HW2;
+    const bool inside = hp < P1 && gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const bf16* src = xb + ((size_t)gy * W + gx) * Cin + q * 8;
+    const int cy = hp / HW2 - 1, cx = hp % HW2 - 1;   // centre coordinates
+    const bool centre = hp < P1 && cy >= 0 && cy < TH && cx >= 0 && cx < TW;
+    auto load = [&](int s) {
+      cp_async16(As + (s & 1) * A_SLOT + m * LDS_A + q * 8,
+                 inside ? src + s * KT : p.x, inside);
+    };
+    load(0);
+    asm volatile("cp.async.commit_group;\n" ::);
+    for (int s = 0; s < nsteps; ++s) {
+      if (s + 1 < nsteps) load(s + 1);
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+      __syncthreads();
+      if (centre && s * KT + q * 8 < cc)
+        *reinterpret_cast<uint4*>(keep + (size_t)(cy * TW + cx) * ldk +
+                                  s * KT + q * 8) =
+            *reinterpret_cast<const uint4*>(As + (s & 1) * A_SLOT +
+                                            m * LDS_A + q * 8);
+      __syncthreads();
+    }
+  }
+  const int cv = Cout / 8;
+  for (int e = tid; e < P * cv; e += kThreads) {
+    const int pm = e / cv, c = (e % cv) * 8;
+    const int gy = h0 + pm / TW, gx = w0 + pm % TW;
+    if (gy >= H || gx >= W) continue;
+    const uint4 v =
+        *reinterpret_cast<const uint4*>(keep + (size_t)pm * ldk + c % cc);
+    *reinterpret_cast<uint4*>(p.out + (((size_t)b * H + gy) * W + gx) * Cout +
+                              c) = half_bf16x8(v);
+  }
+}
+
+// kNoDma: out[b, y, x, c] = b + y over the tile, nothing read.
+__device__ __forceinline__ void probe_no_dma(const Args<bf16>& p, int b,
+                                             int h0, int w0) {
+  const int TW = p.TW, P = p.TH * TW, cv = p.Cout / 8;
+  for (int e = threadIdx.x; e < P * cv; e += kThreads) {
+    const int pm = e / cv, c = (e % cv) * 8;
+    const int gy = h0 + pm / TW, gx = w0 + pm % TW;
+    if (gy >= p.H || gx >= p.W) continue;
+    const __nv_bfloat162 v = __float2bfloat162_rn((float)(b + gy));
+    uint4 o;
+    o.x = o.y = o.z = o.w = *reinterpret_cast<const uint32_t*>(&v);
+    *reinterpret_cast<uint4*>(p.out + (((size_t)b * p.H + gy) * p.W + gx) *
+                                          p.Cout + c) = o;
+  }
+}
+
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 bottleneck_tc_kernel(Args<bf16> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -416,6 +514,14 @@ bottleneck_tc_kernel(Args<bf16> p) {
   auto x_at = [&](int gy, int gx) -> const bf16* {
     return xb + ((size_t)gy * W + gx) * Cin;
   };
+  if constexpr (kMode == kNoDma) {
+    probe_no_dma(p, b, h0, w0);
+    return;
+  }
+  if constexpr (kMode == kDmaOnly) {
+    probe_dma_only(p, As, a1, b, h0, w0);
+    return;
+  }
 
   // ---- 1. a1 over the halo tile
   for (int m0 = 0; m0 < P1; m0 += MT) {
@@ -448,18 +554,28 @@ bottleneck_tc_kernel(Args<bf16> p) {
 
   // ---- 2. a2 = 3x3 conv of a1 over the tile: 9 taps x Cm/KT steps
   const int kc = Cm / KT;
-  for (int m0 = 0; m0 < P; m0 += MT) {
+  if constexpr (kMode == kNoConv2) {
+    for (int e = threadIdx.x; e < P * (Cm / 8); e += kThreads) {
+      const int pm = e / (Cm / 8), c = (e % (Cm / 8)) * 8;
+      const int hp = (pm / TW + 1) * HW2 + pm % TW + 1;
+      *reinterpret_cast<uint4*>(a2 + (size_t)pm * lda + c) =
+          *reinterpret_cast<const uint4*>(a1 + (size_t)hp * lda + c);
+    }
+  }
+  for (int m0 = 0; m0 < P && kMode != kNoConv2; m0 += MT) {
     for (int n0 = 0; n0 < Cm; n0 += NT) {
       float acc[4][4] = {};
       tc_chunk<false>(
-          As, Bs, 9 * kc, Cm - n0,
+          As, Bs, (kMode == kNoTap ? 1 : 9) * kc, Cm - n0,
           [&](int s, int m) -> const bf16* {
-            const int tap = s / kc, pm = min(m0 + m, P - 1);
-            const int hp = (pm / TW + tap / 3) * HW2 + pm % TW + tap % 3;
+            const int tap = kMode == kNoTap ? 4 : s / kc;
+            const int pm = min(m0 + m, P - 1);
+            const int hp = (pm / TW + tap / 3) * HW2 + pm % TW +
+                           (kMode == kNoRolls ? 1 : tap % 3);
             return a1 + (size_t)hp * lda + (s % kc) * KT;
           },
           [&](int s, int k) {
-            const int tap = s / kc;
+            const int tap = kMode == kNoTap ? 4 : s / kc;
             return p.w2 + ((size_t)tap * Cm + (s % kc) * KT + k) * Cm + n0;
           },
           acc);
@@ -545,61 +661,69 @@ bool tc_eligible(const void* const* ptrs, int n, int Cin, int Cm, int Cout) {
   return true;
 }
 
+// The largest tile of a fixed list whose buffers fit in `limit` bytes of
+// shared memory.
+bool pick_tile(bool tc, int Cm, int itemsize, int limit, int* th, int* tw,
+               int* smem) {
+  static const int kTiles[][2] = {{8, 16}, {8, 8}, {4, 8}, {4, 4},
+                                  {2, 4},  {2, 2}, {1, 2}, {1, 1}};
+  for (const auto& t : kTiles) {
+    *smem = tc ? tc_smem_bytes(t[0], t[1], Cm)
+               : smem_bytes(t[0], t[1], Cm, itemsize);
+    if (*smem <= limit) {
+      *th = t[0];
+      *tw = t[1];
+      return true;
+    }
+  }
+  return false;
+}
+
+int smem_limit(int* limit) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaDeviceGetAttribute(
+      limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+template <typename T>
+Args<T> make_args(const void* x, const void* w1, const void* b1,
+                  const void* w2, const void* b2, const void* w3,
+                  const void* b3, const void* wsc, const void* bsc, void* out,
+                  int H, int W, int Cin, int Cm, int Cout, int th, int tw) {
+  return Args<T>{(const T*)x,   (const T*)w1,      (const float*)b1,
+                 (const T*)w2,  (const float*)b2,  (const T*)w3,
+                 (const float*)b3, (const T*)wsc,  (const float*)bsc,
+                 (T*)out, H, W, Cin, Cm, Cout, th, tw};
+}
+
 template <typename T>
 int launch(const void* x, const void* w1, const void* b1, const void* w2,
            const void* b2, const void* w3, const void* b3, const void* wsc,
            const void* bsc, void* out, int batch, int H, int W, int Cin,
            int Cm, int Cout, cudaStream_t stream) {
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&limit,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int limit = 0;
+  cudaError_t err = (cudaError_t)smem_limit(&limit);
   if (err != cudaSuccess) return (int)err;
   bool tc = false;
   if constexpr (std::is_same<T, bf16>::value) {
     const void* ptrs[] = {x, w1, w2, w3, wsc, out};
     tc = tc_eligible(ptrs, 6, Cin, Cm, Cout);
   }
-  static const int kTiles[][2] = {{8, 16}, {8, 8}, {4, 8}, {4, 4},
-                                  {2, 4},  {2, 2}, {1, 2}, {1, 1}};
   int th = 0, tw = 0, smem = 0;
-  for (const auto& t : kTiles) {
-    smem = tc ? tc_smem_bytes(t[0], t[1], Cm)
-              : smem_bytes(t[0], t[1], Cm, (int)sizeof(T));
-    if (smem <= limit) {
-      th = t[0];
-      tw = t[1];
-      break;
-    }
-  }
-  if (th == 0) return (int)cudaErrorInvalidConfiguration;
-  Args<T> a;
-  a.x = (const T*)x;
-  a.w1 = (const T*)w1;
-  a.b1 = (const float*)b1;
-  a.w2 = (const T*)w2;
-  a.b2 = (const float*)b2;
-  a.w3 = (const T*)w3;
-  a.b3 = (const float*)b3;
-  a.wsc = (const T*)wsc;
-  a.bsc = (const float*)bsc;
-  a.out = (T*)out;
-  a.H = H;
-  a.W = W;
-  a.Cin = Cin;
-  a.Cm = Cm;
-  a.Cout = Cout;
-  a.TH = th;
-  a.TW = tw;
+  if (!pick_tile(tc, Cm, (int)sizeof(T), limit, &th, &tw, &smem))
+    return (int)cudaErrorInvalidConfiguration;
+  const Args<T> a = make_args<T>(x, w1, b1, w2, b2, w3, b3, wsc, bsc, out, H,
+                                 W, Cin, Cm, Cout, th, tw);
   dim3 grid((W + tw - 1) / tw, (H + th - 1) / th, batch);
   if constexpr (std::is_same<T, bf16>::value) {
     if (tc) {
-      err = cudaFuncSetAttribute(bottleneck_tc_kernel,
+      err = cudaFuncSetAttribute(bottleneck_tc_kernel<kFull>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem);
       if (err != cudaSuccess) return (int)err;
-      bottleneck_tc_kernel<<<grid, kThreads, smem, stream>>>(a);
+      bottleneck_tc_kernel<kFull><<<grid, kThreads, smem, stream>>>(a);
       return (int)cudaGetLastError();
     }
   }
@@ -608,6 +732,18 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2,
                              smem);
   if (err != cudaSuccess) return (int)err;
   bottleneck_kernel<T><<<grid, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// One probe variant on the tile the model's kernel picks for these shapes.
+template <int kMode>
+int probe_launch(const Args<bf16>& a, dim3 grid, int smem,
+                 cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      bottleneck_tc_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  bottleneck_tc_kernel<kMode><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -631,6 +767,44 @@ int fused_bottleneck_launch(int dtype, const void* x, const void* w1,
   return launch<__nv_bfloat16>(x, w1, b1, w2, b2, w3, b3, wsc, bsc, out,
                                batch, H, W, Cin, Cm, Cout,
                                (cudaStream_t)stream);
+}
+
+// One variant of the bf16 tensor-core kernel (see ProbeMode) for an
+// identity block: mode 0 full, 1 norolls, 2 notap, 3 noconv2, 4 dmaonly,
+// 5 nodma. Other arguments as for fused_bottleneck_launch, bf16 only.
+// Returns cudaErrorInvalidValue for blocks the tensor-core kernel does not
+// take, else cudaGetLastError().
+int fused_probe_launch(int mode, const void* x, const void* w1,
+                       const void* b1, const void* w2, const void* b2,
+                       const void* w3, const void* b3, void* out, int batch,
+                       int H, int W, int Cin, int Cm, int Cout, void* stream) {
+  const void* ptrs[] = {x, w1, w2, w3, out};
+  if (!tc_eligible(ptrs, 5, Cin, Cm, Cout) || Cin != Cout || mode < 0 ||
+      mode > kNoDma)
+    return (int)cudaErrorInvalidValue;
+  int limit = 0;
+  cudaError_t err = (cudaError_t)smem_limit(&limit);
+  if (err != cudaSuccess) return (int)err;
+  int th = 0, tw = 0, smem = 0;
+  if (!pick_tile(true, Cm, 2, limit, &th, &tw, &smem))
+    return (int)cudaErrorInvalidConfiguration;
+  // kDmaOnly keeps P x (cc + 8) values where the other modes keep a1 and a2
+  const int keep = RING_BYTES + th * tw * ((Cin < 128 ? Cin : 128) + 8) * 2;
+  if (mode == kDmaOnly && keep > smem) smem = keep;
+  if (smem > limit) return (int)cudaErrorInvalidConfiguration;
+  const Args<bf16> a = make_args<bf16>(x, w1, b1, w2, b2, w3, b3, nullptr,
+                                       nullptr, out, H, W, Cin, Cm, Cout, th,
+                                       tw);
+  const dim3 grid((W + tw - 1) / tw, (H + th - 1) / th, batch);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case kFull: return probe_launch<kFull>(a, grid, smem, s);
+    case kNoRolls: return probe_launch<kNoRolls>(a, grid, smem, s);
+    case kNoTap: return probe_launch<kNoTap>(a, grid, smem, s);
+    case kNoConv2: return probe_launch<kNoConv2>(a, grid, smem, s);
+    case kDmaOnly: return probe_launch<kDmaOnly>(a, grid, smem, s);
+    default: return probe_launch<kNoDma>(a, grid, smem, s);
+  }
 }
 
 }  // extern "C"

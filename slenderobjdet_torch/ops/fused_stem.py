@@ -3,8 +3,10 @@
 
 - ``reference_stem``: the plain PyTorch version (``F.conv2d`` +
   ``F.max_pool2d``), the kernel's oracle.
-- ``fused_stem``: the wrapper of the CUDA kernel ``csrc/fused_stem.cu``; CPU
-  tensors take ``reference_stem``.
+- ``fused_stem``: a ``torch.autograd.Function`` around the CUDA kernel
+  ``csrc/fused_stem.cu``; CPU tensors take ``reference_stem``. Its backward
+  is autograd of ``reference_stem`` on the saved inputs, as the JAX
+  package's ``custom_vjp`` differentiates the XLA composition.
 - ``stem_eligible``: the static gate the backbone checks.
 
 Layouts are the JAX package's: x NHWC (B, H, W, 3), w HWIO (7, 7, 3, Cs),
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .fused_bottleneck import reference_grads
 
 
 def stem_eligible(x_shape, w_shape) -> bool:
@@ -43,11 +46,7 @@ def reference_stem(x, w, scale, bias):
     return y.permute(0, 2, 3, 1)
 
 
-def fused_stem(x, w, scale, bias):
-    """Fused stem forward through the CUDA kernel for CUDA tensors; CPU
-    tensors take ``reference_stem``."""
-    if x.device.type == "cpu":
-        return reference_stem(x, w, scale, bias)
+def _launch(x, w, scale, bias):
     _build.require_cuda("fused_stem", x, w, scale, bias)
     code = _build.dtype_code("fused_stem", x.dtype)
     b, h, wd, _ = x.shape
@@ -70,3 +69,24 @@ def fused_stem(x, w, scale, bias):
     _build.check(rc, "fused_stem_launch")
     _build.LAUNCHES["fused_stem"] += 1
     return out
+
+
+class _FusedStem(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, scale, bias):
+        ctx.save_for_backward(x, w, scale, bias)
+        if x.device.type == "cpu":
+            return reference_stem(x, w, scale, bias)
+        return _launch(x, w, scale, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reference_grads(reference_stem, ctx.saved_tensors,
+                               ctx.needs_input_grad, g)
+
+
+def fused_stem(x, w, scale, bias):
+    """Fused stem forward through the CUDA kernel for CUDA tensors (CPU
+    tensors take ``reference_stem``); differentiable, with the gradients of
+    ``reference_stem``."""
+    return _FusedStem.apply(x, w, scale, bias)

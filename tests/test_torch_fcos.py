@@ -183,7 +183,7 @@ def test_fused_flags_on_cpu_take_the_plain_versions(pair):
     load_flax_variables(fused, variables)
     _build.reset_launch_counts()
     got = {k: v.numpy() for k, v in fused.predict(batch).items()}
-    assert _build.launch_counts() == {"nms": 0, "fused_stem": 0, "fused_bottleneck": 0}
+    assert _build.launch_counts() == dict.fromkeys(_build.LAUNCHES, 0)
     want = {k: v.numpy() for k, v in model.predict(batch).items()}
     np.testing.assert_array_equal(got["valid"], want["valid"])
     for b in range(2):

@@ -1,7 +1,9 @@
 """Packaging and boundaries of the PyTorch port: it never imports JAX or the
 JAX package, its config copy stays equal to the JAX package's, unported
 options raise, the kernel build targets sm_90a, and (on a CUDA card only)
-each kernel agrees with its plain version."""
+each kernel, its gradients and each probe kernel agree with the plain
+versions. This file imports no jax, so its card cases run on a machine
+without it (``--noconftest``)."""
 
 import subprocess
 import sys
@@ -21,8 +23,9 @@ CONFIG = ROOT / "configs/fcos/fcos_R_50_FPN_1x.yaml"
 
 
 def test_port_imports_no_jax():
-    """Importing the port and building the flagship model leaves jax, flax
-    and the JAX package out of sys.modules (a fresh interpreter)."""
+    """Importing the port (its train step and probe tools included) and
+    building the flagship model leaves jax, flax and the JAX package out of
+    sys.modules (a fresh interpreter)."""
     code = f"""
 import sys
 sys.path.insert(0, {str(ROOT)!r})
@@ -30,10 +33,13 @@ import slenderobjdet_torch
 from slenderobjdet_torch.config import get_cfg
 from slenderobjdet_torch.models import build_model
 from slenderobjdet_torch.checkpoint import bridge
+from slenderobjdet_torch.engine import make_train_step
+from slenderobjdet_torch.solver import build_optimizer
+from slenderobjdet_torch.tools import bw_probe, dma_streams_probe, fused_kernel_probe
 cfg = get_cfg()
 cfg.merge_from_file({str(CONFIG)!r})
 cfg.MODEL.RESNETS.DEPTH = 18
-build_model(cfg)
+make_train_step(build_model(cfg), build_optimizer(cfg, build_model(cfg)), cfg)
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'slenderobjdet_tpu')]
 print(bad)
@@ -153,3 +159,89 @@ def test_kernels_match_plain_on_gpu(dtype):
     got = nms.cuda_batched_nms(boxes, scores, classes, 0.6, 50)
     want = nms.batched_nms(boxes, scores, classes, 0.6, 50)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_fused_autograd_kernel_gradients_match_plain_on_gpu():
+    """On the card: gradients through the CUDA kernels at a res4-shaped
+    block (and the stem) are non-zero and match the plain versions' within
+    the bf16 tolerance of the forward checks (3e-2 of the max)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from slenderobjdet_torch.ops import _build
+    from slenderobjdet_torch.ops.fused_bottleneck import (fused_bottleneck,
+                                                          reference_bottleneck)
+    from slenderobjdet_torch.ops.fused_stem import fused_stem, reference_stem
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(11)
+
+    def t(*shape, s=1.0):
+        return torch.tensor(rs.randn(*shape).astype(np.float32) * s, device=dev)
+
+    x = torch.relu(t(2, 50, 84, 1024)).to(torch.bfloat16)
+    ws = [t(1024, 256, s=1 / 32), t(256, s=0.1), t(3, 3, 256, 256, s=1 / 48), t(256, s=0.1),
+          t(256, 1024, s=1 / 16), t(1024, s=0.1)]
+    g = t(2, 50, 84, 1024).to(torch.bfloat16)
+    grads = []
+    for fn in (fused_bottleneck, reference_bottleneck):
+        xl = x.clone().requires_grad_()
+        wl = [w.clone().requires_grad_() for w in ws]
+        _build.reset_launch_counts()
+        fn(xl, *[w.to(torch.bfloat16) if w.dim() > 1 else w for w in wl]).backward(g)
+        grads.append([xl.grad] + [w.grad for w in wl])
+        if fn is fused_bottleneck:
+            assert _build.launch_counts()["fused_bottleneck"] == 1
+    for a, b in zip(*grads):
+        assert float(a.abs().max()) > 0
+        assert float((a.double() - b.double()).abs().max() / b.double().abs().max()) <= 3e-2
+
+    xs = (t(2, 64, 96, 3) * 50).to(torch.bfloat16)
+    w, scale, bias = t(7, 7, 3, 64, s=0.1), t(64).abs() + 0.5, t(64, s=0.1)
+    sg = []
+    for fn in (fused_stem, reference_stem):
+        wl = w.clone().requires_grad_()
+        fn(xs, wl, scale, bias).float().square().sum().backward()
+        sg.append(wl.grad)
+    assert float(sg[0].abs().max()) > 0
+    assert float((sg[0] - sg[1]).abs().max() / sg[1].abs().max()) <= 3e-2
+
+
+@pytest.mark.gpu
+def test_probe_kernels_match_plain_on_gpu():
+    """Each probe kernel against its plain version on the card at small
+    shapes (chip_smoke.py covers the R-50 shapes): every fused variant
+    within the bf16 tolerance and ``full`` bit-exact with the model's
+    kernel, the DMA tokens to float32 rounding, the copies bit-exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from slenderobjdet_torch.ops.bw_probe import bw_copy, reference_copy
+    from slenderobjdet_torch.ops.dma_streams_probe import (dma_streams,
+                                                           reference_dma_streams)
+    from slenderobjdet_torch.ops.fused_bottleneck import (PROBE_MODES,
+                                                          fused_bottleneck,
+                                                          probe_variant,
+                                                          reference_probe_variant)
+    from slenderobjdet_torch.tools.fused_kernel_probe import block_inputs
+
+    def ratio(a, b):
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+    dev = torch.device("cuda")
+    for cin, cm, hw in ((64, 32, (13, 21)), (256, 64, (16, 24))):
+        x, w = block_inputs(2, *hw, cin, cm, cin, dev, seed=3)
+        main = fused_bottleneck(x, *w)
+        for mode in PROBE_MODES:
+            got = probe_variant(mode, x, *w)
+            want = reference_probe_variant(mode, x, *w)
+            assert ratio(got, want) <= 3e-2, mode
+            if mode == "full":
+                assert torch.equal(got, main)
+    x = torch.randn(2, 40, 24, 256, device=dev).to(torch.bfloat16)
+    for th, n in ((8, 1), (16, 3), (40, 8)):
+        got, want = dma_streams(x, th, n), reference_dma_streams(x, th)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-12)
+    for mode in ("blocked", "chunked"):
+        for th in (1, 7, 40):
+            assert torch.equal(bw_copy(x, th, mode), reference_copy(x))
