@@ -11,8 +11,12 @@ if it fails:
    integer-pixel boxes: indices and validity must be identical.
 2. Fused stem kernel vs ``reference_stem`` at (8, 800, 1344, 3): max abs
    error / max abs value <= 1e-4 in fp32, <= 3e-2 in bf16.
-3. Fused bottleneck kernel vs ``reference_bottleneck`` at the five distinct
-   stride-1 block shapes of R-50 at 800x1344, B=8, same tolerances.
+3. Fused bottleneck kernels vs ``reference_bottleneck`` at the five
+   distinct stride-1 block shapes of R-50 at 800x1344, B=8, same
+   tolerances; then each shape's time at B=8 and B=32 (the whole
+   ``fused_bottleneck`` call, weight re-layout included) beside the plain
+   version and the bf16 cuDNN block, with TFLOP/s; and a ``cuobjdump
+   -sass`` check that the model's wgmma kernels hold HGMMA and bulk copies.
 4. The predict path: ``build_model`` on configs/fcos/fcos_R_50_FPN_1x.yaml
    with FUSED_STEM and FUSED_BLOCKS on, bf16, seeded random weights,
    answering 3 requests of 8 uint8 800x1344 images. Launch counts are reset
@@ -25,8 +29,9 @@ if it fails:
 6. The probe tools: every variant of the fused-kernel probe against its
    plain version at res2_1, res4_1 and res5_1 (B=8; ``full`` bit-exact with
    ``fused_bottleneck``, the others within 3e-2), the DMA-streams tokens
-   (relative 1e-5) and the copies (bit-exact); then the three tools'
-   ``main`` at B=8 with the launch counts reset before and read after.
+   (relative 1e-5) and the copies (bit-exact), the DMA probe timed beside
+   a plain full read of its input; then the three tools' ``main`` at B=8
+   with the launch counts reset before and read after.
 7. The train step at full width (800x1344, bf16, FUSED_STEM/FUSED_BLOCKS
    on): one step's gradients of a res3, res4, res5 and head weight from the
    fused bf16 model must be non-zero and no further from an fp32 model's
@@ -157,13 +162,21 @@ def phase_stem(kernels, dev):
     kernels["fused_stem"].update(ms=ms, plain_ms=plain_ms)
 
 
+def block_gflop(batch, h, w, cin, cm, cout, proj):
+    """The block's multiply-adds x 2, in GFLOP."""
+    macs = cin * cm + 9 * cm * cm + cm * cout + (cin * cout if proj else 0)
+    return 2 * batch * h * w * macs / 1e9
+
+
 def phase_bottleneck(kernels, dev):
     from slenderobjdet_torch.models.backbones.resnet import BottleneckBlock
-    from slenderobjdet_torch.ops.fused_bottleneck import (fused_bottleneck,
+    from slenderobjdet_torch.ops.fused_bottleneck import (bottleneck_plan,
+                                                          fused_bottleneck,
                                                           reference_bottleneck)
 
     g = torch.Generator(device="cpu").manual_seed(2)
-    tot_ms = tot_plain = tot_unfused = 0.0
+    gd = torch.Generator(device=dev).manual_seed(2)
+    totals = {8: [0.0, 0.0, 0.0], 32: [0.0, 0.0, 0.0]}
     worst_abs = 0.0
     for name, h, wd, cin, cm, cout, proj, count in BLOCKS:
         def rnd(*shape, s=1.0):
@@ -191,26 +204,66 @@ def phase_bottleneck(kernels, dev):
             if dt == torch.bfloat16:
                 worst_abs = max(worst_abs, abs_err)
             del got, want
-        xb = x.to(torch.bfloat16)
-        ms = cuda_ms(lambda: fused_bottleneck(xb, *args), 5)
-        plain_ms = cuda_ms(lambda: reference_bottleneck(xb, *args), 5)
+        del x
         block = BottleneckBlock(cin, cout, cm).to(dev, memory_format=torch.channels_last)
-        xc = xb.permute(0, 3, 1, 2)
-        with torch.no_grad():
-            unfused_ms = cuda_ms(lambda: block(xc), 5)
-        log(f"time bottleneck {name} B=8 {h}x{wd} bf16: kernel {ms:.4f} ms, "
-            f"plain (fp32 convs) {plain_ms:.4f} ms, unfused bf16 cuDNN block "
-            f"{unfused_ms:.4f} ms")
-        tot_ms += count * ms
-        tot_plain += count * plain_ms
-        tot_unfused += count * unfused_ms
-        del x, xb, xc, block
-        torch.cuda.empty_cache()
-    log(f"time bottleneck, all 13 fused blocks of R-50 at B=8: kernel "
-        f"{tot_ms:.4f} ms, plain {tot_plain:.4f} ms, unfused bf16 cuDNN "
-        f"{tot_unfused:.4f} ms")
-    kernels["fused_bottleneck"].update(max_abs_err=worst_abs, ms=tot_ms,
-                                       plain_ms=tot_plain)
+        for batch in (8, 32):
+            xb = torch.relu(torch.randn(batch, h, wd, cin, generator=gd, device=dev)
+                            ).to(torch.bfloat16)
+            route = bottleneck_plan(torch.bfloat16, batch, h, wd, cin, cm, cout)["route"]
+            ms = cuda_ms(lambda: fused_bottleneck(xb, *args), 5)
+            plain_ms = cuda_ms(lambda: reference_bottleneck(xb, *args), 3 if batch == 8 else 2)
+            xc = xb.permute(0, 3, 1, 2)
+            with torch.no_grad():
+                cudnn_ms = cuda_ms(lambda: block(xc), 5)
+            gf = block_gflop(batch, h, wd, cin, cm, cout, proj)
+            log(f"time bottleneck {name} B={batch} {h}x{wd} bf16 ({route}): kernel "
+                f"{ms:.4f} ms ({gf / ms:.1f} TFLOP/s), plain (fp32 convs) "
+                f"{plain_ms:.4f} ms, bf16 cuDNN block {cudnn_ms:.4f} ms "
+                f"({gf / cudnn_ms:.1f} TFLOP/s)")
+            for k, v in enumerate((ms, plain_ms, cudnn_ms)):
+                totals[batch][k] += count * v
+            del xb, xc
+            torch.cuda.empty_cache()
+        del block
+    for batch, (ms, plain_ms, cudnn_ms) in totals.items():
+        log(f"time bottleneck, all 13 fused blocks of R-50 at B={batch}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 cuDNN blocks {cudnn_ms:.4f} ms")
+    kernels["fused_bottleneck"].update(max_abs_err=worst_abs, ms=totals[8][0],
+                                       plain_ms=totals[8][1])
+    sass_check()
+
+
+def sass_check():
+    """The model's bf16 wgmma kernel issues HGMMA (cuobjdump -sass of the
+    built library, next to nvcc); its bisection variants are listed too."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from slenderobjdet_torch.ops import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"HGMMA": 0, "BAR.SYNC": 0, "UBLKCP": 0, "SYNCS": 0}
+        elif fn is not None:
+            for op in counts[fn]:
+                counts[fn][op] += op in line
+    model = {}
+    for fn, c in counts.items():
+        m = re.search(r"conv_wgmma_kernelILi(\d+)ELi(\d)E", fn)
+        if m:
+            log(f"sass conv_wgmma_kernel<BN={m.group(1)}, mode={m.group(2)}>: {c}")
+            if m.group(2) == "0":
+                model[m.group(1)] = c
+    if sorted(model) != ["128", "256", "64"] or not all(
+            c["HGMMA"] > 0 and c["UBLKCP"] > 0 for c in model.values()):
+        raise AssertionError(f"the model's wgmma kernels lack HGMMA or bulk copies: {model}")
 
 
 def flagship_cfg(fused: bool, dtype: str = "bfloat16"):
@@ -435,6 +488,14 @@ def phase_probes(kernels, dev):
     kernels["dma_streams_probe"].update(
         max_abs_err=worst, ms=cuda_ms(lambda: dma_streams(x, 40, 1), 10),
         plain_ms=cuda_ms(lambda: reference_dma_streams(x, 40), 10))
+    # the kernel reads every byte of x; reference_dma_streams only the
+    # tokens' elements, so a plain full read is the like-for-like time
+    full_read_ms = cuda_ms(lambda: torch.sum(x, dtype=torch.float32), 10)
+    gb = x.numel() * x.element_size() / 1e9
+    log(f"time dma streams B=8 th=40 N=1: kernel {kernels['dma_streams_probe']['ms']:.4f} ms "
+        f"({gb / kernels['dma_streams_probe']['ms'] * 1e3:.0f} GB/s), "
+        f"reference_dma_streams {kernels['dma_streams_probe']['plain_ms']:.4f} ms, "
+        f"plain full read (torch.sum) {full_read_ms:.4f} ms ({gb / full_read_ms * 1e3:.0f} GB/s)")
     for mode in ("blocked", "chunked"):
         for th in (32, 7, 200):
             if not torch.equal(bw_copy(x, th, mode), reference_copy(x)):

@@ -4,8 +4,9 @@ The sources under ``csrc/`` are compiled by ``nvcc`` into one shared library
 with a plain C interface, loaded with ``ctypes``: no PyTorch headers, so a
 build takes seconds. The library is built at first use into
 ``build/torch_kernels/<hash>/`` at the repository root (listed in
-``.gitignore``), keyed by a hash of the sources and the compiler command, so
-an edit to a source rebuilds it and an unchanged tree reuses it.
+``.gitignore``), keyed by a hash of the sources, the headers they include
+and the compiler command, so an edit to any of them rebuilds it and an
+unchanged tree reuses it.
 
 Each kernel wrapper adds one to its entry of ``LAUNCHES`` where it launches
 its kernel, and nowhere else; a run shows which kernels it went through by
@@ -27,6 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("nms.cu", "fused_stem.cu", "fused_bottleneck.cu",
            "dma_streams_probe.cu", "bw_probe.cu")
+HEADERS = ("hopper.cuh",)     # included by the sources, not compiled alone
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libslenderobjdet_kernels.so"
 # Hopper only: sm_90a, the target that also admits wgmma and setmaxnreg.
@@ -46,9 +48,9 @@ _SIGNATURES = {
     "fused_stem_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fused_stem_smem_bytes": [_I],
     "fused_bottleneck_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _P],
-    "fused_probe_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _P],
+                                _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "conv_wgmma_launch": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _P],
     "dma_streams_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bw_probe_launch": [_I, _P, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -81,10 +83,16 @@ def nvcc_command(output: str, nvcc: str = "nvcc") -> List[str]:
             *[str(CSRC / s) for s in SOURCES]]
 
 
+def hashed_files() -> List[Path]:
+    """Every file under ``csrc/`` a build reads: each ``*.cu`` and ``*.cuh``."""
+    return sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
+
+
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(nvcc_command("out")).encode())
-    for s in SOURCES:
-        h.update((CSRC / s).read_bytes())
+    for path in hashed_files():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

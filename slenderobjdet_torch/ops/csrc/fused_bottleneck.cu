@@ -9,16 +9,20 @@
 // identity shortcut is added in fp32.
 //
 // What bounds it on an H100: each of R-50's stride-1 blocks at 800x1344 is
-// about 4.7 GMAC per image (1x1 + 3x3 + 1x1 over the stage's pixels), against
-// an input plus output of 2 x 34 MB per image at res2 in bf16 and far less
-// deeper down, so it is compute bound. The unfused path writes and rereads
-// both intermediate activations and the pre-shortcut sum in device memory;
-// that is the traffic the fusion removes.
+// about 4.7 GMAC per image (1x1 + 3x3 + 1x1 over the stage's pixels), so at
+// res3-res5 it is bound by the tensor cores' rate, and what keeps a kernel
+// from that rate is how many operand bytes each product needs and how well
+// their arrival overlaps the products. At res2 the block's input and output
+// are 2 x 34 MB per image, so there the bytes are the bound.
 //
-// Design: one block of 256 threads per (image, TH x TW tile of output
-// pixels). Every conv is a GEMM over the tile's pixels (M), output channels
-// (N) and input channels (K), run as 64 x 64 output chunks with K streamed
-// through shared memory 32 channels at a time.
+// Two kernels; the wrapper (ops/fused_bottleneck.py: bottleneck_plan) picks
+// one by dtype and shape and lays out its tiles and weights:
+// - `conv_wgmma_kernel`, bf16 blocks with Cin, Cm and Cout % 64 == 0 (all
+//   of R-50's): the block as three implicit-GEMM launches (conv1, 3x3
+//   conv2, conv3 + shortcut) with a1 and a2 in device memory; wgmma fed by
+//   an mbarrier ring (see below).
+// - `bottleneck_kernel`, everything else, fp32 included: the whole block on
+//   chip, one CTA of 256 threads per (image, TH x TW tile):
 //   1. a1 = relu(x @ w1 + b1) over the tile plus a 1-pixel halo, streaming
 //      x over Cin; halo pixels outside the image are stored as 0 (the 3x3
 //      conv's zero padding), not relu(b1). a1 stays in shared memory in
@@ -27,25 +31,17 @@
 //      tile, in shared memory.
 //   3. out = relu(a2 @ w3 + b3 + shortcut), chunk by chunk over Cout; only
 //      this leaves the chip.
-// bf16 blocks whose channel counts are multiples of 32 (all of R-50's) run
-// the products on the tensor cores (`bottleneck_tc_kernel`: mma.sync with
-// fp32 accumulation, a cp.async ring for the weights). Everything else,
-// fp32 included, runs `bottleneck_kernel`: fp32 FMA on the CUDA cores, each
-// thread owning a 4 x 4 register tile of the chunk. The tile is the largest
-// of a fixed list whose a1 + a2 fit in shared memory: 8x16 pixels for
-// res2-res4 in bf16, 8x8 for res5.
+//   Each 64 x 64 output chunk is a GEMM of fp32 FMA on the CUDA cores, each
+//   thread owning a 4 x 4 register tile of it, K staged 32 channels at a
+//   time.
 //
-// The tensor-core kernel takes a compile-time ProbeMode. The model runs
-// kFull; the other modes strip one part each for the bisection probe
-// (`fused_probe_launch`), which also replaces tools/fused_kernel_probe.py's
+// The wgmma kernel takes a compile-time mode (ConvMode). The model runs the
+// full one; the other modes strip one part each for the bisection probe
+// (`conv_wgmma_launch`), which also replaces tools/fused_kernel_probe.py's
 // Pallas variants (`make_kernel`). They are separate instantiations, so the
-// model's kernel is the same machine code with or without them.
+// model's kernels are the same machine code with or without them.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "hopper.cuh"
 
 namespace {
 
@@ -273,27 +269,9 @@ __global__ void __launch_bounds__(kThreads) bottleneck_kernel(Args<T> p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core path: the same three stages, each 64 x 64 output chunk an
-// mma.sync.m16n8k16 GEMM with fp32 accumulation over K steps of 32 channels.
-// Warp w computes rows 16*(w%4).. and columns 32*(w/4).. of the chunk (one
-// m16 x four n8 tiles). Weights stream through a 2-slot cp.async ring in
-// shared memory; the A rows of the 3x3 conv and of conv3 are read by
-// ldmatrix straight from a1 / a2 (each lane supplies the address of its
-// row, which gathers the shifted rows of a tap for free), and x streams
-// through the same ring for conv1 and the projection shortcut.
+// bf16 wgmma path.
 
 using bf16 = __nv_bfloat16;
-
-constexpr int KT = 32;              // channels per pipeline step
-constexpr int LDS_A = KT + 8;       // staged A row stride (bf16): 80 B
-constexpr int LDS_B = NT + 8;       // staged B row stride (bf16): 144 B
-constexpr int A_SLOT = MT * LDS_A;
-constexpr int B_SLOT = KT * LDS_B;
-constexpr int RING_BYTES = 2 * (A_SLOT + B_SLOT) * (int)sizeof(bf16);
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 // 16-byte async copy; writes zeros (and reads nothing) when !valid.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -303,119 +281,9 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(valid ? 16 : 0));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc += sum over steps s < nsteps of A_s (64 x KT) @ B_s (KT x 64).
-// brow(s, k): global address of row k of step s's weights at the chunk's
-//   first column; columns at or past ncols are zero.
-// kStagedA: arow(s, m) is the global address of pixel m's KT channels for
-//   step s, or nullptr for a zero row; it goes through the ring.
-// otherwise: arow(s, m) is the shared address of those KT channels (rows
-//   past the tile may point anywhere finite: they are never stored).
-template <bool kStagedA, typename ARow, typename BRow>
-__device__ __forceinline__ void tc_chunk(bf16* As, bf16* Bs, int nsteps,
-                                         int ncols, ARow arow, BRow brow,
-                                         float acc[4][4]) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int wm = (tid >> 5) & 3;
-  const int wn = tid >> 7;
-  auto load = [&](int s, int slot) {
-    const int k = tid >> 3, c = tid & 7;
-    const bf16* brow_k = brow(s, k);
-    cp_async16(Bs + slot * B_SLOT + k * LDS_B + c * 8, brow_k + c * 8,
-               c * 8 < ncols);
-    if (kStagedA) {
-      const int m = tid >> 2, q = tid & 3;
-      const bf16* src = arow(s, m);
-      cp_async16(As + slot * A_SLOT + m * LDS_A + q * 8,
-                 src != nullptr ? src + q * 8 : brow_k, src != nullptr);
-    }
-  };
-  load(0, 0);
-  asm volatile("cp.async.commit_group;\n" ::);
-  for (int s = 0; s < nsteps; ++s) {
-    if (s + 1 < nsteps) load(s + 1, (s + 1) & 1);
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    __syncthreads();
-    const bf16* as = As + (s & 1) * A_SLOT;
-    const bf16* bs = Bs + (s & 1) * B_SLOT;
-#pragma unroll
-    for (int ks = 0; ks < KT / 16; ++ks) {
-      const int r = lane & 15, c8 = (lane >> 4) * 8;
-      uint32_t a[4];
-      if (kStagedA)
-        ldmatrix_x4(a, as + (wm * 16 + r) * LDS_A + ks * 16 + c8);
-      else
-        ldmatrix_x4(a, arow(s, wm * 16 + r) + ks * 16 + c8);
-#pragma unroll
-      for (int nh = 0; nh < 2; ++nh) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, bs + (ks * 16 + r) * LDS_B + wn * 32 + nh * 16 + c8);
-        mma_bf16(acc[2 * nh], a, b[0], b[1]);
-        mma_bf16(acc[2 * nh + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Calls f(m, n, v_n, v_n+1) for the chunk-local row m and even column n of
-// every accumulator pair this thread holds.
-template <typename F>
-__device__ __forceinline__ void tc_epilogue(const float acc[4][4], F f) {
-  const int lane = threadIdx.x & 31;
-  const int wm = (threadIdx.x >> 5) & 3;
-  const int wn = threadIdx.x >> 7;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      f(wm * 16 + (lane >> 2) + h * 8, wn * 32 + j * 8 + (lane & 3) * 2,
-        acc[j][2 * h], acc[j][2 * h + 1]);
-}
-
 __device__ __forceinline__ __nv_bfloat162 relu_pair(float a, float b) {
   return __floats2bfloat162_rn(fmaxf(a, 0.f), fmaxf(b, 0.f));
 }
-
-// Variants of the tensor-core kernel for the bisection probe
-// (slenderobjdet_torch/tools/fused_kernel_probe.py; the TPU counterpart is
-// tools/fused_kernel_probe.py:make_kernel). kFull is the kernel the model
-// runs; each other mode is a separate instantiation that strips one part:
-//   kNoRolls  every 3x3 tap reads a1 without its column shift (the TPU
-//             probe's dropped pltpu.roll): the ldmatrix row gather keeps the
-//             tap's row shift only;
-//   kNoTap    conv2 is the centre tap only (Cm/32 steps instead of 9x that);
-//   kNoConv2  a2 = the a1 centre rows, no conv2;
-//   kDmaOnly  every channel of the halo tile streams through the cp.async
-//             ring, as conv1 reads it; out[p, c] = x[p, c % cc] * 0.5 with
-//             cc = min(Cin, Cout, 128) (the TPU probe's channel chunk);
-//   kNoDma    no read: out[b, y, x, c] = b + y, the output write alone.
-enum ProbeMode { kFull = 0, kNoRolls, kNoTap, kNoConv2, kDmaOnly, kNoDma };
 
 __device__ __forceinline__ uint4 half_bf16x8(uint4 v) {
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
@@ -426,219 +294,323 @@ __device__ __forceinline__ uint4 half_bf16x8(uint4 v) {
   return v;
 }
 
-// kDmaOnly: stream the halo tile of x through the ring 32 channels at a
-// time, keep the centre pixels' first cc channels in `keep` ([P][cc + 8]),
-// then write the output from them.
-__device__ __forceinline__ void probe_dma_only(const Args<bf16>& p, bf16* As,
-                                               bf16* keep, int b, int h0,
-                                               int w0) {
-  const int TH = p.TH, TW = p.TW, HW2 = TW + 2;
-  const int P = TH * TW, P1 = (TH + 2) * HW2;
-  const int H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
-  const int cc = min(min(Cin, Cout), 128), ldk = cc + 8;
-  const int tid = threadIdx.x, m = tid >> 2, q = tid & 3;
-  const bf16* xb = p.x + (size_t)b * H * W * Cin;
-  const int nsteps = Cin / KT;
-  for (int m0 = 0; m0 < P1; m0 += MT) {
-    const int hp = m0 + m;
-    const int gy = h0 - 1 + hp / HW2, gx = w0 - 1 + hp % HW2;
-    const bool inside = hp < P1 && gy >= 0 && gy < H && gx >= 0 && gx < W;
-    const bf16* src = xb + ((size_t)gy * W + gx) * Cin + q * 8;
-    const int cy = hp / HW2 - 1, cx = hp % HW2 - 1;   // centre coordinates
-    const bool centre = hp < P1 && cy >= 0 && cy < TH && cx >= 0 && cx < TW;
-    auto load = [&](int s) {
-      cp_async16(As + (s & 1) * A_SLOT + m * LDS_A + q * 8,
-                 inside ? src + s * KT : p.x, inside);
-    };
-    load(0);
-    asm volatile("cp.async.commit_group;\n" ::);
-    for (int s = 0; s < nsteps; ++s) {
-      if (s + 1 < nsteps) load(s + 1);
-      asm volatile("cp.async.commit_group;\n" ::);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-      __syncthreads();
-      if (centre && s * KT + q * 8 < cc)
-        *reinterpret_cast<uint4*>(keep + (size_t)(cy * TW + cx) * ldk +
-                                  s * KT + q * 8) =
-            *reinterpret_cast<const uint4*>(As + (s & 1) * A_SLOT +
-                                            m * LDS_A + q * 8);
-      __syncthreads();
-    }
-  }
-  const int cv = Cout / 8;
-  for (int e = tid; e < P * cv; e += kThreads) {
-    const int pm = e / cv, c = (e % cv) * 8;
-    const int gy = h0 + pm / TW, gx = w0 + pm % TW;
-    if (gy >= H || gx >= W) continue;
-    const uint4 v =
-        *reinterpret_cast<const uint4*>(keep + (size_t)pm * ldk + c % cc);
-    *reinterpret_cast<uint4*>(p.out + (((size_t)b * H + gy) * W + gx) * Cout +
-                              c) = half_bf16x8(v);
-  }
-}
+// The block runs as three implicit-GEMM launches of `conv_wgmma_kernel`:
+// a1 = relu(x @ w1 + b1), a2 = relu(3x3 conv of a1 + b2), out = relu(a2 @
+// w3 + b3 + shortcut), with a1 and a2 in device memory (B x H x W x Cm bf16
+// each: 8.6 MB per image at res2, 4.3 at res3, 2.2 at res4, 1.1 at res5, so
+// from res3 on they stay in the 50 MB L2 between launches at B = 8).
+// Unfusing is what lifts weight reuse: an on-chip tile must hold its a1
+// halo and a2, which caps it at 64 pixels at res5, and every CTA then
+// streams every weight of the block; here a CTA owns 128 pixels (of the
+// B x H x W flattened, so only the last tile is ragged) x BN (64, 128 or
+// 256) output channels, so each weight byte read serves 128 pixels and
+// each activation byte BN channels.
+//
+// Each CTA is two consumer warpgroups (64 pixel rows each) and two producer
+// warps that keep a ring of `stages` (3 or 4) slots full. A slot holds one K
+// step of 64 channels: the tile's 128 A rows, each 128-byte row copied by
+// eight producer lanes with cp.async from the pixel the tap shifts it to (or
+// zeros, for the 3x3 conv's padding and past the last pixel), and the step's
+// 64 x BN weights as one `cp.async.bulk` (the wrapper pre-lays the weights
+// in the wgmma layout, contiguous per N tile and K step). Both complete on
+// the slot's `full` mbarrier; the eight consumer warps release it on its
+// `empty` mbarrier, so the K loop has no block-wide barrier. A consumer
+// issues m64n128k16 wgmma (m64n64k16 at BN = 64) with both operands read
+// from the slot through matrix descriptors, fp32 accumulators in registers,
+// and keeps one step's group in flight while it waits for the next slot.
+// The epilogue stages acc + bias through the idle ring, then adds the
+// residual and writes 16-byte rows.
 
-// kNoDma: out[b, y, x, c] = b + y over the tile, nothing read.
-__device__ __forceinline__ void probe_no_dma(const Args<bf16>& p, int b,
-                                             int h0, int w0) {
-  const int TW = p.TW, P = p.TH * TW, cv = p.Cout / 8;
-  for (int e = threadIdx.x; e < P * cv; e += kThreads) {
-    const int pm = e / cv, c = (e % cv) * 8;
-    const int gy = h0 + pm / TW, gx = w0 + pm % TW;
-    if (gy >= p.H || gx >= p.W) continue;
-    const __nv_bfloat162 v = __float2bfloat162_rn((float)(b + gy));
-    uint4 o;
-    o.x = o.y = o.z = o.w = *reinterpret_cast<const uint32_t*>(&v);
-    *reinterpret_cast<uint4*>(p.out + (((size_t)b * p.H + gy) * p.W + gx) *
-                                          p.Cout + c) = o;
-  }
-}
+constexpr int GM = 128;                      // pixels per tile
+constexpr int GK = 64;                       // channels per ring slot
+constexpr int G_A_SLOT = GM * GK * 2;        // bytes of a slot's A tile
+constexpr int kGemmThreads = 320;           // 2 consumer warpgroups + 2 warps
+constexpr int kMaxStages = 8;
+constexpr int kHeadBytes = 128 + GM * 8;    // full[8], empty[8], rows[GM]
+// Both operands of a slot are K-major in the wgmma no-swizzle layout, 8 x 8
+// core matrices of 128 contiguous bytes (8 rows of 16 B):
+// - A (the producer's cp.async): [row group r / 8][k chunk < 8][r % 8]
+//   [8 k], core matrices 128 B apart along K, 1024 B along M;
+// - B (pack_conv_weights in ops/fused_bottleneck.py): [k16 slice j < 4]
+//   [n group < BN / 8][k half < 2][8 n][8 k], 128 B apart along K, 256 B
+//   along N.
+constexpr uint32_t kLBO = 128, kSBO_A = 1024, kSBO_B = 256;
 
-template <int kMode>
-__global__ void __launch_bounds__(kThreads)
-bottleneck_tc_kernel(Args<bf16> p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);     // [2][MT][LDS_A]
-  bf16* Bs = As + 2 * A_SLOT;                       // [2][KT][LDS_B]
-  const int TH = p.TH, TW = p.TW, HW2 = TW + 2;
-  const int P = TH * TW;
-  const int P1 = (TH + 2) * HW2;
-  const int H = p.H, W = p.W, Cin = p.Cin, Cm = p.Cm, Cout = p.Cout;
-  const int lda = Cm + 8;                           // a1/a2 row stride
-  bf16* a1 = Bs + 2 * B_SLOT;                       // [P1][lda]
-  bf16* a2 = a1 + (size_t)P1 * lda;                 // [P][lda]
+// A row of zeros (GK bf16): the source of every A row outside the image or
+// the tile.
+__device__ __align__(128) uint4 kZeroRow[GK * 2 / 16];
 
-  const int b = blockIdx.z;
-  const int h0 = blockIdx.y * TH;
-  const int w0 = blockIdx.x * TW;
-  const bf16* __restrict__ xb = p.x + (size_t)b * H * W * Cin;
-  auto x_at = [&](int gy, int gx) -> const bf16* {
-    return xb + ((size_t)gy * W + gx) * Cin;
-  };
-  if constexpr (kMode == kNoDma) {
-    probe_no_dma(p, b, h0, w0);
-    return;
-  }
-  if constexpr (kMode == kDmaOnly) {
-    probe_dma_only(p, As, a1, b, h0, w0);
-    return;
-  }
+// Modes of the kernel: kConvFull is what the model runs; the others serve
+// the bisection probe (slenderobjdet_torch/tools/fused_kernel_probe.py; the
+// TPU counterpart is tools/fused_kernel_probe.py:make_kernel), whose other
+// variants (centre tap only, no conv2) the wrapper builds from full
+// launches: kConvNoRolls drops the 3x3 taps' column shift (the TPU probe's
+// dropped pltpu.roll); kConvDmaOnly streams the A rows through the ring and
+// writes out[m, c] = a0[m, c % cc] * 0.5 (cc = min(c0, N, 128), the TPU
+// probe's channel chunk); kConvNoDma reads nothing and writes
+// out[b, y, x, c] = b + y.
+enum ConvMode { kConvFull = 0, kConvNoRolls, kConvDmaOnly, kConvNoDma };
 
-  // ---- 1. a1 over the halo tile
-  for (int m0 = 0; m0 < P1; m0 += MT) {
-    for (int n0 = 0; n0 < Cm; n0 += NT) {
-      float acc[4][4] = {};
-      tc_chunk<true>(
-          As, Bs, Cin / KT, Cm - n0,
-          [&](int s, int m) -> const bf16* {
-            const int hp = m0 + m;
-            if (hp >= P1) return nullptr;
-            const int gy = h0 - 1 + hp / HW2, gx = w0 - 1 + hp % HW2;
-            if (gy < 0 || gy >= H || gx < 0 || gx >= W) return nullptr;
-            return x_at(gy, gx) + s * KT;
-          },
-          [&](int s, int k) { return p.w1 + (size_t)(s * KT + k) * Cm + n0; },
-          acc);
-      tc_epilogue(acc, [&](int m, int n, float v0, float v1) {
-        const int hp = m0 + m;
-        n += n0;
-        if (hp >= P1 || n >= Cm) return;
-        const int gy = h0 - 1 + hp / HW2, gx = w0 - 1 + hp % HW2;
-        const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-        *reinterpret_cast<__nv_bfloat162*>(a1 + (size_t)hp * lda + n) =
-            inside ? relu_pair(v0 + p.b1[n], v1 + p.b1[n + 1])
-                   : __floats2bfloat162_rn(0.f, 0.f);
-      });
-    }
-  }
-  __syncthreads();
+struct ConvArgs {
+  const bf16* a0;     // first A source, NHWC (B, H, W, c0)
+  const bf16* a1;     // second A source (B, H, W, c1), or null
+  int c0, c1;         // channels of the sources (c1 = 0: none)
+  int taps;           // taps of a0: 1 (1x1) or 9 (3x3, padding 1)
+  const bf16* w;      // packed weights, [N / BN][ksteps][GK x BN]
+  const float* bias0; // (N,)
+  const float* bias1; // (N,) or null
+  const bf16* res;    // (B, H, W, N) added before the relu, or null
+  bf16* out;          // (B, H, W, N)
+  int batch, H, W, N, stages;
+};
 
-  // ---- 2. a2 = 3x3 conv of a1 over the tile: 9 taps x Cm/KT steps
-  const int kc = Cm / KT;
-  if constexpr (kMode == kNoConv2) {
-    for (int e = threadIdx.x; e < P * (Cm / 8); e += kThreads) {
-      const int pm = e / (Cm / 8), c = (e % (Cm / 8)) * 8;
-      const int hp = (pm / TW + 1) * HW2 + pm % TW + 1;
-      *reinterpret_cast<uint4*>(a2 + (size_t)pm * lda + c) =
-          *reinterpret_cast<const uint4*>(a1 + (size_t)hp * lda + c);
-    }
+// The producer warps: warp pw < 2 fills rows 64 pw .. 64 pw + 63 of each
+// slot's A tile with 16-byte cp.async (eight lanes per 128-byte row, zeros
+// outside the image or the tile), which arrive on the slot's full barrier
+// when they land; warp 0's lane 0 also posts the step's weights as one bulk
+// copy on the same barrier.
+template <int BN, int kMode>
+__device__ __forceinline__ void conv_produce(const ConvArgs& p, bf16* As,
+                                             unsigned char* Bs, int2* rows,
+                                             uint64_t* full, uint64_t* empty,
+                                             int ksteps, int k0steps) {
+  constexpr int B_BYTES = GK * BN * 2;
+  constexpr bool kWeights = kMode != kConvDmaOnly;
+  const int pw = threadIdx.x / 32 - 8, lane = threadIdx.x & 31;
+  const int r8 = lane & 7, q4 = lane >> 3;
+  const int H = p.H, W = p.W, HW = H * W, M = p.batch * HW;
+  const int m0 = blockIdx.x * GM;
+  // rows[r] = {pixel m, y << 16 | x}, m = -1 past the last pixel
+  for (int r = pw * 64 + lane; r < pw * 64 + 64; r += 32) {
+    const int m = m0 + r;
+    rows[r] = m < M ? make_int2(m, (m % HW / W) << 16 | m % W)
+                    : make_int2(-1, 0);
   }
-  for (int m0 = 0; m0 < P && kMode != kNoConv2; m0 += MT) {
-    for (int n0 = 0; n0 < Cm; n0 += NT) {
-      float acc[4][4] = {};
-      tc_chunk<false>(
-          As, Bs, (kMode == kNoTap ? 1 : 9) * kc, Cm - n0,
-          [&](int s, int m) -> const bf16* {
-            const int tap = kMode == kNoTap ? 4 : s / kc;
-            const int pm = min(m0 + m, P - 1);
-            const int hp = (pm / TW + tap / 3) * HW2 + pm % TW +
-                           (kMode == kNoRolls ? 1 : tap % 3);
-            return a1 + (size_t)hp * lda + (s % kc) * KT;
-          },
-          [&](int s, int k) {
-            const int tap = kMode == kNoTap ? 4 : s / kc;
-            return p.w2 + ((size_t)tap * Cm + (s % kc) * KT + k) * Cm + n0;
-          },
-          acc);
-      tc_epilogue(acc, [&](int m, int n, float v0, float v1) {
-        const int pm = m0 + m;
-        n += n0;
-        if (pm >= P || n >= Cm) return;
-        *reinterpret_cast<__nv_bfloat162*>(a2 + (size_t)pm * lda + n) =
-            relu_pair(v0 + p.b2[n], v1 + p.b2[n + 1]);
-      });
-    }
-  }
-  __syncthreads();
-
-  // ---- 3. out = relu(a2 @ w3 + b3 + shortcut)
-  for (int m0 = 0; m0 < P; m0 += MT) {
-    for (int n0 = 0; n0 < Cout; n0 += NT) {
-      float acc[4][4] = {};
-      tc_chunk<false>(
-          As, Bs, kc, Cout - n0,
-          [&](int s, int m) -> const bf16* {
-            return a2 + (size_t)min(m0 + m, P - 1) * lda + s * KT;
-          },
-          [&](int s, int k) { return p.w3 + (size_t)(s * KT + k) * Cout + n0; },
-          acc);
-      if (p.wsc != nullptr) {
-        tc_chunk<true>(
-            As, Bs, Cin / KT, Cout - n0,
-            [&](int s, int m) -> const bf16* {
-              const int pm = m0 + m;
-              if (pm >= P) return nullptr;
-              const int gy = h0 + pm / TW, gx = w0 + pm % TW;
-              if (gy >= H || gx >= W) return nullptr;
-              return x_at(gy, gx) + s * KT;
-            },
-            [&](int s, int k) {
-              return p.wsc + (size_t)(s * KT + k) * Cout + n0;
-            },
-            acc);
+  __syncwarp();
+  const bf16* wt = p.w + (size_t)blockIdx.y * ksteps * GK * BN;
+  const bf16* zero = reinterpret_cast<const bf16*>(kZeroRow);
+  const int kc0 = p.c0 / GK;
+  for (int t = 0; t < ksteps; ++t) {
+    const int s = t % p.stages;
+    mbar_wait(&empty[s], ((t / p.stages) & 1) ^ 1);
+    if (pw == 0 && lane == 0) {
+      if (kWeights) {
+        mbar_expect_tx(&full[s], B_BYTES);
+        bulk_copy(Bs + (size_t)s * B_BYTES, wt + (size_t)t * GK * BN, B_BYTES,
+                  &full[s]);
+      } else {
+        mbar_arrive(&full[s]);
       }
-      tc_epilogue(acc, [&](int m, int n, float v0, float v1) {
-        const int pm = m0 + m;
-        n += n0;
-        if (pm >= P || n >= Cout) return;
-        const int gy = h0 + pm / TW, gx = w0 + pm % TW;
-        if (gy >= H || gx >= W) return;
-        v0 += p.b3[n];
-        v1 += p.b3[n + 1];
-        if (p.wsc != nullptr) {
-          v0 += p.bsc[n];
-          v1 += p.bsc[n + 1];
-        } else {
-          const __nv_bfloat162 s =
-              *reinterpret_cast<const __nv_bfloat162*>(x_at(gy, gx) + n);
-          v0 += __low2float(s);
-          v1 += __high2float(s);
+    }
+    const bf16* src = p.a0;
+    int c = p.c0, k, dy = 0, dx = 0;
+    if (t < k0steps) {
+      const int tap = t / kc0;
+      k = (t % kc0) * GK;
+      if (p.taps == 9) {
+        dy = tap / 3 - 1;
+        dx = kMode == kConvNoRolls ? 0 : tap % 3 - 1;
+      }
+    } else {
+      src = p.a1;
+      c = p.c1;
+      k = (t - k0steps) * GK;
+    }
+    // lane: row r % 8 = lane % 8 of each row group, chunks lane / 8 and
+    // lane / 8 + 4, so a warp's 16-byte writes fill all 32 banks
+    unsigned char* as = reinterpret_cast<unsigned char*>(As) +
+                        (size_t)s * G_A_SLOT + r8 * 16;
+    const int shift = dy * W + dx;
+#pragma unroll 2
+    for (int i = 0; i < 8; ++i) {
+      const int rg = pw * 8 + i;            // row group
+      const int2 e = rows[rg * 8 + r8];
+      const int y = (e.y >> 16) + dy, x = (e.y & 0xFFFF) + dx;
+      const bool in = e.x >= 0 && y >= 0 && y < H && x >= 0 && x < W;
+      const bf16* g = in ? src + (size_t)(e.x + shift) * c + k : zero;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = q4 + 4 * h;
+        cp_async16(as + (rg * 8 + q) * 128, in ? g + q * 8 : zero, in);
+      }
+    }
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                     smem_addr(&full[s]))
+                 : "memory");
+  }
+}
+
+// The consumer warpgroups: wgmma over the ring's slots, then the epilogue.
+template <int BN, int kMode>
+__device__ __forceinline__ void conv_consume(const ConvArgs& p, bf16* As,
+                                             unsigned char* Bs,
+                                             uint64_t* full, uint64_t* empty,
+                                             int ksteps) {
+  constexpr int B_BYTES = GK * BN * 2;
+  constexpr int WN = BN < 128 ? BN : 128;       // columns per wgmma
+  constexpr int NH = BN / WN;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int H = p.H, W = p.W, N = p.N, M = p.batch * H * W;
+  const int row0 = blockIdx.x * GM + wg * 64;   // this warpgroup's rows
+  const int n0 = blockIdx.y * BN;
+  auto release = [&](int s) {
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+  if constexpr (kMode == kConvNoDma) {
+    for (int e = threadIdx.x & 127; e < 64 * (N / 8); e += 128) {
+      const int m = row0 + e / (N / 8), c = e % (N / 8) * 8;
+      if (m >= M) continue;
+      const int b = m / (H * W), y = m % (H * W) / W;
+      const __nv_bfloat162 v = __float2bfloat162_rn((float)(b + y));
+      uint4 o;
+      o.x = o.y = o.z = o.w = *reinterpret_cast<const uint32_t*>(&v);
+      *reinterpret_cast<uint4*>(p.out + (size_t)m * N + c) = o;
+    }
+    return;
+  }
+  float acc[NH][WN / 2];
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int i = 0; i < WN / 2; ++i) acc[h][i] = 0.f;
+  const int cc = min(min(p.c0, N), 128);
+  for (int t = 0; t < ksteps; ++t) {
+    const int s = t % p.stages;
+    mbar_wait(&full[s], (t / p.stages) & 1);
+    const unsigned char* as =
+        reinterpret_cast<const unsigned char*>(As) + (size_t)s * G_A_SLOT;
+    if constexpr (kMode == kConvDmaOnly) {
+      // out[m, c] = x[m, c % cc] * 0.5 for the channels this slot holds
+      for (int e = threadIdx.x & 127; e < 64 * 8 && t * GK < cc; e += 128) {
+        const int r = wg * 64 + e / 8, q = e % 8, m = blockIdx.x * GM + r;
+        if (m >= M) continue;
+        const uint4 v = half_bf16x8(*reinterpret_cast<const uint4*>(
+            as + ((r / 8) * 8 + q) * 128 + r % 8 * 16));
+        for (int c = t * GK + q * 8; c < N; c += cc)
+          *reinterpret_cast<uint4*>(p.out + (size_t)m * N + c) = v;
+      }
+    } else {
+      const unsigned char* bs = Bs + (size_t)s * B_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          const uint64_t da =
+              wgmma_desc(as + wg * 8 * 1024 + j * 256, kLBO, kSBO_A);
+          const uint64_t db =
+              wgmma_desc(bs + j * BN * 32 + h * WN * 32, kLBO, kSBO_B);
+          if constexpr (WN == 128)
+            wgmma_m64n128k16(acc[h], da, db);
+          else
+            wgmma_m64n64k16(acc[h], da, db);
         }
-        const size_t pix = ((size_t)b * H + gy) * W + gx;
-        *reinterpret_cast<__nv_bfloat162*>(p.out + pix * Cout + n) =
-            relu_pair(v0, v1);
-      });
+      wgmma_commit();
+      // keep this step's products in flight; the previous step's are
+      // done, so its slot goes back to the producer
+      wgmma_wait<1>();
+    }
+    __syncwarp();
+    if (kMode == kConvDmaOnly)
+      release(s);
+    else if (t > 0)
+      release((t - 1) % p.stages);
+  }
+  if constexpr (kMode == kConvDmaOnly) return;
+  wgmma_wait<0>();
+  // Epilogue through shared memory: once both warpgroups are done with
+  // the ring, each stages acc + bias of its 64 rows there in fp32, then
+  // adds the residual and writes the rows with 16-byte loads and stores.
+  const int ld = BN + 4;
+  float* stage = reinterpret_cast<float*>(As) + wg * 64 * ld;
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int j = 0; j < WN / 8; ++j) {
+      const int n = h * WN + j * 8 + tq * 2;
+      float2 bias = *reinterpret_cast<const float2*>(p.bias0 + n0 + n);
+      if (p.bias1 != nullptr) {
+        const float2 b1 = *reinterpret_cast<const float2*>(p.bias1 + n0 + n);
+        bias.x += b1.x;
+        bias.y += b1.y;
+      }
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2)
+        *reinterpret_cast<float2*>(stage + (warp * 16 + g + 8 * r2) * ld + n) =
+            make_float2(acc[h][4 * j + 2 * r2] + bias.x,
+                        acc[h][4 * j + 2 * r2 + 1] + bias.y);
+    }
+  // Each thread owns kChunks 16-byte chunks of the 64 rows; their residual
+  // loads are all issued before the first is used, so they overlap one
+  // another (and the barrier) instead of paying a memory latency each.
+  constexpr int kChunks = 64 * (BN / 8) / 128;
+  const int tid = threadIdx.x & 127;
+  uint4 sc[kChunks];
+  if (p.res != nullptr) {
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int e = tid + i * 128, m = row0 + e / (BN / 8);
+      if (m < M)
+        sc[i] = __ldg(reinterpret_cast<const uint4*>(
+            p.res + (size_t)m * N + n0 + e % (BN / 8) * 8));
     }
   }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const int e = tid + i * 128;
+    const int r = e / (BN / 8), n = e % (BN / 8) * 8, m = row0 + r;
+    if (m >= M) continue;
+    const float4 lo = *reinterpret_cast<const float4*>(stage + r * ld + n);
+    const float4 hi = *reinterpret_cast<const float4*>(stage + r * ld + n + 4);
+    float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const size_t off = (size_t)m * N + n0 + n;
+    if (p.res != nullptr) {
+      const __nv_bfloat162* s2 = reinterpret_cast<const __nv_bfloat162*>(&sc[i]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        v[2 * k] += __low2float(s2[k]);
+        v[2 * k + 1] += __high2float(s2[k]);
+      }
+    }
+    uint4 o;
+    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) o2[k] = relu_pair(v[2 * k], v[2 * k + 1]);
+    *reinterpret_cast<uint4*>(p.out + off) = o;
+  }
+}
+
+// Two CTAs share an SM at BN <= 128 (at most 96 registers a thread, and
+// the launcher shortens their ring), so one CTA's prologue and epilogue
+// overlap the other's K loop; a BN = 256 CTA needs 168 registers a thread
+// for its accumulators and has the SM alone.
+template <int BN, int kMode>
+__global__ void __launch_bounds__(kGemmThreads, BN <= 128 ? 2 : 1)
+conv_wgmma_kernel(ConvArgs p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
+  int2* rows = reinterpret_cast<int2*>(smem + 128);
+  bf16* As = reinterpret_cast<bf16*>(smem + kHeadBytes);
+  unsigned char* Bs = smem + kHeadBytes + (size_t)p.stages * G_A_SLOT;
+  const int k0steps = p.taps * (p.c0 / GK);
+  const int ksteps = kMode == kConvNoDma ? 0 : k0steps + p.c1 / GK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 65);   // 64 producer lanes' cp.async, 1 expect_tx
+      mbar_init(&empty[s], 8);   // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= 256)
+    conv_produce<BN, kMode>(p, As, Bs, rows, full, empty, ksteps, k0steps);
+  else
+    conv_consume<BN, kMode>(p, As, Bs, full, empty, ksteps);
 }
 
 int smem_bytes(int th, int tw, int cm, int itemsize) {
@@ -647,36 +619,10 @@ int smem_bytes(int th, int tw, int cm, int itemsize) {
          (p1 + th * tw) * cm * itemsize;
 }
 
-int tc_smem_bytes(int th, int tw, int cm) {
-  const int p1 = (th + 2) * (tw + 2);
-  return RING_BYTES + (p1 + th * tw) * (cm + 8) * (int)sizeof(bf16);
-}
-
-// The tensor-core path takes bf16 blocks whose channel counts fill its K
-// steps and whose buffers allow 16-byte copies.
-bool tc_eligible(const void* const* ptrs, int n, int Cin, int Cm, int Cout) {
-  if (Cin % KT != 0 || Cm % KT != 0 || Cout % 8 != 0) return false;
+bool aligned16(const void* const* ptrs, int n) {
   for (int i = 0; i < n; ++i)
     if (ptrs[i] != nullptr && (uintptr_t)ptrs[i] % 16 != 0) return false;
   return true;
-}
-
-// The largest tile of a fixed list whose buffers fit in `limit` bytes of
-// shared memory.
-bool pick_tile(bool tc, int Cm, int itemsize, int limit, int* th, int* tw,
-               int* smem) {
-  static const int kTiles[][2] = {{8, 16}, {8, 8}, {4, 8}, {4, 4},
-                                  {2, 4},  {2, 2}, {1, 2}, {1, 1}};
-  for (const auto& t : kTiles) {
-    *smem = tc ? tc_smem_bytes(t[0], t[1], Cm)
-               : smem_bytes(t[0], t[1], Cm, itemsize);
-    if (*smem <= limit) {
-      *th = t[0];
-      *tw = t[1];
-      return true;
-    }
-  }
-  return false;
 }
 
 int smem_limit(int* limit) {
@@ -698,112 +644,120 @@ Args<T> make_args(const void* x, const void* w1, const void* b1,
                  (T*)out, H, W, Cin, Cm, Cout, th, tw};
 }
 
-template <typename T>
-int launch(const void* x, const void* w1, const void* b1, const void* w2,
-           const void* b2, const void* w3, const void* b3, const void* wsc,
-           const void* bsc, void* out, int batch, int H, int W, int Cin,
-           int Cm, int Cout, cudaStream_t stream) {
-  int limit = 0;
-  cudaError_t err = (cudaError_t)smem_limit(&limit);
+template <typename K>
+int launch_kernel(K kernel, dim3 grid, int threads, int smem,
+                  cudaStream_t stream, const void* args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  bool tc = false;
-  if constexpr (std::is_same<T, bf16>::value) {
-    const void* ptrs[] = {x, w1, w2, w3, wsc, out};
-    tc = tc_eligible(ptrs, 6, Cin, Cm, Cout);
-  }
-  int th = 0, tw = 0, smem = 0;
-  if (!pick_tile(tc, Cm, (int)sizeof(T), limit, &th, &tw, &smem))
-    return (int)cudaErrorInvalidConfiguration;
-  const Args<T> a = make_args<T>(x, w1, b1, w2, b2, w3, b3, wsc, bsc, out, H,
-                                 W, Cin, Cm, Cout, th, tw);
-  dim3 grid((W + tw - 1) / tw, (H + th - 1) / th, batch);
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (tc) {
-      err = cudaFuncSetAttribute(bottleneck_tc_kernel<kFull>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
-      if (err != cudaSuccess) return (int)err;
-      bottleneck_tc_kernel<kFull><<<grid, kThreads, smem, stream>>>(a);
-      return (int)cudaGetLastError();
-    }
-  }
-  err = cudaFuncSetAttribute(bottleneck_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  void* params[] = {const_cast<void*>(args)};
+  err = cudaLaunchKernel((const void*)kernel, grid, dim3(threads), params,
+                         (size_t)smem, stream);
   if (err != cudaSuccess) return (int)err;
-  bottleneck_kernel<T><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// One probe variant on the tile the model's kernel picks for these shapes.
-template <int kMode>
-int probe_launch(const Args<bf16>& a, dim3 grid, int smem,
-                 cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      bottleneck_tc_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  bottleneck_tc_kernel<kMode><<<grid, kThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+// The on-chip CUDA-core kernel on a th x tw tile.
+template <typename T>
+int launch_onchip(const Args<T>& a, int batch, int smem, cudaStream_t stream) {
+  const dim3 grid((a.W + a.TW - 1) / a.TW, (a.H + a.TH - 1) / a.TH, batch);
+  return launch_kernel(bottleneck_kernel<T>, grid, kThreads, smem, stream,
+                       &a);
+}
+
+template <int BN, int kMode>
+int launch_conv(const ConvArgs& a, int smem, cudaStream_t stream) {
+  const int M = a.batch * a.H * a.W;
+  const dim3 grid((M + GM - 1) / GM, kMode >= kConvDmaOnly ? 1 : a.N / BN);
+  return launch_kernel(conv_wgmma_kernel<BN, kMode>, grid, kGemmThreads, smem,
+                       stream, &a);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (B, H, W, Cin) in dtype (0 = float32, 1 = bfloat16); w1 (Cin, Cm),
-// w2 (3, 3, Cm, Cm), w3 (Cm, Cout) and wsc (Cin, Cout) in dtype, already
-// folded; b1, b2 (Cm,), b3, bsc (Cout,) float32; wsc and bsc null for the
-// identity shortcut (Cin == Cout); out (B, H, W, Cout) in dtype. All
-// contiguous. Returns cudaGetLastError() after the launch.
+// The on-chip fused block on the CUDA cores, one launch over th x tw pixel
+// tiles (the tile plan is the wrapper's, ops/fused_bottleneck.py:
+// onchip_tile): x (B, H, W, Cin) in dtype (0 = float32, 1 = bfloat16); w1
+// (Cin, Cm), w2 (3, 3, Cm, Cm), w3 (Cm, Cout) and wsc (Cin, Cout) in dtype,
+// already folded; b1, b2 (Cm,), b3, bsc (Cout,) float32; wsc and bsc null
+// for the identity shortcut (Cin == Cout); out (B, H, W, Cout) in dtype. All
+// contiguous. Returns cudaErrorInvalidValue for a tile of no pixels,
+// cudaErrorInvalidConfiguration for a tile that does not fit in shared
+// memory, else cudaGetLastError() after the launch.
 int fused_bottleneck_launch(int dtype, const void* x, const void* w1,
                             const void* b1, const void* w2, const void* b2,
                             const void* w3, const void* b3, const void* wsc,
                             const void* bsc, void* out, int batch, int H,
-                            int W, int Cin, int Cm, int Cout, void* stream) {
+                            int W, int Cin, int Cm, int Cout, int th, int tw,
+                            void* stream) {
+  if (th < 1 || tw < 1) return (int)cudaErrorInvalidValue;
+  int limit = 0;
+  cudaError_t err = (cudaError_t)smem_limit(&limit);
+  if (err != cudaSuccess) return (int)err;
+  const int smem = smem_bytes(th, tw, Cm, dtype == 0 ? 4 : 2);
+  if (smem > limit) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch<float>(x, w1, b1, w2, b2, w3, b3, wsc, bsc, out, batch, H,
-                         W, Cin, Cm, Cout, (cudaStream_t)stream);
-  return launch<__nv_bfloat16>(x, w1, b1, w2, b2, w3, b3, wsc, bsc, out,
-                               batch, H, W, Cin, Cm, Cout,
-                               (cudaStream_t)stream);
+    return launch_onchip<float>(
+        make_args<float>(x, w1, b1, w2, b2, w3, b3, wsc, bsc, out, H, W, Cin,
+                         Cm, Cout, th, tw),
+        batch, smem, s);
+  return launch_onchip<bf16>(
+      make_args<bf16>(x, w1, b1, w2, b2, w3, b3, wsc, bsc, out, H, W, Cin, Cm,
+                      Cout, th, tw),
+      batch, smem, s);
 }
 
-// One variant of the bf16 tensor-core kernel (see ProbeMode) for an
-// identity block: mode 0 full, 1 norolls, 2 notap, 3 noconv2, 4 dmaonly,
-// 5 nodma. Other arguments as for fused_bottleneck_launch, bf16 only.
-// Returns cudaErrorInvalidValue for blocks the tensor-core kernel does not
-// take, else cudaGetLastError().
-int fused_probe_launch(int mode, const void* x, const void* w1,
-                       const void* b1, const void* w2, const void* b2,
-                       const void* w3, const void* b3, void* out, int batch,
-                       int H, int W, int Cin, int Cm, int Cout, void* stream) {
-  const void* ptrs[] = {x, w1, w2, w3, out};
-  if (!tc_eligible(ptrs, 5, Cin, Cm, Cout) || Cin != Cout || mode < 0 ||
-      mode > kNoDma)
+// One convolution of the wgmma path (see conv_wgmma_kernel), bf16:
+// out (B, H, W, N) = relu(sum over the K steps of A @ w + bias0 [+ bias1]
+// [+ res]). a0 (B, H, W, c0) with taps 1 or 9; a1 (B, H, W, c1) or null
+// with c1 = 0; w packed by ops/fused_bottleneck.py:pack_conv_weights for
+// N tiles of bn (64, 128 or 256) columns; mode a ConvMode (0 full, 1 norolls,
+// 2 dmaonly, 3 nodma; the last two take no weights). c0, c1 % 64 == 0,
+// N % bn == 0, every pointer 16-byte aligned. Returns cudaErrorInvalidValue
+// for arguments the kernel does not take, else cudaGetLastError() after the
+// launch.
+int conv_wgmma_launch(int mode, const void* a0, int c0, int taps,
+                      const void* a1, int c1, const void* w,
+                      const void* bias0, const void* bias1, const void* res,
+                      void* out, int batch, int H, int W, int N, int bn,
+                      void* stream) {
+  const void* ptrs[] = {a0, a1, w, res, out};
+  if (mode < kConvFull || mode > kConvNoDma || c0 < GK || c0 % GK != 0 ||
+      c1 % GK != 0 || (c1 > 0) != (a1 != nullptr) ||
+      (taps != 1 && taps != 9) || (bn != 64 && bn != 128 && bn != 256) ||
+      N % bn != 0 || !aligned16(ptrs, 5) || batch * H * W < 1)
     return (int)cudaErrorInvalidValue;
   int limit = 0;
   cudaError_t err = (cudaError_t)smem_limit(&limit);
   if (err != cudaSuccess) return (int)err;
-  int th = 0, tw = 0, smem = 0;
-  if (!pick_tile(true, Cm, 2, limit, &th, &tw, &smem))
-    return (int)cudaErrorInvalidConfiguration;
-  // kDmaOnly keeps P x (cc + 8) values where the other modes keep a1 and a2
-  const int keep = RING_BYTES + th * tw * ((Cin < 128 ? Cin : 128) + 8) * 2;
-  if (mode == kDmaOnly && keep > smem) smem = keep;
-  if (smem > limit) return (int)cudaErrorInvalidConfiguration;
-  const Args<bf16> a = make_args<bf16>(x, w1, b1, w2, b2, w3, b3, nullptr,
-                                       nullptr, out, H, W, Cin, Cm, Cout, th,
-                                       tw);
-  const dim3 grid((W + tw - 1) / tw, (H + th - 1) / th, batch);
+  const int slot = G_A_SLOT + GK * bn * 2;
+  // rings of 4 slots at bn = 64 (98 KB) and 3 at bn = 128 (97 KB) leave
+  // room for a second CTA on the SM
+  const int most = bn == 64 ? 4 : bn == 128 ? 3 : kMaxStages;
+  int stages = (limit - kHeadBytes) / slot;
+  if (stages > most) stages = most;
+  if (stages < 3) return (int)cudaErrorInvalidConfiguration;
+  const ConvArgs a{(const bf16*)a0,     (const bf16*)a1,     c0,
+                   c1,                  taps,                (const bf16*)w,
+                   (const float*)bias0, (const float*)bias1, (const bf16*)res,
+                   (bf16*)out,          batch,               H,
+                   W,                   N,                   stages};
+  const int smem = kHeadBytes + stages * slot;
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
-    case kFull: return probe_launch<kFull>(a, grid, smem, s);
-    case kNoRolls: return probe_launch<kNoRolls>(a, grid, smem, s);
-    case kNoTap: return probe_launch<kNoTap>(a, grid, smem, s);
-    case kNoConv2: return probe_launch<kNoConv2>(a, grid, smem, s);
-    case kDmaOnly: return probe_launch<kDmaOnly>(a, grid, smem, s);
-    default: return probe_launch<kNoDma>(a, grid, smem, s);
+    case kConvFull:
+      return bn == 256   ? launch_conv<256, kConvFull>(a, smem, s)
+             : bn == 128 ? launch_conv<128, kConvFull>(a, smem, s)
+                         : launch_conv<64, kConvFull>(a, smem, s);
+    case kConvNoRolls:
+      return bn == 256   ? launch_conv<256, kConvNoRolls>(a, smem, s)
+             : bn == 128 ? launch_conv<128, kConvNoRolls>(a, smem, s)
+                         : launch_conv<64, kConvNoRolls>(a, smem, s);
+    case kConvDmaOnly: return launch_conv<128, kConvDmaOnly>(a, smem, s);
+    default: return launch_conv<128, kConvNoDma>(a, smem, s);
   }
 }
 

@@ -1,19 +1,20 @@
 """Bisection probe of the fused-bottleneck CUDA kernel: times variants of
-the bf16 tensor-core kernel, each with one part stripped, on R-50 stride-1
-block shapes at 800x1344: res2_1 (the TPU probe's shape), res4_1 and res5_1
-(port of ``tools/fused_kernel_probe.py``).
+the bf16 wgmma path ``fused_bottleneck`` runs, each with one part stripped,
+on R-50 stride-1 block shapes at 800x1344: res2_1 (the TPU probe's shape),
+res4_1 and res5_1 (port of ``tools/fused_kernel_probe.py``).
 
     python -m slenderobjdet_torch.tools.fused_kernel_probe [--batch 32]
         [--th 32] [--modes cudnn,full,norolls,notap,noconv2,dmaonly,nodma]
 
-Modes (``csrc/fused_bottleneck.cu``, ``ProbeMode``): ``full`` is the kernel
+Modes (``ops/fused_bottleneck.py:probe_variant``): ``full`` is the kernel
 the model runs; ``norolls`` drops the 3x3 conv's column shift; ``notap``
-keeps the centre tap; ``noconv2`` skips conv2; ``dmaonly`` streams the halo
-tile in and writes the output; ``nodma`` writes the output alone. ``cudnn``
-is the same block as three bf16 cuDNN convolutions (the TPU probe's ``xla``
-mode). The CUDA kernel picks its own tile (8x16 pixels, 8x8 at res5), so
-``--th``, the TPU tile's rows, is accepted and not used. Times are CUDA
-events; GB/s counts one read of x and one write of the output.
+keeps the centre tap; ``noconv2`` skips conv2; ``dmaonly`` streams x in and
+writes the output; ``nodma`` writes the output alone. ``cudnn`` is the same
+block as three bf16 cuDNN convolutions (the TPU probe's ``xla`` mode). The
+wrapper picks the tiles by shape (``ops/fused_bottleneck.py:
+bottleneck_plan``), so ``--th``, the TPU tile's rows, is accepted and not
+used. Times are CUDA events; GB/s counts one read
+of x and one write of the output.
 """
 
 from __future__ import annotations

@@ -183,6 +183,119 @@ def test_reference_bottleneck_matches_jax(B, H, W, cin, cm, cout, proj, no_launc
     assert torch.equal(t_fb.fused_bottleneck(*t), got)   # CPU: the plain version
 
 
+# R-50's stride-1 block shapes at 800x1344: H, W, Cin, Cm, Cout
+R50_BLOCKS = [(200, 336, 64, 64, 256), (200, 336, 256, 64, 256),
+              (100, 168, 512, 128, 512), (50, 84, 1024, 256, 1024),
+              (25, 42, 2048, 512, 2048)]
+
+
+@pytest.mark.parametrize("cin,cm,cout,proj,bn", [
+    (64, 128, 128, False, 128),
+    (256, 128, 512, True, 256),
+    (1024, 256, 1024, False, 256),
+    (512, 512, 1024, True, 128),
+])
+def test_wgmma_weight_packing_round_trips(cin, cm, cout, proj, bn):
+    """The wgmma path's re-layout: every weight lands where the kernel's
+    descriptor reads it, and unpacking gives back the JAX-layout tensors
+    (HWIO w2, (Cin, Cm) w1, (Cm, Cout) w3 and (Cin, Cout) wsc) exactly."""
+    rs = np.random.RandomState(cin + cm)
+    w1, w2, w3 = (torch.from_numpy(rs.randn(*s).astype(np.float32)).bfloat16()
+                  for s in ((cin, cm), (3, 3, cm, cm), (cm, cout)))
+    wsc = torch.from_numpy(rs.randn(cin, cout).astype(np.float32)).bfloat16() if proj else None
+    k1, k2, k3 = t_fb.conv_weight_matrices(w1, w2, w3, wsc)
+    for wk, n in ((k1, cm), (k2, cm), (k3, cout)):
+        b = bn if n % bn == 0 else 128
+        packed = t_fb.pack_conv_weights(wk, b)
+        assert packed.is_contiguous() and packed.numel() == wk.numel()
+        # [N / bn][K / 64][k16 slice j][n group][k half][8 n][8 k]
+        last_nt, last_ks = n // b - 1, wk.shape[0] // 64 - 1
+        for nt, ks, j, ng, kh, ni, ki in ((0, 0, 0, 0, 0, 0, 0),
+                                          (min(1, last_nt), min(1, last_ks), 3, 5, 1, 7, 6),
+                                          (last_nt, last_ks, 2, b // 8 - 1, 0, 3, 2)):
+            assert torch.equal(packed[nt, ks, j, ng, kh, ni, ki],
+                               wk[ks * 64 + j * 16 + kh * 8 + ki, nt * b + ng * 8 + ni])
+        assert torch.equal(t_fb.unpack_conv_weights(packed, b), wk)
+    un2 = t_fb.unpack_conv_weights(t_fb.pack_conv_weights(k2, 128), 128)
+    assert torch.equal(un2.reshape(3, 3, cm, cm), w2)
+    un3 = t_fb.unpack_conv_weights(t_fb.pack_conv_weights(k3, 128), 128)
+    assert torch.equal(un3[:cm], w3)
+    if proj:
+        assert torch.equal(un3[cm:], wsc)
+    assert torch.equal(t_fb.conv_weight_matrices(w1, w2, w3, mode="notap")[1], w2[1, 1])
+
+
+def _covered_once(plan, batch, h, w, cm, cout):
+    """Each conv's (or the on-chip block's) tiles cover every (pixel, output
+    channel) of its output exactly once."""
+    m = batch * h * w
+    counts = {}
+    for conv, ps, cs in t_fb.plan_tiles(plan, batch, h, w, cm, cout):
+        n = cm if conv in ("conv1", "conv2") else cout
+        assert 0 <= ps.start < ps.stop <= m and 0 <= cs.start < cs.stop <= n
+        c = counts.setdefault(conv, np.zeros((m, n // 8), np.int32))
+        c[ps, cs.start // 8:cs.stop // 8] += 1
+    want = {"conv1", "conv2", "conv3"} if plan["route"] == "wgmma" else {"block"}
+    assert set(counts) == want
+    for c in counts.values():
+        assert (c == 1).all()
+
+
+@pytest.mark.parametrize("h,w,cin,cm,cout", R50_BLOCKS)
+def test_bottleneck_tile_plan_covers_r50_shapes(h, w, cin, cm, cout):
+    """At R-50's five stride-1 shapes, bf16, B = 2: every one takes the
+    wgmma path, its tiles cover every output exactly once (25x42 included)
+    and waste only the last tile's rows; fp32 stays on chip and covers
+    every output once too."""
+    plan = t_fb.bottleneck_plan(torch.bfloat16, 2, h, w, cin, cm, cout)
+    assert plan["route"] == "wgmma"
+    assert plan["m_tiles"] * t_fb.GEMM_M - 2 * h * w < t_fb.GEMM_M
+    _covered_once(plan, 2, h, w, cm, cout)
+    plan = t_fb.bottleneck_plan(torch.float32, 1, h, w, cin, cm, cout)
+    assert plan["route"] == "cuda_cores"
+    _covered_once(plan, 1, h, w, cm, cout)
+
+
+@pytest.mark.parametrize("dtype,batch,h,w,cin,cm,cout", [
+    (torch.bfloat16, 1, 1, 1, 64, 128, 128),
+    (torch.bfloat16, 3, 7, 9, 128, 128, 256),
+    (torch.bfloat16, 2, 13, 5, 512, 512, 2048),
+    (torch.bfloat16, 2, 13, 21, 64, 64, 256),      # wgmma, BN = 64
+    (torch.bfloat16, 2, 13, 21, 64, 32, 64),       # on chip, CUDA cores
+    (torch.float32, 2, 13, 21, 64, 128, 128),      # on chip, CUDA cores
+    (torch.bfloat16, 1, 3, 5, 48, 16, 48),         # on chip, CUDA cores
+])
+def test_bottleneck_tile_plan_covers_ragged_shapes(dtype, batch, h, w, cin, cm, cout):
+    plan = t_fb.bottleneck_plan(dtype, batch, h, w, cin, cm, cout)
+    _covered_once(plan, batch, h, w, cm, cout)
+
+
+def test_bottleneck_plan_routes_and_tiles():
+    """The kernel and tile choices: wgmma only for aligned bf16 blocks with
+    Cin, Cm and Cout % 64 == 0; BN = 256 where that still fills every SM
+    (res5 at B = 8), else 128, else 64 (Cm = 64 at res2); the on-chip tile is
+    the largest that fits in shared memory."""
+    plan = t_fb.bottleneck_plan(torch.bfloat16, 8, 25, 42, 2048, 512, 2048)
+    assert plan == {"route": "wgmma", "m_tiles": 66,
+                    "bn": {"conv1": 256, "conv2": 256, "conv3": 256}}
+    plan = t_fb.bottleneck_plan(torch.bfloat16, 1, 25, 42, 2048, 512, 2048)
+    assert plan["bn"] == {"conv1": 128, "conv2": 128, "conv3": 128}
+    assert t_fb.bottleneck_plan(torch.bfloat16, 8, 100, 168, 512, 128, 512)["bn"] == {
+        "conv1": 128, "conv2": 128, "conv3": 256}
+    assert t_fb.bottleneck_plan(torch.bfloat16, 8, 25, 42, 2048, 512, 2048,
+                                aligned=False)["route"] == "cuda_cores"
+    assert t_fb.bottleneck_plan(torch.float32, 8, 25, 42, 2048, 512, 2048) == {
+        "route": "cuda_cores", "tile": (4, 8)}
+    assert t_fb.bottleneck_plan(torch.bfloat16, 8, 200, 336, 256, 64, 256) == {
+        "route": "wgmma", "m_tiles": 4200,
+        "bn": {"conv1": 64, "conv2": 64, "conv3": 256}}
+    assert t_fb.bottleneck_plan(torch.bfloat16, 8, 200, 336, 64, 32, 64) == {
+        "route": "cuda_cores", "tile": (8, 16)}
+    assert t_fb.onchip_tile(512, 2) == (8, 8)
+    assert t_fb.onchip_smem_bytes(8, 8, 512, 2) <= t_fb.SMEM_LIMIT
+    assert t_fb.onchip_smem_bytes(8, 16, 512, 2) > t_fb.SMEM_LIMIT
+
+
 def test_fcos_locations_match_jax():
     for hw in ((64, 64), (800, 1344), (37, 50)):
         got, gc = t_anchors.fcos_locations(hw, (8, 16, 32, 64, 128))

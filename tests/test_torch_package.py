@@ -96,7 +96,9 @@ def test_build_model_dtype_and_seeded_weights():
     assert build_model(cfg).dtype == torch.float32
 
 
-def test_nvcc_command_targets_sm90a():
+def test_nvcc_command_targets_sm90a(tmp_path, monkeypatch):
+    """The build compiles every source for sm_90a, and its cache key hashes
+    the shared header too, so an edit to the header rebuilds."""
     cmd = _build.nvcc_command("lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert cmd[cmd.index("-o") + 1] == "lib.so"
@@ -104,6 +106,22 @@ def test_nvcc_command_targets_sm90a():
         assert (_build.CSRC / src).exists()
         assert any(c.endswith(src) for c in cmd)
     assert _build.BUILD_ROOT == ROOT / "build" / "torch_kernels"
+    hashed = {p.name for p in _build.hashed_files()}
+    assert hashed == set(_build.SOURCES) | set(_build.HEADERS)
+    for header in _build.HEADERS:
+        assert not any(c.endswith(header) for c in cmd)
+        users = [s for s in _build.SOURCES
+                 if f'#include "{header}"' in (_build.CSRC / s).read_text()]
+        assert set(users) >= {"fused_bottleneck.cu", "dma_streams_probe.cu"}
+    copy = tmp_path / "csrc"
+    copy.mkdir()
+    for name in hashed:
+        (copy / name).write_bytes((_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", copy)
+    before = _build.library_path()
+    with open(copy / _build.HEADERS[0], "a") as f:
+        f.write("// edited\n")
+    assert _build.library_path() != before
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -159,6 +177,46 @@ def test_kernels_match_plain_on_gpu(dtype):
     got = nms.cuda_batched_nms(boxes, scores, classes, 0.6, 50)
     want = nms.batched_nms(boxes, scores, classes, 0.6, 50)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cm,cout,proj,hw", [
+    (64, 64, 256, True, (9, 13)),
+    (256, 64, 256, False, (5, 11)),
+    (128, 128, 128, False, (9, 13)),
+    (256, 128, 512, True, (5, 7)),
+    (256, 256, 256, False, (11, 6)),
+    (512, 256, 1024, True, (3, 17)),
+    (512, 512, 512, False, (3, 4)),
+    (1024, 512, 2048, True, (7, 9)),
+])
+def test_wgmma_bottleneck_matches_plain_on_gpu(cin, cm, cout, proj, hw):
+    """The bf16 wgmma path (Cm = 64, 128, 256, 512) at small ragged shapes,
+    with and without a projection shortcut, against the plain version within
+    the bf16 ratio 3e-2, one counted launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from slenderobjdet_torch.ops import fused_bottleneck as fb
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(cin + cm + cout)
+
+    def t(*shape, s=1.0):
+        return torch.tensor(rs.randn(*shape).astype(np.float32) * s, device=dev)
+
+    x = torch.relu(t(2, *hw, cin)).to(torch.bfloat16)
+    args = (t(cin, cm, s=cin ** -0.5), t(cm, s=0.1), t(3, 3, cm, cm, s=(9 * cm) ** -0.5),
+            t(cm, s=0.1), t(cm, cout, s=cm ** -0.5), t(cout, s=0.1))
+    args += (t(cin, cout, s=cin ** -0.5), t(cout, s=0.1)) if proj else (None, None)
+    assert fb.bottleneck_plan(x.dtype, 2, *hw, cin, cm, cout)["route"] == "wgmma"
+    _build.reset_launch_counts()
+    got = fb.fused_bottleneck(x, *args)
+    want = fb.reference_bottleneck(x, *args)
+    assert _build.launch_counts()["fused_bottleneck"] == 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    err = float((got.double() - want.double()).abs().max() / want.double().abs().max())
+    assert err <= 3e-2
 
 
 @pytest.mark.gpu
@@ -229,7 +287,7 @@ def test_probe_kernels_match_plain_on_gpu():
         return float((a.double() - b.double()).abs().max() / b.double().abs().max())
 
     dev = torch.device("cuda")
-    for cin, cm, hw in ((64, 32, (13, 21)), (256, 64, (16, 24))):
+    for cin, cm, hw in ((128, 64, (13, 21)), (256, 128, (16, 24))):
         x, w = block_inputs(2, *hw, cin, cm, cin, dev, seed=3)
         main = fused_bottleneck(x, *w)
         for mode in PROBE_MODES:
