@@ -9,8 +9,12 @@ if it fails:
 
 1. NMS kernel vs its plain version at B=8, N=5000, max_out 100, thr 0.6,
    integer-pixel boxes: indices and validity must be identical.
-2. Fused stem kernel vs ``reference_stem`` at (8, 800, 1344, 3): max abs
-   error / max abs value <= 1e-4 in fp32, <= 3e-2 in bf16.
+2. Fused stem kernels vs ``reference_stem`` at (8, 800, 1344, 3): max abs
+   error / max abs value <= 1e-4 in fp32 (CUDA cores), <= 3e-2 in bf16
+   (tensor cores); the bf16 kernel again at B=32, at the ragged (2, 36, 52,
+   3) and at 16 channels (which the plan sends to the CUDA cores); the
+   tensor-core kernel timed in turns with the CUDA-core one and the bf16
+   cuDNN stem at B=8 and 32; its SASS must hold tensor-core instructions.
 3. Fused bottleneck kernels vs ``reference_bottleneck`` at the five
    distinct stride-1 block shapes of R-50 at 800x1344, B=8, same
    tolerances; then each shape's time at B=8 and B=32 (the whole
@@ -29,9 +33,10 @@ if it fails:
 6. The probe tools: every variant of the fused-kernel probe against its
    plain version at res2_1, res4_1 and res5_1 (B=8; ``full`` bit-exact with
    ``fused_bottleneck``, the others within 3e-2), the DMA-streams tokens
-   (relative 1e-5) and the copies (bit-exact), the DMA probe timed beside
-   a plain full read of its input; then the three tools' ``main`` at B=8
-   with the launch counts reset before and read after.
+   (relative 1e-5) and the copies (bit-exact at th 1, 7, 32, 200), the DMA
+   probe timed beside a plain full read of its input and the copy beside
+   ``x * 0.5`` at th 4, 32, 200 for B=8 and 32; then the three tools'
+   ``main`` at B=8 with the launch counts reset before and read after.
 7. The train step at full width (800x1344, bf16, FUSED_STEM/FUSED_BLOCKS
    on): one step's gradients of a res3, res4, res5 and head weight from the
    fused bf16 model must be non-zero and no further from an fp32 model's
@@ -39,6 +44,11 @@ if it fails:
    SOLVER.IMS_PER_BATCH (16) images with WARMUP_ITERS 0 must launch both
    fused kernels, keep every loss finite and end below step 0's total;
    train img/s with the flags on and off and the peak device memory.
+
+Every kernel's time stands beside its bound, the least time the card could
+take: the larger of its bytes (inputs read once, outputs written once) over
+3.35 TB/s and its operations over the peak rate of their type (989 TFLOP/s
+bf16 tensor cores, 67 TFLOP/s fp32), the H100 SXM's published figures.
 
 Prints the card's ``nvidia-smi`` name and power limit, a JSON line of the
 kernels, and as the last line ``{"ok": true, "device": {...}}``. Exits
@@ -70,6 +80,12 @@ GRAD_FACTOR = 1.5    # train: fused gradient error vs fp32 <= 1.5 x unfused's
 TRAIN_STEPS = 10     # train: steps after step 0 on one batch
 DMA_RTOL = 1e-5      # DMA probe tokens: fp32 sums of the same bf16 values
 
+# NVIDIA's published peaks of the H100 SXM (data sheet, dense, 700 W)
+PEAK_BYTES_S = 3.35e12       # device memory
+PEAK_BF16_FLOPS = 989e12     # tensor cores, bf16
+PEAK_FP32_FLOPS = 67e12      # CUDA cores, fp32
+NMS_OPS_PER_PAIR = 17        # one round, one candidate: IoU (16) + the argmax compare
+
 # R-50 stride-1 bottleneck shapes at 800x1344: name, H, W, Cin, Cm, Cout,
 # projection shortcut, and how many of the 13 fused blocks have this shape.
 BLOCKS = [
@@ -88,6 +104,29 @@ def log(msg: str) -> None:
 def ratio(got: torch.Tensor, want: torch.Tensor) -> float:
     got, want = got.double(), want.double()
     return float((got - want).abs().max() / (want.abs().max() + 1e-9))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound_ms(n_bytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    by_bytes, by_ops = n_bytes / PEAK_BYTES_S * 1e3, flops / peak_flops * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def set_bound(entry, n_bytes, flops, peak_flops=PEAK_BF16_FLOPS):
+    entry["bound_ms"], entry["bound_by"] = bound_ms(n_bytes, flops, peak_flops)
+
+
+def log_bounds(kernels):
+    for k in kernels.values():
+        if "ms" in k and "bound_ms" in k:
+            lib = k.get("library_ms")
+            log(f"bound {k['name']}: kernel {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+                f"({k['bound_by']}), {k['bound_ms'] / k['ms']:.3f} of bound; same-function "
+                f"PyTorch call " + ("none" if lib is None else f"{lib:.4f} ms"))
 
 
 def phase_nms(kernels, dev):
@@ -117,49 +156,93 @@ def phase_nms(kernels, dev):
     ms = cuda_ms(lambda: cuda_batched_nms(boxes, scores, classes, 0.6, 100, valid), 20)
     plain_ms = cuda_ms(lambda: batched_nms(boxes, scores, classes, 0.6, 100, valid), 3)
     log(f"time nms B=8 N=5000: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    kernels["nms"].update(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms)
+    # each round that keeps a box scans the image's N candidates once
+    rounds = int(kv.sum())
+    set_bound(kernels["nms"], nbytes(boxes, scores, classes, valid, ki, kv),
+              rounds * N * NMS_OPS_PER_PAIR, PEAK_FP32_FLOPS)
+    log(f"nms: {rounds} rounds over {B} images (dependent: each waits for the one before)")
+    kernels["nms"].update(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms,
+                          library_ms=None)
+
+
+def stem_inputs(batch, h, w, cs, dev, seed=1):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = (torch.randn(batch, h, w, 3, generator=g) * 50).to(dev)
+    wt = (torch.randn(7, 7, 3, cs, generator=g) / 147 ** 0.5).to(dev)
+    scale = (torch.rand(cs, generator=g) * 0.5 + 0.75).to(dev)
+    bias = (torch.randn(cs, generator=g) * 0.1).to(dev)
+    return x, wt, scale, bias
 
 
 def phase_stem(kernels, dev):
-    from slenderobjdet_torch.ops.fused_stem import fused_stem, reference_stem
+    from slenderobjdet_torch.ops.fused_stem import (fused_stem, launch_stem,
+                                                    reference_stem, stem_plan)
 
-    g = torch.Generator(device="cpu").manual_seed(1)
-    x = (torch.randn(8, 800, 1344, 3, generator=g) * 50).to(dev)
-    w = (torch.randn(7, 7, 3, 64, generator=g) / 147 ** 0.5).to(dev)
-    scale = (torch.rand(64, generator=g) * 0.5 + 0.75).to(dev)
-    bias = (torch.randn(64, generator=g) * 0.1).to(dev)
-    errs = {}
-    for dt, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+    def check(label, x, w, scale, bias, dt, tol, route):
+        b, h, wd, _ = x.shape
+        cs = w.shape[-1]
         xd = x.to(dt)
+        plan = stem_plan(dt, b, h, wd, cs)
+        if plan["route"] != route:
+            raise AssertionError(f"stem {label}: plan {plan}, expected {route}")
         got = fused_stem(xd, w, scale, bias)
         want = reference_stem(xd, w, scale, bias)
         torch.cuda.synchronize()
-        if got.shape != (8, 200, 336, 64) or got.dtype != dt:
+        if got.shape != (b, h // 4, wd // 4, cs) or got.dtype != dt:
             raise AssertionError(f"stem output {tuple(got.shape)} {got.dtype}")
-        errs[dt] = ratio(got, want)
+        err = ratio(got, want)
         abs_err = float((got.double() - want.double()).abs().max())
-        log(f"stem {dt}: err ratio {errs[dt]:.3e} (tol {tol}), max abs err {abs_err:.4e}")
-        if not errs[dt] <= tol:
-            raise AssertionError(f"stem {dt} err {errs[dt]} > {tol}")
-        if dt == torch.bfloat16:
-            kernels["fused_stem"]["max_abs_err"] = abs_err
-    xb = x.to(torch.bfloat16)
-    ms = cuda_ms(lambda: fused_stem(xb, w, scale, bias), 10)
-    plain_ms = cuda_ms(lambda: reference_stem(xb, w, scale, bias), 10)
+        log(f"stem {label} {dt} ({route}): err ratio {err:.3e} (tol {tol}), "
+            f"max abs err {abs_err:.4e}")
+        if not err <= tol:
+            raise AssertionError(f"stem {label} {dt} err {err} > {tol}")
+        return abs_err
 
-    # the flags-off model path: bf16 cuDNN conv, FrozenBN, relu, maxpool
-    xc = xb.permute(0, 3, 1, 2)
+    x, w, scale, bias = stem_inputs(8, 800, 1344, 64, dev)
+    check("B=8 800x1344", x, w, scale, bias, torch.float32, FP32_TOL, "cuda_cores")
+    kernels["fused_stem"]["max_abs_err"] = check(
+        "B=8 800x1344", x, w, scale, bias, torch.bfloat16, BF16_TOL, "mma")
+    check("ragged (2, 36, 52)", *stem_inputs(2, 36, 52, 64, dev, seed=11),
+          torch.bfloat16, BF16_TOL, "mma")
+    check("ragged (2, 36, 52)", *stem_inputs(2, 36, 52, 64, dev, seed=11),
+          torch.float32, FP32_TOL, "cuda_cores")
+    check("16 channels (2, 36, 52)", *stem_inputs(2, 36, 52, 16, dev, seed=12),
+          torch.bfloat16, BF16_TOL, "cuda_cores")
+    x32 = stem_inputs(32, 800, 1344, 64, dev, seed=13)[0].to(torch.bfloat16)
+    check("B=32 800x1344", x32, w, scale, bias, torch.bfloat16, BF16_TOL, "mma")
+
+    # the tensor-core kernel in turns with the CUDA-core one and with the
+    # flags-off model path (bf16 cuDNN conv, FrozenBN, relu, maxpool)
     wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last).to(torch.bfloat16)
+    sc, bc = (t.to(torch.bfloat16).view(1, -1, 1, 1) for t in (scale, bias))
 
-    def unfused():
+    def unfused(xc):
         y = torch.nn.functional.conv2d(xc, wc, stride=2, padding=3)
-        y = y * scale.to(torch.bfloat16).view(1, -1, 1, 1) + bias.to(torch.bfloat16).view(1, -1, 1, 1)
-        return torch.nn.functional.max_pool2d(torch.relu(y), 3, 2, 1)
+        return torch.nn.functional.max_pool2d(torch.relu(y * sc + bc), 3, 2, 1)
 
-    unfused_ms = cuda_ms(unfused, 10)
-    log(f"time stem B=8 800x1344 bf16: kernel {ms:.4f} ms, plain (fp32 conv) "
-        f"{plain_ms:.4f} ms, unfused bf16 cuDNN path {unfused_ms:.4f} ms")
-    kernels["fused_stem"].update(ms=ms, plain_ms=plain_ms)
+    for xb in (x.to(torch.bfloat16), x32):
+        batch = xb.shape[0]
+        xc = xb.permute(0, 3, 1, 2)
+        turns = {"mma": [], "cuda_cores": [], "cudnn": []}
+        for route in ("mma", "cuda_cores", "cudnn", "cudnn", "cuda_cores", "mma"):
+            fn = (lambda: unfused(xc)) if route == "cudnn" else (
+                lambda: launch_stem(xb, w, scale, bias, route=route))
+            turns[route].append(cuda_ms(fn, 10))
+        ms, old_ms, cudnn_ms = (float(np.mean(turns[r])) for r in ("mma", "cuda_cores", "cudnn"))
+        flops = 2 * 147 * 64 * batch * 400 * 672
+        out = torch.empty(batch, 200, 336, 64, dtype=torch.bfloat16, device="meta")
+        b_ms, b_by = bound_ms(nbytes(xb, out) + 176 * 64 * 2 + 64 * 4, flops)
+        log(f"time stem B={batch} 800x1344 bf16: tensor-core kernel {ms:.4f} ms "
+            f"({turns['mma']}), CUDA-core kernel {old_ms:.4f} ms, unfused bf16 cuDNN "
+            f"path {cudnn_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), "
+            f"{b_ms / ms:.3f} of bound, {flops / ms / 1e9:.1f} TFLOP/s")
+        if batch == 8:
+            plain_ms = cuda_ms(lambda: reference_stem(xb, w, scale, bias), 10)
+            log(f"time stem B=8 plain (fp32 conv) {plain_ms:.4f} ms")
+            kernels["fused_stem"].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                         bound_by=b_by, library_ms=cudnn_ms)
+            if not ms < old_ms:
+                raise AssertionError(f"stem: tensor cores {ms} ms, CUDA cores {old_ms} ms")
 
 
 def block_gflop(batch, h, w, cin, cm, cout, proj):
@@ -178,6 +261,7 @@ def phase_bottleneck(kernels, dev):
     gd = torch.Generator(device=dev).manual_seed(2)
     totals = {8: [0.0, 0.0, 0.0], 32: [0.0, 0.0, 0.0]}
     worst_abs = 0.0
+    bounds = {"bytes": 0.0, "operations": 0.0}   # the 13 blocks' bounds, by side
     for name, h, wd, cin, cm, cout, proj, count in BLOCKS:
         def rnd(*shape, s=1.0):
             return (torch.randn(*shape, generator=g) * s).to(dev)
@@ -216,6 +300,11 @@ def phase_bottleneck(kernels, dev):
             with torch.no_grad():
                 cudnn_ms = cuda_ms(lambda: block(xc), 5)
             gf = block_gflop(batch, h, wd, cin, cm, cout, proj)
+            if batch == 8:      # x in, the output out, bf16 weights and fp32 biases once
+                moved = nbytes(xb) * (cin + cout) // cin + sum(
+                    t.numel() * (2 if t.dim() > 1 else 4) for t in args if t is not None)
+                b_ms, b_by = bound_ms(moved, gf * 1e9)
+                bounds[b_by] += count * b_ms
             log(f"time bottleneck {name} B={batch} {h}x{wd} bf16 ({route}): kernel "
                 f"{ms:.4f} ms ({gf / ms:.1f} TFLOP/s), plain (fp32 convs) "
                 f"{plain_ms:.4f} ms, bf16 cuDNN block {cudnn_ms:.4f} ms "
@@ -228,14 +317,19 @@ def phase_bottleneck(kernels, dev):
     for batch, (ms, plain_ms, cudnn_ms) in totals.items():
         log(f"time bottleneck, all 13 fused blocks of R-50 at B={batch}: kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 cuDNN blocks {cudnn_ms:.4f} ms")
-    kernels["fused_bottleneck"].update(max_abs_err=worst_abs, ms=totals[8][0],
-                                       plain_ms=totals[8][1])
+    kernels["fused_bottleneck"].update(
+        max_abs_err=worst_abs, ms=totals[8][0], plain_ms=totals[8][1],
+        bound_ms=sum(bounds.values()), bound_by=max(bounds, key=bounds.get),
+        library_ms=totals[8][2])
+    log(f"bound bottleneck, 13 blocks at B=8: {bounds} ms by side (res2 and res3 "
+        f"are bound by bytes, res4 and res5 by operations)")
     sass_check()
 
 
 def sass_check():
-    """The model's bf16 wgmma kernel issues HGMMA (cuobjdump -sass of the
-    built library, next to nvcc); its bisection variants are listed too."""
+    """The model's bf16 wgmma kernel holds HGMMA and the bf16 stem kernel
+    HMMA (cuobjdump -sass of the built library, next to nvcc); the wgmma
+    kernel's bisection variants are listed too."""
     import re
     import subprocess
     from pathlib import Path
@@ -250,7 +344,7 @@ def sass_check():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = {"HGMMA": 0, "BAR.SYNC": 0, "UBLKCP": 0, "SYNCS": 0}
+            counts[fn] = {"HGMMA": 0, "HMMA": 0, "BAR.SYNC": 0, "UBLKCP": 0, "SYNCS": 0}
         elif fn is not None:
             for op in counts[fn]:
                 counts[fn][op] += op in line
@@ -264,6 +358,12 @@ def sass_check():
     if sorted(model) != ["128", "256", "64"] or not all(
             c["HGMMA"] > 0 and c["UBLKCP"] > 0 for c in model.values()):
         raise AssertionError(f"the model's wgmma kernels lack HGMMA or bulk copies: {model}")
+    stem = [c for fn, c in counts.items() if "stem_mma_kernel" in fn]
+    log(f"sass stem_mma_kernel: {stem}")
+    if len(stem) != 1 or not (stem[0]["HMMA"] > 0 or stem[0]["HGMMA"] > 0) \
+            or stem[0]["UBLKCP"] != 1:
+        raise AssertionError(f"the bf16 stem kernel lacks tensor-core instructions "
+                             f"or its one weight bulk copy: {stem}")
 
 
 def flagship_cfg(fused: bool, dtype: str = "bfloat16"):
@@ -448,10 +548,18 @@ def phase_probes(kernels, dev):
     from slenderobjdet_torch.tools import bw_probe, dma_streams_probe, fused_kernel_probe
 
     worst = 0.0
-    ms = plain_ms = 0.0
+    ms = plain_ms = probe_bound = 0.0
     for name in ("res2_1", "res4_1", "res5_1"):
         h, w, cin, cm, cout = fused_kernel_probe.BLOCKS[name]
         x, weights = fused_kernel_probe.block_inputs(8, h, w, cin, cm, cout, dev, seed=5)
+        # what each variant must do: conv1 and conv3 always, conv2 in full or
+        # on one tap, or only the copy (dmaonly) or the write (nodma)
+        px, wbytes = 8 * h * w, nbytes(*weights)
+        macs = {"full": 2 * cin * cm + 9 * cm * cm, "norolls": 2 * cin * cm + 9 * cm * cm,
+                "notap": 2 * cin * cm + cm * cm, "noconv2": 2 * cin * cm,
+                "dmaonly": 0, "nodma": 0}
+        moved = {m: 2 * nbytes(x) + wbytes for m in PROBE_MODES}
+        moved.update(dmaonly=2 * nbytes(x), nodma=nbytes(x))
         main = fused_bottleneck(x, *weights)
         for mode in PROBE_MODES:
             got = probe_variant(mode, x, *weights)
@@ -467,12 +575,17 @@ def phase_probes(kernels, dev):
             if name == "res2_1":
                 ms += cuda_ms(lambda: probe_variant(mode, x, *weights), 5)
                 plain_ms += cuda_ms(lambda: reference_probe_variant(mode, x, *weights), 3)
+                probe_bound += bound_ms(moved[mode], 2 * px * macs[mode])[0]
             del got, want
         del x, weights, main
         torch.cuda.empty_cache()
     log(f"time fused-kernel probe, the six variants at res2_1 B=8: kernels "
         f"{ms:.4f} ms, plain versions {plain_ms:.4f} ms")
-    kernels["fused_kernel_probe"].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+    # at res2_1 every variant is bound by its bytes; no one PyTorch call
+    # computes the six variants (the tool's cudnn mode is `full` alone)
+    kernels["fused_kernel_probe"].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                                         bound_ms=probe_bound, bound_by="bytes",
+                                         library_ms=None)
 
     g = torch.Generator(device=dev).manual_seed(6)
     x = torch.randn(8, 200, 336, 256, generator=g, device=dev).to(torch.bfloat16)
@@ -487,7 +600,8 @@ def phase_probes(kernels, dev):
             raise AssertionError(f"dma streams th={th} N={n}: rel err {rel}")
     kernels["dma_streams_probe"].update(
         max_abs_err=worst, ms=cuda_ms(lambda: dma_streams(x, 40, 1), 10),
-        plain_ms=cuda_ms(lambda: reference_dma_streams(x, 40), 10))
+        plain_ms=cuda_ms(lambda: reference_dma_streams(x, 40), 10), library_ms=None)
+    set_bound(kernels["dma_streams_probe"], nbytes(x, dma_streams(x, 40, 1)), 0)
     # the kernel reads every byte of x; reference_dma_streams only the
     # tokens' elements, so a plain full read is the like-for-like time
     full_read_ms = cuda_ms(lambda: torch.sum(x, dtype=torch.float32), 10)
@@ -497,13 +611,33 @@ def phase_probes(kernels, dev):
         f"reference_dma_streams {kernels['dma_streams_probe']['plain_ms']:.4f} ms, "
         f"plain full read (torch.sum) {full_read_ms:.4f} ms ({gb / full_read_ms * 1e3:.0f} GB/s)")
     for mode in ("blocked", "chunked"):
-        for th in (32, 7, 200):
+        for th in (1, 7, 32, 200):
             if not torch.equal(bw_copy(x, th, mode), reference_copy(x)):
                 raise AssertionError(f"bw copy {mode} th={th} != x * 0.5")
-    log("bw copy blocked/chunked at th 32, 7, 200: bit-exact with x * 0.5")
-    kernels["bw_probe"].update(
-        max_abs_err=0.0, ms=cuda_ms(lambda: bw_copy(x, 32, "blocked"), 10),
-        plain_ms=cuda_ms(lambda: reference_copy(x), 10))
+    log("bw copy blocked/chunked at th 1, 7, 32, 200: bit-exact with x * 0.5")
+    # the copy beside x * 0.5, in turns, at the tool's th values
+    for batch in (8, 32):
+        xb = x if batch == 8 else torch.randn(
+            32, 200, 336, 256, generator=g, device=dev).to(torch.bfloat16)
+        gb = 2 * nbytes(xb) / 1e9
+        torch_ms = []
+        for th in (4, 32, 200):
+            t = {}
+            for mode in ("torch", "blocked", "chunked", "chunked", "blocked", "torch"):
+                fn = (lambda: reference_copy(xb)) if mode == "torch" else \
+                    (lambda: bw_copy(xb, th, mode))
+                t.setdefault(mode, []).append(cuda_ms(fn, 10))
+            t = {k: float(np.mean(v)) for k, v in t.items()}
+            torch_ms.append(t["torch"])
+            log(f"time bw copy B={batch} th={th}: blocked {t['blocked']:.4f} ms "
+                f"({gb / t['blocked'] * 1e3:.0f} GB/s, {t['blocked'] / t['torch']:.3f} x "
+                f"torch), chunked {t['chunked']:.4f} ms ({gb / t['chunked'] * 1e3:.0f} GB/s), "
+                f"x * 0.5 {t['torch']:.4f} ms ({gb / t['torch'] * 1e3:.0f} GB/s)")
+            if batch == 8 and th == 32:
+                kernels["bw_probe"].update(max_abs_err=0.0, ms=t["blocked"],
+                                           plain_ms=t["torch"], library_ms=t["torch"])
+                set_bound(kernels["bw_probe"], 2 * nbytes(xb), 0)
+        del xb
     del x
     torch.cuda.empty_cache()
 
@@ -711,6 +845,7 @@ def main() -> int:
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
+    log_bounds(kernels)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

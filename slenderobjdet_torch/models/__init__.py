@@ -18,7 +18,16 @@ def build_model(cfg, device=None,
                 generator: Optional[torch.Generator] = None) -> FCOS:
     """Build the detector named by cfg.MODEL.META_ARCHITECTURE on ``device``
     with weights drawn from ``generator`` (a CPU ``torch.Generator``; seed 0
-    when None). Unported names raise a KeyError listing the available ones."""
+    when None). ``device`` None means the card: it raises a RuntimeError
+    where there is none, and the CPU is taken only when asked for
+    (``device="cpu"``). Unported names raise a KeyError listing the available
+    ones."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "build_model: no CUDA device (torch.cuda.is_available() is "
+                "false); pass device=\"cpu\" to build the model on the CPU")
+        device = "cuda"
     name = cfg.MODEL.META_ARCHITECTURE
     if name not in META_ARCHS:
         raise KeyError(f"meta-architecture {name!r} is not ported; "

@@ -45,8 +45,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "nms_launch": [_P, _P, _I, _I, ctypes.c_float, _I, _P, _P, _P],
     "nms_smem_bytes": [_I],
-    "fused_stem_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "fused_stem_smem_bytes": [_I],
+    "fused_stem_cuda_core_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fused_stem_cuda_core_smem_bytes": [_I],
+    "fused_stem_mma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fused_bottleneck_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "conv_wgmma_launch": [_I, _P, _I, _I, _P, _I, _P, _P, _P, _P, _P,

@@ -4,9 +4,9 @@
 // (wgmma) on operands in shared memory.
 //
 // Each helper is a thin wrapper over one PTX instruction; the semantics are
-// the PTX ISA's. Included by dma_streams_probe.cu and fused_bottleneck.cu,
-// each of which gets its own copy (everything here is in an anonymous
-// namespace).
+// the PTX ISA's. Included by dma_streams_probe.cu, bw_probe.cu,
+// fused_stem.cu and fused_bottleneck.cu, each of which gets its own copy
+// (everything here is in an anonymous namespace).
 
 #pragma once
 

@@ -7,9 +7,10 @@ kernel (port of ``tools/pallas_bw_probe.py``).
         [--modes torch,blocked,chunked]
 
 Modes: ``torch`` is ``x * 0.5`` in PyTorch (the TPU probe's ``xlacopy``);
-``blocked`` and ``chunked`` are ``csrc/bw_probe.cu``. Each kernel block
-copies th rows of one image. Times are CUDA events; GB/s counts one read
-and one write of x, against the H100 SXM's published 3.35 TB/s.
+``blocked`` and ``chunked`` are ``csrc/bw_probe.cu``. th rows of one image
+are the unit that is cut into chunks of at most 16 KB, and the grid is one
+CTA a chunk. Times are CUDA events; GB/s counts one read and one write of
+x, against the H100 SXM's published 3.35 TB/s.
 """
 
 from __future__ import annotations

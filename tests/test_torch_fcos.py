@@ -74,7 +74,7 @@ def pair():
     jcfg = narrow_cfg(jax_get_cfg)
     det = jax_build_model(jcfg)
     variables = _randomize(det.init_variables(jax.random.PRNGKey(0)))
-    model = torch_build_model(narrow_cfg(torch_get_cfg))
+    model = torch_build_model(narrow_cfg(torch_get_cfg), device="cpu")
     load_flax_variables(model, variables)
     rs = np.random.RandomState(1)
     batch = {
@@ -179,7 +179,7 @@ def test_fused_flags_on_cpu_take_the_plain_versions(pair):
     plain versions (folded weights), launch nothing, and give the unfused
     detections."""
     _, _, variables, model, batch = pair
-    fused = torch_build_model(narrow_cfg(torch_get_cfg, fused=True))
+    fused = torch_build_model(narrow_cfg(torch_get_cfg, fused=True), device="cpu")
     load_flax_variables(fused, variables)
     _build.reset_launch_counts()
     got = {k: v.numpy() for k, v in fused.predict(batch).items()}

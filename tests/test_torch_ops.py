@@ -151,6 +151,90 @@ def test_reference_stem_bf16_rounds_like_jax():
     assert _err(got.float().numpy(), np.asarray(want, np.float32)) <= 3e-2
 
 
+def test_stem_weight_packing_round_trips():
+    """The tensor-core stem's weights: folded, rounded to bf16, and every one
+    where the kernel's B fragment reads it; unpacking gives back the folded
+    weights in the JAX HWIO layout exactly."""
+    _, w, scale, _ = _stem_inputs(np.random.RandomState(11), 1, 8, 8, 64)
+    w, scale = torch.from_numpy(w), torch.from_numpy(scale)
+    folded = (w * scale).bfloat16()
+    np.testing.assert_array_equal(
+        folded.float().numpy(),
+        np.asarray((jnp.asarray(w.numpy()) * jnp.asarray(scale.numpy()))
+                   .astype(jnp.bfloat16).astype(jnp.float32)))
+    packed = t_fs.pack_stem_weights(w, scale)
+    assert packed.shape == (11, 4, 32, 4, 2) and packed.is_contiguous()
+    assert packed.dtype == torch.bfloat16 and packed.numel() * 2 == 22528
+    assert torch.equal(t_fs.unpack_stem_weights(packed), folded)
+    wk = t_fs.stem_weight_matrix(folded)
+    assert wk.shape == (176, 64)
+    # lane 4 g + t, register 2 n2 + h of pair q, element e of step s
+    for s, q, g, t, n2, h, e in ((0, 0, 0, 0, 0, 0, 0), (3, 2, 5, 1, 1, 0, 1),
+                                 (10, 3, 7, 3, 1, 1, 1), (7, 1, 2, 2, 0, 1, 0)):
+        assert packed[s, q, 4 * g + t, 2 * n2 + h, e] == \
+            wk[16 * s + 8 * h + 2 * t + e, 8 * (2 * q + n2) + g]
+    # tap (ky, kx, ci) sits in slot 1 + 3 kx + ci of its ky group; the lead
+    # slot, slots 22-23 and the K padding hold zeros
+    assert torch.equal(wk[24 * 4 + 1 + 3 * 5 + 2], folded[4, 5, 2])
+    groups = wk[:168].reshape(7, 24, 64)
+    assert not groups[:, 0].any() and not groups[:, 22:].any() and not wk[168:].any()
+
+
+@pytest.mark.parametrize("cs", [64, 16])
+def test_stem_padded_k_gemm_over_raw_window_is_the_conv(cs):
+    """The tensor-core kernel's arithmetic without a card: A read straight
+    from the raw NHWC rows (one lead element, then 3 values a pixel, a conv
+    column's patch row starting 6 elements after its neighbour's, 24 slots a
+    ky of which 3 meet zero weights) times ``stem_weight_matrix``, bf16
+    operands and fp32 sums, equals ``reference_stem``'s conv before the pool
+    (1e-5 of the max: two fp32 summation orders of the same products)."""
+    B, H, W = 2, 36, 52
+    x, w, scale, bias = _stem_inputs(np.random.RandomState(cs), B, H, W, cs)
+    x = torch.from_numpy(x).bfloat16().float()
+    folded = (torch.from_numpy(w) * torch.from_numpy(scale)).bfloat16()
+    rows = torch.nn.functional.pad(x, (0, 0, 3, 4, 3, 3))   # + 1 px for slots 22-23
+    rows = torch.nn.functional.pad(rows.reshape(B, H + 6, -1), (1, 0))
+    hc, wc = H // 2, W // 2
+    ky, slot = np.divmod(np.arange(168), 24)
+    i, j = np.divmod(np.arange(hc * wc), wc)
+    a = rows[:, (2 * i[:, None] + ky[None, :]), (6 * j[:, None] + slot[None, :])]
+    a = torch.nn.functional.pad(a, (0, 8), value=1.0)     # K padding: any finite value
+    got = (a @ t_fs.stem_weight_matrix(folded).float()).reshape(B, hc, wc, cs)
+    want = torch.nn.functional.conv2d(
+        x.permute(0, 3, 1, 2), folded.float().permute(3, 2, 0, 1), stride=2,
+        padding=3).permute(0, 2, 3, 1)
+    assert _err(got.numpy(), want.numpy()) <= 1e-5
+    # and through bias, relu, rounding and the pool it is reference_stem
+    y = torch.relu(got + torch.from_numpy(bias)).bfloat16().float()
+    pooled = torch.nn.functional.max_pool2d(y.permute(0, 3, 1, 2), 3, 2, 1)
+    ref = t_fs.reference_stem(x.bfloat16(), torch.from_numpy(w),
+                              torch.from_numpy(scale), torch.from_numpy(bias))
+    assert _err(pooled.permute(0, 2, 3, 1).numpy(), ref.float().numpy()) <= 3e-2
+
+
+@pytest.mark.parametrize("dtype,batch,h,w,cs,route", [
+    (torch.bfloat16, 8, 800, 1344, 64, "mma"),
+    (torch.bfloat16, 2, 36, 52, 64, "mma"),        # ragged in both directions
+    (torch.bfloat16, 3, 4, 4, 64, "mma"),          # fewer tiles than SMs
+    (torch.bfloat16, 2, 36, 52, 16, "cuda_cores"),
+    (torch.float32, 2, 36, 52, 64, "cuda_cores"),
+])
+def test_stem_plan_covers_every_pooled_pixel_once(dtype, batch, h, w, cs, route):
+    plan = t_fs.stem_plan(dtype, batch, h, w, cs)
+    assert plan["route"] == route
+    seen = np.zeros((batch, h // 4, w // 4), np.int32)
+    ctas = set()
+    for cta, b, rows, cols in t_fs.stem_tiles(plan, batch, h, w):
+        assert 0 <= cta < plan["grid"]
+        assert rows.stop - rows.start <= plan["tile"][0]
+        assert cols.stop - cols.start <= plan["tile"][1]
+        seen[b, rows, cols] += 1
+        ctas.add(cta)
+    assert (seen == 1).all() and len(ctas) == plan["grid"]
+    if route == "mma":          # a persistent grid, one CTA an SM at most
+        assert plan["grid"] == min(plan["tiles"], t_fb.H100_SMS)
+
+
 def test_stem_eligible():
     assert t_fs.stem_eligible((2, 800, 1344, 3), (7, 7, 3, 64))
     assert not t_fs.stem_eligible((2, 802, 1344, 3), (7, 7, 3, 64))

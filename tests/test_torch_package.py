@@ -39,7 +39,8 @@ from slenderobjdet_torch.tools import bw_probe, dma_streams_probe, fused_kernel_
 cfg = get_cfg()
 cfg.merge_from_file({str(CONFIG)!r})
 cfg.MODEL.RESNETS.DEPTH = 18
-make_train_step(build_model(cfg), build_optimizer(cfg, build_model(cfg)), cfg)
+model = build_model(cfg, device="cpu")
+make_train_step(model, build_optimizer(cfg, model), cfg)
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'slenderobjdet_tpu')]
 print(bad)
@@ -75,25 +76,43 @@ def _flagship(**overrides):
 ])
 def test_unported_options_raise(key, value):
     with pytest.raises(NotImplementedError, match=key.split(".")[-1]):
-        build_model(_flagship(**{key: value}))
+        build_model(_flagship(**{key: value}), device="cpu")
 
 
 def test_unknown_meta_architecture_lists_available():
     cfg = _flagship(**{"MODEL.META_ARCHITECTURE": "RetinaNet"})
     with pytest.raises(KeyError, match="FCOSV2"):
-        build_model(cfg)
+        build_model(cfg, device="cpu")
 
 
 def test_build_model_dtype_and_seeded_weights():
     cfg = _flagship()
-    a = build_model(cfg, generator=torch.Generator().manual_seed(3))
-    b = build_model(cfg, generator=torch.Generator().manual_seed(3))
+    a = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    b = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
     assert a.dtype == torch.bfloat16
     for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
         assert va.dtype == torch.float32 and torch.equal(va, vb), k
     assert float(a.head.cls_logits.bias[0].detach()) == pytest.approx(-np.log(99.0))
     cfg.TPU.COMPUTE_DTYPE = "float32"
-    assert build_model(cfg).dtype == torch.float32
+    assert build_model(cfg, device="cpu").dtype == torch.float32
+
+
+def test_build_model_defaults_to_the_card(monkeypatch):
+    """With no device named the model goes to the card: without one that is
+    an error, never a model on the CPU; the CPU is taken when asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(_flagship())
+    model = build_model(_flagship(), device="cpu")
+    assert all(p.device.type == "cpu" for p in model.parameters())
+
+
+@pytest.mark.gpu
+def test_build_model_builds_on_the_card_by_default():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model = build_model(_flagship())
+    assert all(p.device.type == "cuda" for p in model.parameters())
 
 
 def test_nvcc_command_targets_sm90a(tmp_path, monkeypatch):
@@ -217,6 +236,60 @@ def test_wgmma_bottleneck_matches_plain_on_gpu(cin, cm, cout, proj, hw):
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     err = float((got.double() - want.double()).abs().max() / want.double().abs().max())
     assert err <= 3e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,hw", [(1, (800, 1344)), (3, (64, 128)),
+                                      (1, (36, 52)), (3, (36, 52)), (3, (4, 4))])
+def test_stem_kernels_match_plain_on_gpu(batch, hw):
+    """The stem on the card at full and ragged sizes (H, W divisible by 4,
+    not by the tile): bf16 with 64 channels takes the tensor-core kernel and
+    agrees with the plain version within the bf16 ratio 3e-2; bf16 at 16
+    channels and float32 take the CUDA-core kernel (float32 within 1e-4);
+    one counted launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from slenderobjdet_torch.ops import fused_stem as fs
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(batch + hw[0])
+
+    def t(*shape, s=1.0):
+        return torch.tensor(rs.randn(*shape).astype(np.float32) * s, device=dev)
+
+    x = t(batch, *hw, 3, s=50.0)
+    for dt, cs, route, tol in ((torch.bfloat16, 64, "mma", 3e-2),
+                               (torch.bfloat16, 16, "cuda_cores", 3e-2),
+                               (torch.float32, 64, "cuda_cores", 1e-4)):
+        args = (t(7, 7, 3, cs, s=147 ** -0.5), t(cs).abs() * 0.5 + 0.75, t(cs, s=0.1))
+        assert fs.stem_plan(dt, batch, *hw, cs)["route"] == route
+        _build.reset_launch_counts()
+        got = fs.fused_stem(x.to(dt), *args)
+        want = fs.reference_stem(x.to(dt), *args)
+        assert _build.launch_counts()["fused_stem"] == 1
+        assert got.shape == want.shape == (batch, hw[0] // 4, hw[1] // 4, cs)
+        assert got.dtype == dt
+        err = float((got.double() - want.double()).abs().max() / want.double().abs().max())
+        assert err <= tol, (dt, cs, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("th", [1, 7, 32, 200])
+def test_bw_copy_is_bit_exact_on_gpu(th):
+    """The copy probe's grid of chunks at the tool's shape (one image) and
+    at a small ragged one: both modes equal ``x * 0.5`` bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from slenderobjdet_torch.ops.bw_probe import bw_copy, reference_copy
+
+    g = torch.Generator(device="cuda").manual_seed(th)
+    for shape in ((1, 200, 336, 256), (3, 37, 5, 72)):
+        x = torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+        for mode in ("blocked", "chunked"):
+            _build.reset_launch_counts()
+            assert torch.equal(bw_copy(x, th, mode), reference_copy(x)), (shape, mode)
+            assert _build.launch_counts()["bw_probe"] == 1
 
 
 @pytest.mark.gpu

@@ -22,7 +22,8 @@ import torch
 from jax.experimental import pallas as pl
 
 from slenderobjdet_torch.ops import _build
-from slenderobjdet_torch.ops.bw_probe import bw_copy, reference_copy
+from slenderobjdet_torch.ops.bw_probe import (bw_copy, chunk_bytes, copy_chunks,
+                                              reference_copy)
 from slenderobjdet_torch.ops.dma_streams_probe import (dma_streams,
                                                        reference_dma_streams)
 from slenderobjdet_torch.ops.fused_bottleneck import (PROBE_MODES, probe_variant,
@@ -184,6 +185,38 @@ def test_bw_copy_plain_version_matches_jax_kernel(monkeypatch, mode):
     assert torch.equal(bw_copy(xt, th, mode), reference_copy(xt))
 
 
+@pytest.mark.parametrize("mode", ["blocked", "chunked"])
+@pytest.mark.parametrize("th", [1, 7, 32, 200])
+@pytest.mark.parametrize("batch", [1, 8])
+def test_bw_copy_chunk_list_covers_every_vector_once(mode, th, batch):
+    """The grid: whatever th, every 16-byte vector of x is in exactly one
+    chunk, and a chunk holds whole pixels of one th-row block and is no
+    larger than a CTA takes; ``chunked`` stores a chunk in 128-channel
+    slices."""
+    shape = (batch, 40, 12, 256)
+    vectors = int(np.prod(shape)) // 8
+    row, cv = 12 * 256 // 8, 256 // 8            # vectors per row and per pixel
+    seen = np.zeros(vectors, np.int32)
+    last = -1
+    for order in copy_chunks(shape, th, mode):
+        order = order.numpy()
+        assert 0 < len(order) <= chunk_bytes(256) // 16 and len(order) % cv == 0
+        lo, hi = order.min(), order.max()
+        assert lo == last + 1 and hi - lo + 1 == len(order)   # contiguous in x, in order
+        last = hi
+        block = min(th, 40) * row                 # one th-row block of one image
+        assert lo % (40 * row) // block == hi % (40 * row) // block
+        assert lo // (40 * row) == hi // (40 * row)
+        if mode == "blocked":
+            np.testing.assert_array_equal(order, np.arange(lo, hi + 1))
+        else:       # all pixels' first 128 channels, then their second
+            half = len(order) // 2
+            assert ((order[:half] - lo) % cv < 16).all()
+            assert ((order[half:] - lo) % cv >= 16).all()
+        seen[order] += 1
+    assert (seen == 1).all()
+
+
 @pytest.mark.parametrize("tool,argv", [
     (t_fused, ["--batch", "1"]),
     (t_dma, ["--batch", "1"]),
@@ -194,3 +227,4 @@ def test_probe_tools_need_a_card(monkeypatch, tool, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         tool.main(argv)
+

@@ -223,7 +223,7 @@ def pair():
 
 
 def port_model(variables, **overrides):
-    model = torch_build_model(port_cfg(**overrides))
+    model = torch_build_model(port_cfg(**overrides), device="cpu")
     load_flax_variables(model, variables)
     return model
 
@@ -309,7 +309,7 @@ def test_param_groups_and_freeze_mask_match_jax():
     want_labels = _jax_tree_as_state_dict(jsolver._param_labels(params, None), codes)
     want_mask = _jax_tree_as_state_dict(jsolver._freeze_mask(jax_cfg(), params),
                                         {True: 1, False: 0})
-    model = torch_build_model(port_cfg())
+    model = torch_build_model(port_cfg(), device="cpu")
     got = tsolver.param_labels(model)
     assert {k: codes[v] for k, v in got.items()} == want_labels
     assert set(got.values()) == {"regular", "norm", "bias"}
@@ -373,7 +373,7 @@ def test_two_optimizer_steps_match_optax(overrides):
 
 
 def test_adagrad_and_unported_variants_raise():
-    model = torch_build_model(port_cfg())
+    model = torch_build_model(port_cfg(), device="cpu")
     with pytest.raises(NotImplementedError, match="ADAGRAD"):
         tsolver.build_optimizer(port_cfg(**{"SOLVER.OPTIM": "ADAGRAD"}), model)
     with pytest.raises(NotImplementedError, match="use_centerness"):
@@ -483,7 +483,8 @@ def test_fused_flags_train_on_cpu_like_unfused(pair):
     for fused in (False, True):
         cfg = port_cfg(**base, **{"MODEL.RESNETS.FUSED_STEM": fused,
                                   "MODEL.RESNETS.FUSED_BLOCKS": fused})
-        m = torch_build_model(cfg, generator=torch.Generator().manual_seed(4))
+        m = torch_build_model(cfg, device="cpu",
+                              generator=torch.Generator().manual_seed(4))
         tsolver.build_optimizer(cfg, m)
         total, _ = m.loss(pair["batch"])
         total.backward()
