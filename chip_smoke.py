@@ -7,8 +7,12 @@ Builds the port's CUDA kernels from ``slenderobjdet_torch/ops/csrc`` (at
 first use, into ``build/torch_kernels/``), then, each phase failing the run
 if it fails:
 
-1. NMS kernel vs its plain version at B=8, N=5000, max_out 100, thr 0.6,
-   integer-pixel boxes: indices and validity must be identical.
+1. NMS kernel vs its plain version at N=5000, max_out 100, thr 0.6,
+   integer-pixel boxes, on a sparse and a dense set (B=8 and 32), a set of
+   tied scores, a ragged one (B=3, N=4321, 30% valid) and without classes:
+   indices and validity must be identical. The kernel alone and the whole
+   call are timed on the sparse and dense sets, with the block-wide rounds
+   an image took.
 2. Fused stem kernels vs ``reference_stem`` at (8, 800, 1344, 3): max abs
    error / max abs value <= 1e-4 in fp32 (CUDA cores), <= 3e-2 in bf16
    (tensor cores); the bf16 kernel again at B=32, at the ragged (2, 36, 52,
@@ -129,40 +133,92 @@ def log_bounds(kernels):
                 f"PyTorch call " + ("none" if lib is None else f"{lib:.4f} ms"))
 
 
+# NMS candidate sets: span of the corners, box sides, classes, score steps
+# (0: continuous scores), share of valid candidates
+NMS_SETS = {
+    "sparse": (1200, 8, 300, 80, 0, 0.9),
+    "dense": (200, 20, 60, 4, 0, 0.9),
+    "ties": (200, 20, 60, 4, 16, 0.9),
+    "ragged": (1200, 8, 300, 80, 0, 0.3),
+    "crowded": (24, 30, 40, 2, 0, 0.9),     # the survivors run out before 100
+}
+
+
+def nms_inputs(rs, name, B, N, dev):
+    """Integer-pixel boxes, scores, classes and a validity mask on the card."""
+    span, lo, hi, ncls, steps, share = NMS_SETS[name]
+    xy = rs.randint(0, span, (B, N, 2))
+    wh = rs.randint(lo, hi, (B, N, 2))
+    boxes = torch.tensor(np.concatenate([xy, xy + wh], 2), dtype=torch.float32, device=dev)
+    sc = rs.rand(B, N)
+    scores = torch.tensor(np.floor(sc * (steps + 1)) / steps if steps else sc,
+                          dtype=torch.float32, device=dev)
+    classes = torch.tensor(rs.randint(0, ncls, (B, N)), device=dev)
+    valid = torch.tensor(rs.rand(B, N) < share, device=dev)
+    return boxes, scores, classes, valid
+
+
 def phase_nms(kernels, dev):
-    from slenderobjdet_torch.ops.nms import batched_nms, cuda_batched_nms
+    from slenderobjdet_torch.ops.nms import (batched_nms, cuda_batched_nms, cuda_nms,
+                                             launch_nms, nms_select)
 
     rs = np.random.RandomState(0)
-    B, N = 8, 5000
     worst = 0
-    for name, span, lo, hi, ncls in (("sparse", 1200, 8, 300, 80),
-                                     ("dense", 200, 20, 60, 4)):
-        xy = rs.randint(0, span, (B, N, 2))
-        wh = rs.randint(lo, hi, (B, N, 2))
-        boxes = torch.tensor(np.concatenate([xy, xy + wh], 2), dtype=torch.float32,
-                             device=dev)
-        scores = torch.tensor(rs.rand(B, N), dtype=torch.float32, device=dev)
-        classes = torch.tensor(rs.randint(0, ncls, (B, N)), device=dev)
-        valid = torch.tensor(rs.rand(B, N) > 0.1, device=dev)
-        ki, kv = cuda_batched_nms(boxes, scores, classes, 0.6, 100, valid)
-        ri, rv = batched_nms(boxes, scores, classes, 0.6, 100, valid)
+
+    def check(label, args, got, want):
+        nonlocal worst
         torch.cuda.synchronize()
-        worst = max(worst, int((ki.long() - ri.long()).abs().max()))
-        if not (torch.equal(ki, ri) and torch.equal(kv, rv)):
-            raise AssertionError(f"NMS kernel != plain ({name}): "
-                                 f"{int((ki != ri).sum())} indices differ")
-        log(f"nms {name}: kernel == plain at B={B} N={N}, "
-            f"{int(kv.sum())} valid slots")
-    ms = cuda_ms(lambda: cuda_batched_nms(boxes, scores, classes, 0.6, 100, valid), 20)
-    plain_ms = cuda_ms(lambda: batched_nms(boxes, scores, classes, 0.6, 100, valid), 3)
-    log(f"time nms B=8 N=5000: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    # each round that keeps a box scans the image's N candidates once
-    rounds = int(kv.sum())
-    set_bound(kernels["nms"], nbytes(boxes, scores, classes, valid, ki, kv),
-              rounds * N * NMS_OPS_PER_PAIR, PEAK_FP32_FLOPS)
-    log(f"nms: {rounds} rounds over {B} images (dependent: each waits for the one before)")
-    kernels["nms"].update(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms,
-                          library_ms=None)
+        worst = max(worst, int((got[0].long() - want[0].long()).abs().max()))
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"NMS kernel != plain ({label}): "
+                                 f"{int((got[0] != want[0]).sum())} indices differ")
+        rounds = torch.zeros(args[0].shape[0], dtype=torch.int32, device=dev)
+        launch_nms(*args, 0.6, 100, rounds=rounds)
+        kept, rounds = got[1].sum(1).tolist(), rounds.tolist()
+        log(f"nms {label}: kernel == plain at B={args[0].shape[0]} N={args[0].shape[1]}, "
+            f"kept an image {min(kept)}-{max(kept)} (sum {sum(kept)}), block-wide rounds "
+            f"an image {min(rounds)}-{max(rounds)} (mean {np.mean(rounds):.2f})")
+        return sum(kept)
+
+    sets = {}
+    for name, B, N in (("sparse", 8, 5000), ("dense", 8, 5000), ("ties", 8, 5000),
+                       ("ragged", 3, 4321), ("crowded", 8, 5000), ("sparse", 32, 5000),
+                       ("dense", 32, 5000)):
+        args = nms_inputs(rs, name, B, N, dev)
+        kept = check(f"{name} B={B}", args, cuda_batched_nms(*args[:3], 0.6, 100, args[3]),
+                     batched_nms(*args[:3], 0.6, 100, args[3]))
+        sets[name, B] = (args, kept)
+    boxes, scores, _, valid = sets["dense", 8][0]
+    check("dense B=8 without classes", (boxes, scores, None, valid),
+          cuda_nms(boxes, scores, 0.6, 100, valid), nms_select(boxes, scores, 0.6, 100, valid))
+
+    # the kernel alone and the whole call (inputs prepared; device time of 50
+    # launches enqueued behind a held stream, since the kernel is shorter
+    # than the host's enqueue), and one call as a caller waits for it (host
+    # clock, synchronised)
+    for (name, B), (args, kept) in sets.items():
+        if name not in ("sparse", "dense"):
+            continue
+        ms = cuda_ms(lambda: launch_nms(*args, 0.6, 100), 50, queued=True)
+        call_ms = cuda_ms(lambda: cuda_batched_nms(*args[:3], 0.6, 100, args[3]), 50,
+                          queued=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            cuda_batched_nms(*args[:3], 0.6, 100, args[3])
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / 50 * 1e3
+        plain_ms = cuda_ms(lambda: batched_nms(*args[:3], 0.6, 100, args[3]), 3)
+        # the reference's work: each kept box scans its image's N candidates once
+        out = (torch.empty(B, 100, dtype=torch.int32), torch.empty(B, 100, dtype=torch.bool))
+        b_ms, b_by = bound_ms(nbytes(*args, *out), kept * args[0].shape[1] * NMS_OPS_PER_PAIR,
+                              PEAK_FP32_FLOPS)
+        log(f"time nms {name} B={B} N=5000: kernel alone {ms:.4f} ms, cuda_batched_nms call "
+            f"{call_ms:.4f} ms (one synchronised call {wall_ms:.4f} ms on the host clock), "
+            f"plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.4f} of bound")
+        if (name, B) == ("dense", 8):
+            kernels["nms"].update(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms,
+                                  bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def stem_inputs(batch, h, w, cs, dev, seed=1):

@@ -43,8 +43,8 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "nms_launch": [_P, _P, _I, _I, ctypes.c_float, _I, _P, _P, _P],
-    "nms_smem_bytes": [_I],
+    "nms_launch": [_P, _P, _P, _I, _P, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P],
+    "nms_smem_bytes": [_I, _I],
     "fused_stem_cuda_core_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fused_stem_cuda_core_smem_bytes": [_I],
     "fused_stem_mma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

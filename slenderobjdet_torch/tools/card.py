@@ -28,14 +28,18 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 2, queued: bool = False) -> float:
     """Mean device time of ``fn()`` over ``iters`` launches after warm-up,
-    from CUDA events."""
+    from CUDA events. ``queued`` holds the stream back for about 10 ms first,
+    so that every launch is enqueued before the first one runs: the time of
+    a kernel shorter than its own enqueue, not the host's pace."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(20_000_000)      # device clocks
     start.record()
     for _ in range(iters):
         fn()

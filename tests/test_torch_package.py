@@ -197,6 +197,51 @@ def test_kernels_match_plain_on_gpu(dtype):
     want = nms.batched_nms(boxes, scores, classes, 0.6, 50)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
+    # the NMS kernel at its edge shapes: one candidate, counts that are no
+    # multiple of 32, max_out inside a group and above N, tied, zero and
+    # negative scores, nothing or one thing valid, a crowded image whose
+    # survivors run out, with and without classes (int32 and int64); one
+    # counted launch a call, the rounds reported, candidates beyond the
+    # kernel's limit refused
+    for n, max_out, span, kind in ((1, 5, 40, "uniform"), (37, 64, 300, "uniform"),
+                                   (37, 10, 40, "none_valid"), (37, 10, 40, "one_valid"),
+                                   (300, 7, 200, "uniform"), (300, 100, 60, "sixteenths"),
+                                   (300, 100, 60, "signed"), (2500, 100, 24, "uniform"),
+                                   (4321, 100, 1200, "uniform")):
+        xy = rs.randint(0, span, (3, n, 2))
+        boxes = torch.tensor(np.concatenate([xy, xy + rs.randint(4, 40, (3, n, 2))], 2),
+                             dtype=torch.float32, device=dev)
+        sc = rs.rand(3, n)
+        if kind == "sixteenths":
+            sc = np.floor(sc * 17) / 16
+        elif kind == "signed":
+            sc = np.round(sc * 16 - 8) / 8 * rs.choice([1.0, 0.0, -0.0, 1e-40], (3, n))
+        scores = torch.tensor(sc, dtype=torch.float32, device=dev)
+        valid = rs.rand(3, n) < {"none_valid": 0.0, "uniform": 0.7}.get(kind, 0.9)
+        if kind == "one_valid":
+            valid[:] = False
+            valid[np.arange(3), rs.randint(0, n, 3)] = True
+        valid = torch.tensor(valid, device=dev)
+        classes = torch.tensor(rs.randint(0, 3, (3, n)), device=dev)
+        for cls in (None, classes, classes.to(torch.int32)):
+            for vl in (None, valid):
+                _build.reset_launch_counts()
+                if cls is None:
+                    got = nms.cuda_nms(boxes, scores, 0.5, max_out, vl)
+                    want = nms.nms_select(boxes, scores, 0.5, max_out, vl)
+                else:
+                    got = nms.cuda_batched_nms(boxes, scores, cls, 0.5, max_out, vl)
+                    want = nms.batched_nms(boxes, scores, cls, 0.5, max_out, vl)
+                assert _build.launch_counts()["nms"] == 1
+                assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (n, kind)
+        rounds = torch.zeros(3, dtype=torch.int32, device=dev)
+        got = nms.launch_nms(boxes, scores, classes, valid, 0.5, max_out, rounds=rounds)
+        kept = got[1].sum(1)
+        assert bool((rounds <= kept.clamp(min=0)).all()) and bool((rounds * 32 >= kept).all())
+    with pytest.raises(ValueError, match="shared memory"):
+        nms.cuda_nms(torch.zeros(1, 8193, 4, device=dev), torch.zeros(1, 8193, device=dev), 0.5, 10)
+
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cin,cm,cout,proj,hw", [
