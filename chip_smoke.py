@@ -19,12 +19,19 @@ if it fails:
    3) and at 16 channels (which the plan sends to the CUDA cores); the
    tensor-core kernel timed in turns with the CUDA-core one and the bf16
    cuDNN stem at B=8 and 32; its SASS must hold tensor-core instructions.
+   The same checks at the data loader's two padded shapes, (B, 896, 1408, 3)
+   and (B, 1408, 896, 3): B=2 in both types, and in bf16 the test loader's
+   B=8 and the trainer's B=16, each also timed.
 3. Fused bottleneck kernels vs ``reference_bottleneck`` at the five
    distinct stride-1 block shapes of R-50 at 800x1344, B=8, same
    tolerances; then each shape's time at B=8 and B=32 (the whole
    ``fused_bottleneck`` call, weight re-layout included) beside the plain
    version and the bf16 cuDNN block, with TFLOP/s; and a ``cuobjdump
    -sass`` check that the model's wgmma kernels hold HGMMA and bulk copies.
+   The five shapes that follow from the loader's 896x1408 and 1408x896 are
+   checked at B=2 in both types and, in bf16, at the test loader's B=8 and
+   the trainer's B=16 (the kernel tiles the flattened B*H*W pixels), and
+   timed there beside the cuDNN block.
 4. The predict path: ``build_model`` on configs/fcos/fcos_R_50_FPN_1x.yaml
    with FUSED_STEM and FUSED_BLOCKS on, bf16, seeded random weights,
    answering 3 requests of 8 uint8 800x1344 images. Launch counts are reset
@@ -48,6 +55,26 @@ if it fails:
    SOLVER.IMS_PER_BATCH (16) images with WARMUP_ITERS 0 must launch both
    fused kernels, keep every loss finite and end below step 0's total;
    train img/s with the flags on and off and the peak device memory.
+8. The normal entry point: ``train_net_torch.main`` on
+   configs/fcos/fcos_R_50_FPN_1x.yaml, nothing cut, on a synthetic dataset
+   of 32 inlined 800x1333 and 1333x800 images (3-20 integer-pixel boxes
+   each, from a numpy seed; only the COCO json the evaluator reads is
+   written, to a temporary directory; the test set is the same images four
+   times over, 128, so that 11 test batches are timed), 8 iterations with a
+   checkpoint every 4, the fused flags on, bf16. Batches must be (16, 896, 1408, 3) or (16,
+   1408, 896, 3) uint8 with 100 padded gt; every step must launch 1 stem
+   and 13 bottleneck kernels and every test batch 1 NMS; the logged losses
+   must be finite and the outputs (metrics.json, config.yaml, both
+   checkpoints, last_checkpoint) exist. A second ``main`` with ``--resume``
+   must start at iteration 8 with exactly the saved state and take 20 more
+   steps, none of which saves, whose first loss, on the first run's first
+   batch, is at most 1.02 x that run's step-0 loss; a third with ``--eval-only`` must return every
+   name of ``STATS_NAMES`` and the AR matrix keys. ``COCOEvaluator`` is also
+   fed jittered ground truth and must report an AP above 50; the line says
+   whether the C matcher or the numpy path ran. Prints train img/s through
+   the trainer, over the 6 steps around a save and over 18 steps without
+   one, beside the bare step's, the share of a step spent waiting
+   for the loader, eval img/s and the peak memory.
 
 Every kernel's time stands beside its bound, the least time the card could
 take: the larger of its bytes (inputs read once, outputs written once) over
@@ -79,6 +106,7 @@ SCORE_TOL = 2e-2     # fused vs unfused: scores of matched detections
 MATCH_MIN = 0.99     # fused vs unfused: share of detection slots matched
 
 PREDICT_KERNELS = ("nms", "fused_stem", "fused_bottleneck")
+RESUME_FACTOR = 1.02  # trainer: resumed loss on batch 0 <= this x step 0's loss
 PROBE_KERNELS = ("fused_kernel_probe", "dma_streams_probe", "bw_probe")
 GRAD_FACTOR = 1.5    # train: fused gradient error vs fp32 <= 1.5 x unfused's
 TRAIN_STEPS = 10     # train: steps after step 0 on one batch
@@ -99,6 +127,19 @@ BLOCKS = [
     ("res4_1", 50, 84, 1024, 256, 1024, False, 5),
     ("res5_1", 25, 42, 2048, 512, 2048, False, 2),
 ]
+
+
+# The data loader pads every image to one of two buckets: for MIN_SIZE 800 and
+# MAX_SIZE 1333, 896 x 1408 (landscape) and 1408 x 896 (portrait).
+LOADER_SHAPES = ((896, 1408), (1408, 896))
+LOADER_IMAGE_HW = (800, 1333)      # the synthetic images: no resize happens
+LOADER_BATCHES = (8, 16)           # the test loader's batch and the trainer's
+
+
+def loader_blocks(h, w):
+    """BLOCKS at an (h, w) input: res2 at 1/4, res3 1/8, res4 1/16, res5 1/32."""
+    return [(name, h // 4 // d, w // 4 // d, cin, cm, cout, proj, count)
+            for (name, _, _, cin, cm, cout, proj, count), d in zip(BLOCKS, (1, 1, 2, 4, 8))]
 
 
 def log(msg: str) -> None:
@@ -266,6 +307,16 @@ def phase_stem(kernels, dev):
           torch.bfloat16, BF16_TOL, "cuda_cores")
     x32 = stem_inputs(32, 800, 1344, 64, dev, seed=13)[0].to(torch.bfloat16)
     check("B=32 800x1344", x32, w, scale, bias, torch.bfloat16, BF16_TOL, "mma")
+    # the loader's two buckets, at the test loader's batch (8) and the
+    # trainer's (16); B=2 also in fp32
+    for k, (h, wd) in enumerate(LOADER_SHAPES):
+        xl = stem_inputs(2, h, wd, 64, dev, seed=14 + k)[0]
+        check(f"B=2 {h}x{wd}", xl, w, scale, bias, torch.float32, FP32_TOL, "cuda_cores")
+        check(f"B=2 {h}x{wd}", xl, w, scale, bias, torch.bfloat16, BF16_TOL, "mma")
+        for batch in LOADER_BATCHES:
+            xl = stem_inputs(batch, h, wd, 64, dev, seed=20 + 2 * batch + k)[0]
+            check(f"B={batch} {h}x{wd}", xl, w, scale, bias, torch.bfloat16, BF16_TOL, "mma")
+    del xl
 
     # the tensor-core kernel in turns with the CUDA-core one and with the
     # flags-off model path (bf16 cuDNN conv, FrozenBN, relu, maxpool)
@@ -276,8 +327,11 @@ def phase_stem(kernels, dev):
         y = torch.nn.functional.conv2d(xc, wc, stride=2, padding=3)
         return torch.nn.functional.max_pool2d(torch.relu(y * sc + bc), 3, 2, 1)
 
-    for xb in (x.to(torch.bfloat16), x32):
-        batch = xb.shape[0]
+    timed = [x.to(torch.bfloat16), x32] + [
+        stem_inputs(batch, h, wd, 64, dev, seed=16)[0].to(torch.bfloat16)
+        for h, wd in LOADER_SHAPES for batch in LOADER_BATCHES]
+    for xb in timed:
+        batch, hh, ww = xb.shape[:3]
         xc = xb.permute(0, 3, 1, 2)
         turns = {"mma": [], "cuda_cores": [], "cudnn": []}
         for route in ("mma", "cuda_cores", "cudnn", "cudnn", "cuda_cores", "mma"):
@@ -285,18 +339,23 @@ def phase_stem(kernels, dev):
                 lambda: launch_stem(xb, w, scale, bias, route=route))
             turns[route].append(cuda_ms(fn, 10))
         ms, old_ms, cudnn_ms = (float(np.mean(turns[r])) for r in ("mma", "cuda_cores", "cudnn"))
-        flops = 2 * 147 * 64 * batch * 400 * 672
-        out = torch.empty(batch, 200, 336, 64, dtype=torch.bfloat16, device="meta")
+        flops = 2 * 147 * 64 * batch * (hh // 2) * (ww // 2)
+        out = torch.empty(batch, hh // 4, ww // 4, 64, dtype=torch.bfloat16, device="meta")
         b_ms, b_by = bound_ms(nbytes(xb, out) + 176 * 64 * 2 + 64 * 4, flops)
-        log(f"time stem B={batch} 800x1344 bf16: tensor-core kernel {ms:.4f} ms "
+        log(f"time stem B={batch} {hh}x{ww} bf16: tensor-core kernel {ms:.4f} ms "
             f"({turns['mma']}), CUDA-core kernel {old_ms:.4f} ms, unfused bf16 cuDNN "
             f"path {cudnn_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), "
             f"{b_ms / ms:.3f} of bound, {flops / ms / 1e9:.1f} TFLOP/s")
         if batch == 8:
             plain_ms = cuda_ms(lambda: reference_stem(xb, w, scale, bias), 10)
-            log(f"time stem B=8 plain (fp32 conv) {plain_ms:.4f} ms")
-            kernels["fused_stem"].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                         bound_by=b_by, library_ms=cudnn_ms)
+            log(f"time stem B=8 {hh}x{ww} plain (fp32 conv) {plain_ms:.4f} ms")
+            if (hh, ww) == (800, 1344):
+                kernels["fused_stem"].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                             bound_by=b_by, library_ms=cudnn_ms)
+            else:
+                kernels["fused_stem"][f"at_{hh}x{ww}"] = {
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": cudnn_ms}
             if not ms < old_ms:
                 raise AssertionError(f"stem: tensor cores {ms} ms, CUDA cores {old_ms} ms")
 
@@ -318,32 +377,48 @@ def phase_bottleneck(kernels, dev):
     totals = {8: [0.0, 0.0, 0.0], 32: [0.0, 0.0, 0.0]}
     worst_abs = 0.0
     bounds = {"bytes": 0.0, "operations": 0.0}   # the 13 blocks' bounds, by side
-    for name, h, wd, cin, cm, cout, proj, count in BLOCKS:
-        def rnd(*shape, s=1.0):
-            return (torch.randn(*shape, generator=g) * s).to(dev)
 
-        x = torch.relu(rnd(8, h, wd, cin))
+    def rnd(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to(dev)
+
+    def block_weights(cin, cm, cout, proj):
         w1, b1 = rnd(cin, cm, s=cin ** -0.5), rnd(cm, s=0.1)
         w2, b2 = rnd(3, 3, cm, cm, s=(9 * cm) ** -0.5), rnd(cm, s=0.1)
         w3, b3 = rnd(cm, cout, s=cm ** -0.5), rnd(cout, s=0.1)
         wsc, bsc = (rnd(cin, cout, s=cin ** -0.5), rnd(cout, s=0.1)) if proj else (None, None)
-        args = (w1, b1, w2, b2, w3, b3, wsc, bsc)
-        for dt, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        return (w1, b1, w2, b2, w3, b3, wsc, bsc)
+
+    def check(label, x, args, dtypes=(torch.float32, torch.bfloat16)):
+        """The kernel against the plain version in each of ``dtypes``; the
+        bf16 max abs error."""
+        nonlocal worst_abs
+        for dt in dtypes:
+            tol = FP32_TOL if dt == torch.float32 else BF16_TOL
             xd = x.to(dt)
             got = fused_bottleneck(xd, *args)
             want = reference_bottleneck(xd, *args)
             torch.cuda.synchronize()
-            if got.shape != (8, h, wd, cout) or got.dtype != dt:
-                raise AssertionError(f"{name} output {tuple(got.shape)} {got.dtype}")
+            if got.shape != (*x.shape[:3], args[4].shape[1]) or got.dtype != dt:
+                raise AssertionError(f"{label} output {tuple(got.shape)} {got.dtype}")
             err = ratio(got, want)
             abs_err = float((got.double() - want.double()).abs().max())
-            log(f"bottleneck {name} {dt}: err ratio {err:.3e} (tol {tol}), "
+            log(f"bottleneck {label} {dt}: err ratio {err:.3e} (tol {tol}), "
                 f"max abs err {abs_err:.4e}")
             if not err <= tol:
-                raise AssertionError(f"bottleneck {name} {dt} err {err} > {tol}")
+                raise AssertionError(f"bottleneck {label} {dt} err {err} > {tol}")
             if dt == torch.bfloat16:
                 worst_abs = max(worst_abs, abs_err)
             del got, want
+
+    def moved_bytes(xb, cin, cout, args):
+        """x in, the output out, bf16 weights and fp32 biases once."""
+        return nbytes(xb) * (cin + cout) // cin + sum(
+            t.numel() * (2 if t.dim() > 1 else 4) for t in args if t is not None)
+
+    for name, h, wd, cin, cm, cout, proj, count in BLOCKS:
+        args = block_weights(cin, cm, cout, proj)
+        x = torch.relu(rnd(8, h, wd, cin))
+        check(name, x, args)
         del x
         block = BottleneckBlock(cin, cout, cm).to(dev, memory_format=torch.channels_last)
         for batch in (8, 32):
@@ -356,10 +431,8 @@ def phase_bottleneck(kernels, dev):
             with torch.no_grad():
                 cudnn_ms = cuda_ms(lambda: block(xc), 5)
             gf = block_gflop(batch, h, wd, cin, cm, cout, proj)
-            if batch == 8:      # x in, the output out, bf16 weights and fp32 biases once
-                moved = nbytes(xb) * (cin + cout) // cin + sum(
-                    t.numel() * (2 if t.dim() > 1 else 4) for t in args if t is not None)
-                b_ms, b_by = bound_ms(moved, gf * 1e9)
+            if batch == 8:
+                b_ms, b_by = bound_ms(moved_bytes(xb, cin, cout, args), gf * 1e9)
                 bounds[b_by] += count * b_ms
             log(f"time bottleneck {name} B={batch} {h}x{wd} bf16 ({route}): kernel "
                 f"{ms:.4f} ms ({gf / ms:.1f} TFLOP/s), plain (fp32 convs) "
@@ -379,6 +452,59 @@ def phase_bottleneck(kernels, dev):
         library_ms=totals[8][2])
     log(f"bound bottleneck, 13 blocks at B=8: {bounds} ms by side (res2 and res3 "
         f"are bound by bytes, res4 and res5 by operations)")
+
+    # the shapes that follow from the data loader's two buckets, in both
+    # orientations: checked at B=2 (a ragged last tile at res5) in fp32 and
+    # bf16, and at the test loader's and the trainer's batch in bf16 (the
+    # kernel tiles the flattened B*H*W pixels, so the batch is part of the
+    # shape); timed at both batches in turns with the bf16 cuDNN block
+    for ih, iw in LOADER_SHAPES:
+        big = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ms_b16": 0.0,
+               "library_ms_b16": 0.0}
+        big_bounds = {"bytes": 0.0, "operations": 0.0}
+        for name, h, wd, cin, cm, cout, proj, count in loader_blocks(ih, iw):
+            args = block_weights(cin, cm, cout, proj)
+            check(f"{name} {h}x{wd} (input {ih}x{iw}, B=2)", torch.relu(rnd(2, h, wd, cin)), args)
+            block = BottleneckBlock(cin, cout, cm).to(dev, memory_format=torch.channels_last)
+            for batch in LOADER_BATCHES:
+                xb = torch.relu(torch.randn(batch, h, wd, cin, generator=gd, device=dev))
+                check(f"{name} {h}x{wd} (input {ih}x{iw}, B={batch})", xb, args,
+                      dtypes=(torch.bfloat16,))
+                xb = xb.to(torch.bfloat16)
+                xc = xb.permute(0, 3, 1, 2)
+                turns = {"kernel": [], "cudnn": []}
+                with torch.no_grad():
+                    for which in ("kernel", "cudnn", "cudnn", "kernel"):
+                        fn = (lambda: fused_bottleneck(xb, *args)) if which == "kernel" \
+                            else (lambda: block(xc))
+                        turns[which].append(cuda_ms(fn, 10))
+                ms, cudnn_ms = (float(np.mean(turns[k])) for k in ("kernel", "cudnn"))
+                gf = block_gflop(batch, h, wd, cin, cm, cout, proj)
+                b_ms, b_by = bound_ms(moved_bytes(xb, cin, cout, args), gf * 1e9)
+                line = (f"time bottleneck {name} B={batch} {h}x{wd} bf16 (input {ih}x{iw}): "
+                        f"kernel {ms:.4f} ms ({gf / ms:.1f} TFLOP/s), bf16 cuDNN block "
+                        f"{cudnn_ms:.4f} ms ({ms / cudnn_ms:.3f} x); bound {b_ms:.4f} ms ({b_by})")
+                if batch == 8:
+                    plain_ms = cuda_ms(lambda: reference_bottleneck(xb, *args), 2)
+                    line += f"; plain (fp32 convs) {plain_ms:.4f} ms"
+                    big_bounds[b_by] += count * b_ms
+                    for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", cudnn_ms)):
+                        big[key] += count * v
+                else:
+                    big["ms_b16"] += count * ms
+                    big["library_ms_b16"] += count * cudnn_ms
+                log(line)
+                del xb, xc
+                torch.cuda.empty_cache()
+            del block
+        big.update(bound_ms=sum(big_bounds.values()),
+                   bound_by=max(big_bounds, key=big_bounds.get))
+        kernels["fused_bottleneck"][f"at_{ih}x{iw}"] = big
+        log(f"time bottleneck, all 13 fused blocks of R-50 at B=8, input {ih}x{iw}: kernel "
+            f"{big['ms']:.4f} ms, plain {big['plain_ms']:.4f} ms, bf16 cuDNN blocks "
+            f"{big['library_ms']:.4f} ms; bound {big['bound_ms']:.4f} ms ({big_bounds} by "
+            f"side); at B=16: kernel {big['ms_b16']:.4f} ms, bf16 cuDNN blocks "
+            f"{big['library_ms_b16']:.4f} ms")
     sass_check()
 
 
@@ -718,26 +844,28 @@ def train_cfg(fused: bool, dtype: str = "bfloat16"):
     return cfg
 
 
-def train_batch(batch: int, seed: int, gt_pad: int = 100):
-    """uint8 800x1344 images and gt_pad integer-pixel boxes per image, of
+def train_batch(batch: int, seed: int, gt_pad: int = 100, hw=(800, 1344)):
+    """uint8 images of ``hw`` and gt_pad integer-pixel boxes per image, of
     which 5-30 are valid."""
     rs = np.random.RandomState(seed)
-    x1 = rs.randint(0, 1344 - 16, (batch, gt_pad))
-    y1 = rs.randint(0, 800 - 16, (batch, gt_pad))
-    x2 = np.minimum(x1 + rs.randint(16, 400, (batch, gt_pad)), 1344)
-    y2 = np.minimum(y1 + rs.randint(16, 400, (batch, gt_pad)), 800)
+    h, w = hw
+    x1 = rs.randint(0, w - 16, (batch, gt_pad))
+    y1 = rs.randint(0, h - 16, (batch, gt_pad))
+    x2 = np.minimum(x1 + rs.randint(16, 400, (batch, gt_pad)), w)
+    y2 = np.minimum(y1 + rs.randint(16, 400, (batch, gt_pad)), h)
     n_valid = rs.randint(5, 31, batch)
     return {
-        "image": rs.randint(0, 256, (batch, 800, 1344, 3)).astype(np.uint8),
+        "image": rs.randint(0, 256, (batch, h, w, 3)).astype(np.uint8),
         "gt_boxes": np.stack([x1, y1, x2, y2], -1).astype(np.float32),
         "gt_classes": rs.randint(0, 80, (batch, gt_pad)).astype(np.int32),
         "gt_valid": np.arange(gt_pad)[None, :] < n_valid[:, None],
     }
 
 
-def phase_train(dev):
+def phase_train(dev, bare):
     """The FCOS train step at full width, entered as a trainer does:
-    build_model, build_optimizer, make_train_step, step(batch)."""
+    build_model, build_optimizer, make_train_step, step(batch). Leaves each
+    model's last img/s in ``bare``."""
     from slenderobjdet_torch.engine import make_train_step
     from slenderobjdet_torch.models import build_model
     from slenderobjdet_torch.models.layers import FrozenBatchNorm
@@ -823,11 +951,346 @@ def phase_train(dev):
             f"{np.mean(steady) * 1e3:.1f} ms/step, {batch_size / np.mean(steady):.2f} "
             f"img/s, peak {peak:.2f} GiB; launches {counts}")
         log(f"train {key}: first step {parts[0]}; last step {parts[-1]}")
+        bare[key] = batch_size / float(np.mean(steady))
         if key == "fused" and not (counts["fused_stem"] > 0 and counts["fused_bottleneck"] > 0):
             raise AssertionError(f"fused train steps launched {counts}")
         if first and not totals[-1] < totals[0]:
             raise AssertionError(f"train {key}: total {totals[-1]} after {TRAIN_STEPS} "
                                  f"steps is not below step 0's {totals[0]}")
+
+
+def synthetic_dataset(name, tmpdir, n_images=32, seed=10, repeat=1):
+    """Register ``name`` in the port's catalogs: dataset dicts that inline
+    their images (LOADER_IMAGE_HW and its transpose in turns, so that the
+    loader resizes nothing and needs no image decoder) with 3-20
+    integer-pixel boxes each, and the COCO json the evaluator reads, written
+    under ``tmpdir``. ``repeat`` lists the ``n_images`` again under new ids
+    (the arrays are shared). Returns the json's dict."""
+    import os
+
+    from slenderobjdet_torch.data import DatasetCatalog, MetadataCatalog
+
+    rs = np.random.RandomState(seed)
+    dicts, images, annotations = [], [], []
+    for i in range(n_images * repeat):
+        if i >= n_images:       # the same image and boxes under a new id
+            first = dicts[i % n_images]
+            dicts.append({**first, "image_id": i + 1})
+            images.append({**images[i % n_images], "id": i + 1,
+                           "file_name": f"{i + 1:06d}.png"})
+            annotations += [{**a, "id": len(annotations) + j + 1, "image_id": i + 1}
+                            for j, a in enumerate(
+                                [a for a in annotations if a["image_id"] == first["image_id"]])]
+            continue
+        h, w = LOADER_IMAGE_HW if i % 2 == 0 else LOADER_IMAGE_HW[::-1]
+        n = rs.randint(3, 21)
+        x1, y1 = rs.randint(0, w - 16, n), rs.randint(0, h - 16, n)
+        x2 = np.minimum(x1 + rs.randint(16, 400, n), w)
+        y2 = np.minimum(y1 + rs.randint(16, 400, n), h)
+        classes = rs.randint(0, 80, n)
+        dicts.append({
+            "image": rs.randint(0, 256, (h, w, 3), dtype=np.uint8), "image_id": i + 1,
+            "height": h, "width": w,
+            "annotations": [{"bbox": [float(a), float(b), float(c), float(d)],
+                             "category_id": int(k), "iscrowd": 0}
+                            for a, b, c, d, k in zip(x1, y1, x2, y2, classes)]})
+        images.append({"id": i + 1, "file_name": f"{i + 1:06d}.png", "height": h, "width": w})
+        annotations += [{"id": len(annotations) + j + 1, "image_id": i + 1,
+                         "category_id": int(k) + 1, "iscrowd": 0,
+                         "bbox": [float(a), float(b), float(c - a), float(d - b)],
+                         "area": float((c - a) * (d - b))}
+                        for j, (a, b, c, d, k) in enumerate(zip(x1, y1, x2, y2, classes))]
+    gt = {"images": images, "annotations": annotations,
+          "categories": [{"id": k + 1, "name": f"class{k}", "supercategory": "object"}
+                         for k in range(80)]}
+    json_file = os.path.join(tmpdir, f"{name}.json")
+    with open(json_file, "w") as f:
+        json.dump(gt, f)
+    DatasetCatalog.remove(name)
+    DatasetCatalog.register(name, lambda: dicts)
+    MetadataCatalog.get(name).set(
+        json_file=json_file, evaluator_type="coco",
+        thing_dataset_id_to_contiguous_id={k + 1: k for k in range(80)})
+    return gt
+
+
+def states_equal(a, b) -> bool:
+    """Nested dicts and lists of tensors and plain values, bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return isinstance(b, dict) and list(a) == list(b) and all(
+            states_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(states_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def trainer_args(name, out, *flags, max_iter=8, checkpoint_period=4):
+    """The flagship config, nothing cut, with the synthetic dataset (its
+    test set is ``name + "_test"``), 8 iterations, a checkpoint every 4, and
+    phase_train's fused bf16 model."""
+    from pathlib import Path
+
+    import train_net_torch
+
+    opts = {"DATASETS.TRAIN": (name,), "DATASETS.TEST": (name + "_test",),
+            "INPUT.MIN_SIZE_TRAIN": (800,), "SOLVER.MAX_ITER": max_iter,
+            "SOLVER.CHECKPOINT_PERIOD": checkpoint_period, "SEED": 0, "OUTPUT_DIR": out,
+            "MODEL.RESNETS.FUSED_STEM": True, "MODEL.RESNETS.FUSED_BLOCKS": True,
+            "TPU.COMPUTE_DTYPE": "bfloat16"}
+    config = Path(__file__).resolve().parent / "configs/fcos/fcos_R_50_FPN_1x.yaml"
+    return train_net_torch.default_argument_parser().parse_args(
+        ["--config-file", str(config), *flags] + [str(x) for kv in opts.items() for x in kv])
+
+
+def phase_trainer(kernels, dev, smi, bare):
+    """Train, checkpoint, resume and evaluate through ``train_net_torch.main``."""
+    import copy
+    import os
+    import tempfile
+
+    import train_net_torch
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.engine import trainer as trainer_mod
+    from slenderobjdet_torch.engine.train_loop import TrainStep
+    from slenderobjdet_torch.evaluation import COCOEvaluator, native
+    from slenderobjdet_torch.evaluation.coco_evaluation import STATS_NAMES
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.ops import _build
+    from slenderobjdet_torch.solver import build_optimizer
+
+    name = "chip_smoke_synthetic"
+    steps, waits, resumed_states = [], [], []
+    sync_at = [2]       # the step count before which watched_call waits for the card
+    real_call, real_loader = TrainStep.__call__, trainer_mod.build_detection_train_loader
+    real_resume = trainer_mod.BaseTrainer.resume_or_load
+
+    def watched_call(self, batch):
+        """One train step, its batch's shapes, its launches and its clock;
+        the card is waited for once before step ``sync_at`` (a run's third)
+        and once after the last step, so that the steps between are timed
+        as the trainer runs them."""
+        if self.count == sync_at[0]:
+            torch.cuda.synchronize()
+        before = _build.launch_counts()
+        rec = {"step": self.count, "t0": time.perf_counter(),
+               "image": (tuple(batch["image"].shape), str(batch["image"].dtype)),
+               "gt": tuple(batch["gt_boxes"].shape)}
+        out = real_call(self, batch)
+        after = _build.launch_counts()
+        rec["launches"] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        rec["loss"] = out["total_loss"]
+        if self.count == self.cfg.SOLVER.MAX_ITER:
+            torch.cuda.synchronize()
+        rec["t1"] = time.perf_counter()
+        steps.append(rec)
+        return out
+
+    def timed_loader(cfg, seed=0):
+        stream = iter(real_loader(cfg, seed=seed))
+
+        def batches():
+            while True:
+                t = time.perf_counter()
+                batch = next(stream)
+                waits.append(time.perf_counter() - t)
+                yield batch
+        return batches()
+
+    def watched_resume(self, resume=False):
+        real_resume(self, resume=resume)
+        if resume:      # a copy: the steps that follow update the tensors in place
+            resumed_states.append((self.start_iter, self.train_step.count,
+                                   copy.deepcopy(self.state())))
+
+    TrainStep.__call__ = watched_call
+    trainer_mod.build_detection_train_loader = timed_loader
+    trainer_mod.BaseTrainer.resume_or_load = watched_resume
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
+            gt = synthetic_dataset(name, tmp)
+            n_test = len(synthetic_dataset(name + "_test", tmp, repeat=4)["images"])
+            out = os.path.join(tmp, "output")
+            n_test_batches = n_test // 8
+
+            # ---- train 8 iterations, checkpoints at 4 and 8, then evaluate
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            results = train_net_torch.main(trainer_args(name, out))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _build.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"trainer launches, 8 steps and {n_test_batches} test batches: {counts}")
+            for k in PREDICT_KERNELS:     # train steps launch two, test batches all three
+                kernels[k]["launches_by_path"] = {"predict": kernels[k].get("launches"),
+                                                  "trainer": counts[k]}
+                if counts[k] <= 0:
+                    raise AssertionError(f"kernel {k} was not launched through the trainer")
+            if counts["nms"] != n_test_batches:
+                raise AssertionError(f"{counts['nms']} NMS launches for "
+                                     f"{n_test_batches} test batches")
+            if [r["step"] for r in steps] != list(range(8)):
+                raise AssertionError(f"steps taken: {[r['step'] for r in steps]}")
+            shapes = set()
+            for r in steps:
+                shapes.add(r["image"][0])
+                if r["image"] not in [((16, *hw, 3), "uint8") for hw in LOADER_SHAPES] \
+                        or r["gt"] != (16, 100, 4):
+                    raise AssertionError(f"step {r['step']}: batch {r['image']}, gt {r['gt']}")
+                if r["launches"] != {"fused_stem": 1, "fused_bottleneck": 13}:
+                    raise AssertionError(f"step {r['step']} launched {r['launches']}")
+            losses = [float(r["loss"]) for r in steps]
+            log(f"trainer batches {sorted(shapes)}, 100 padded gt; every step launched 1 stem "
+                f"and 13 bottleneck kernels; total losses {[round(v, 4) for v in losses]}")
+            if not all(np.isfinite(v) for v in losses):
+                raise AssertionError(f"non-finite loss in {losses}")
+            with open(os.path.join(out, "metrics.json")) as f:
+                logged = [json.loads(line) for line in f]
+            if [r["iteration"] for r in logged] != [0] or not all(
+                    np.isfinite(v) for r in logged for v in r.values()):
+                raise AssertionError(f"metrics.json: {logged}")
+            for fname in ("config.yaml", "model_0000004.pth", "model_0000008.pth",
+                          "last_checkpoint"):
+                if not os.path.exists(os.path.join(out, fname)):
+                    raise AssertionError(f"the trainer did not write {fname}")
+            steady = steps[-1]["t1"] - steps[2]["t0"]
+            wait = sum(waits[2:8])
+            log(f"time trainer ({smi}): steps 2-7 of train_net_torch.main {steady / 6 * 1e3:.1f} "
+                f"ms/step, {16 * 6 / steady:.2f} img/s at B=16, 896x1408 and 1408x896 "
+                f"(the background save at iteration 4 included); waiting for the loader "
+                f"{wait / 6 * 1e3:.2f} ms/step, {wait / steady:.4f} of a step (data_time of the "
+                f"first, cold iteration {logged[0]['data_time'] * 1e3:.1f} ms); peak memory "
+                f"{peak:.2f} GiB; whole main (build, 8 steps, 2 saves, evaluation) {wall:.1f} s")
+            gaps = [(steps[i + 1]["t0"] - steps[i]["t0"]) * 1e3 for i in range(2, 7)]
+            log("trainer, host clock from one step's entry to the next, ms (the host runs up "
+                "to a step ahead of the card; the save at iteration 4 starts after step 3): "
+                + ", ".join(f"{r['step']} {'x'.join(map(str, r['image'][0][1:3]))} {g:.1f}"
+                            for r, g in zip(steps[2:7], gaps)))
+            steps_2_7 = [r["image"][0][1:3] for r in steps[2:8]]
+            timing = results[name + "_test"]["_timing"]
+            log(f"time trainer eval ({smi}): {timing['images']} timed images of {n_test}, "
+                f"{timing['s_per_img'] * 1e3:.2f} ms/img, "
+                f"{1 / timing['s_per_img'] if timing['s_per_img'] else float('nan'):.2f} img/s "
+                f"(B=8, both orientations, fetch to the host included, first 5 batches "
+                f"not timed)")
+
+            # ---- resume: the state just after resume_or_load is the saved one
+            saved = torch.load(os.path.join(out, "model_0000008.pth"), map_location="cpu",
+                               weights_only=True)
+            first_loss = losses[0]
+            del steps[:], waits[:], resumed_states[:]
+            sync_at[0] = 10
+            train_net_torch.main(trainer_args(name, out, "--resume", max_iter=28,
+                                              checkpoint_period=1000))
+            start_iter, count, state = resumed_states[0]
+            if (start_iter, count) != (8, 8) or not states_equal(state, saved):
+                raise AssertionError(f"resume: start_iter {start_iter}, count {count}, state "
+                                     f"== saved: {states_equal(state, saved)}")
+            resumed = [float(r["loss"]) for r in steps]
+            log(f"trainer --resume: starts at iteration 8 with the saved state bit for bit "
+                f"({len(saved['model'])} model tensors, {len(saved['optimizer']['state'])} "
+                f"momentum buffers); losses of steps 8-27 {[round(v, 4) for v in resumed]} "
+                f"(step 8 sees the first run's first batch: {first_loss:.4f} there)")
+            if [r["step"] for r in steps] != list(range(8, 28)) \
+                    or not all(np.isfinite(resumed)) \
+                    or not resumed[0] <= RESUME_FACTOR * first_loss:
+                raise AssertionError(f"resumed steps {[r['step'] for r in steps]}, losses "
+                                     f"{resumed}, first run's step 0 {first_loss}")
+            for r in steps:
+                if r["launches"] != {"fused_stem": 1, "fused_bottleneck": 13}:
+                    raise AssertionError(f"step {r['step']} launched {r['launches']}")
+            quiet = steps[-1]["t1"] - steps[2]["t0"]     # steps 10-27: none of them saves
+            quiet_wait = sum(waits[2:20])
+            steps_10_27 = [r["image"][0][1:3] for r in steps[2:]]
+            log(f"time trainer without a save ({smi}): steps 10-27 of the resumed "
+                f"train_net_torch.main {quiet / 18 * 1e3:.1f} ms/step, {16 * 18 / quiet:.2f} "
+                f"img/s at B=16 ({sum(hw == LOADER_SHAPES[0] for hw in steps_10_27)} landscape "
+                f"and {sum(hw == LOADER_SHAPES[1] for hw in steps_10_27)} portrait batches); "
+                f"waiting for the loader {quiet_wait / 18 * 1e3:.2f} ms/step, "
+                f"{quiet_wait / quiet:.4f} of a step")
+
+            # ---- evaluate only
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            results = train_net_torch.main(trainer_args(name, out, "--resume", "--eval-only",
+                                                        max_iter=28))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _build.launch_counts()
+            res = results[name + "_test"]
+            missing = [k for k in STATS_NAMES if k not in res["bbox"]]
+            ar_keys = ("AR@100", "mAR@100", "AR-small@100", "AR- 0  - 1/5@100", "AR-5/1 - INF@100")
+            if missing or not all(k in res["ar"] for k in ar_keys):
+                raise AssertionError(f"--eval-only: bbox lacks {missing}; ar {sorted(res['ar'])}")
+            want = {"nms": n_test_batches, "fused_stem": n_test_batches,
+                    "fused_bottleneck": 13 * n_test_batches}
+            if {k: counts[k] for k in want} != want:
+                raise AssertionError(f"--eval-only launched {counts}, expected {want}")
+            log(f"trainer --eval-only: bbox has all {len(STATS_NAMES)} names, ar has "
+                f"{len(res['ar'])} keys; launches {want}; whole main {wall:.1f} s, "
+                f"{n_test / wall:.2f} img/s with the model build and the load")
+
+            # ---- the bare step at the loader's two shapes, for what the trainer costs
+            TrainStep.__call__ = real_call
+            cfg = train_net_torch.setup(trainer_args(name, out))
+            model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+            step = make_train_step(model, build_optimizer(cfg, model), cfg)
+            bare_ms = {}
+            for k, hw in enumerate(LOADER_SHAPES):
+                batch = train_batch(16, seed=12 + k, hw=hw)
+                times = []
+                for _ in range(6):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(batch)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                bare_ms[hw] = float(np.mean(times[2:])) * 1e3
+            del model, step
+            torch.cuda.empty_cache()
+            same_mix = float(np.mean([bare_ms[hw] for hw in steps_2_7]))
+            quiet_mix = float(np.mean([bare_ms[hw] for hw in steps_10_27]))
+            log(f"time bare step ({smi}), make_train_step on one batch, B=16, flags on: "
+                + ", ".join(f"{h}x{w} {ms:.1f} ms/step ({16 / ms * 1e3:.2f} img/s)"
+                            for (h, w), ms in bare_ms.items())
+                + f"; the trainer's steps 2-7 (one of them saves) at the bare step's pace "
+                f"{same_mix:.1f} ms/step ({16 / same_mix * 1e3:.2f} img/s), through the trainer "
+                f"{steady / 6 * 1e3:.1f} ({16 * 6 / steady:.2f} img/s): "
+                f"{steady / 6 * 1e3 / same_mix:.3f} x; its steps 10-27 (no save) at the bare "
+                f"step's pace {quiet_mix:.1f} ms/step, through the trainer "
+                f"{quiet / 18 * 1e3:.1f} ({16 * 18 / quiet:.2f} img/s): "
+                f"{quiet / 18 * 1e3 / quiet_mix:.3f} x; the train "
+                f"phase's bare step at 800x1344 {bare.get('fused', float('nan')):.2f} img/s")
+
+            # ---- the evaluator on detections that are right: jittered gt
+            rs = np.random.RandomState(11)
+            evaluator = COCOEvaluator(name)
+            by_image = {}
+            for a in gt["annotations"]:
+                by_image.setdefault(a["image_id"], []).append(a)
+            for image_id, anns in by_image.items():
+                boxes = np.array([[a["bbox"][0], a["bbox"][1], a["bbox"][0] + a["bbox"][2],
+                                   a["bbox"][1] + a["bbox"][3]] for a in anns], np.float32)
+                boxes += rs.randn(*boxes.shape).astype(np.float32)
+                evaluator.process({"image_id": [image_id]}, {
+                    "boxes": boxes[None], "scores": rs.rand(1, len(anns)).astype(np.float32),
+                    "classes": np.array([[a["category_id"] - 1 for a in anns]]),
+                    "valid": np.ones((1, len(anns)), bool)})
+            res = evaluator.evaluate()
+            log(f"evaluator on jittered ground truth ({native.backend()} matcher): AP "
+                f"{res['bbox']['AP']:.2f}, AP50 {res['bbox']['AP50']:.2f}, AR@100 "
+                f"{res['ar']['AR@100']:.2f}")
+            if not (np.isfinite(res["bbox"]["AP"]) and res["bbox"]["AP"] > 50
+                    and res["bbox"]["AP50"] > 90):
+                raise AssertionError(f"evaluator: {res['bbox']}")
+    finally:
+        TrainStep.__call__ = real_call
+        trainer_mod.build_detection_train_loader = real_loader
+        trainer_mod.BaseTrainer.resume_or_load = real_resume
 
 
 def main() -> int:
@@ -897,7 +1360,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     run("probes", phase_probes, kernels, dev)
     torch.cuda.empty_cache()
-    run("train", phase_train, dev)
+    bare = {}
+    run("train", phase_train, dev, bare)
+    torch.cuda.empty_cache()
+    run("trainer", phase_trainer, kernels, dev, smi, bare)
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

@@ -1,3 +1,3 @@
-from .train_loop import make_train_step
+from .train_loop import TrainStep, make_train_step
 
-__all__ = ["make_train_step"]
+__all__ = ["TrainStep", "make_train_step"]

@@ -5,42 +5,49 @@ layers cast each weight to the compute dtype), backward, gradient clipping,
 the LR of the step's schedule and the optimizer update.
 
 FrozenBN only: no BatchNorm statistics are written back, and trainable BN
-raises at model build. The trainer, its hooks, checkpoints and DDP are not
-ported yet.
+raises at model build. The update count is state (the JAX package's
+``TrainState.step``): a checkpoint saves it and a resumed run sets it, so
+the LR schedule goes on where it stopped.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Dict
 
 import torch
 
 from ..solver.build import clip_gradients, lr_schedule
 
 
-def make_train_step(model, optimizer: torch.optim.Optimizer,
-                    cfg) -> Callable[[Dict], Dict[str, torch.Tensor]]:
+class TrainStep:
     """``step(batch)`` -> metrics (``total_loss``, ``cls_loss``,
-    ``reg_loss``, ``centerness_loss``, ``num_pos``), detached tensors. The
-    update count starts at 0, so the first update uses ``schedule(0)`` as
-    optax does."""
-    schedule = lr_schedule(cfg)
-    params = [p for g in optimizer.param_groups for p in g["params"]]
-    count = 0
+    ``reg_loss``, ``centerness_loss``, ``num_pos``), detached tensors.
+    ``count`` is the number of updates made so far; it starts at 0, so the
+    first update uses ``schedule(0)`` as optax does."""
 
-    def step(batch: Dict) -> Dict[str, torch.Tensor]:
-        nonlocal count
-        optimizer.zero_grad(set_to_none=True)
-        total, metrics = model.loss(batch)
+    def __init__(self, model, optimizer: torch.optim.Optimizer, cfg):
+        self.model = model
+        self.optimizer = optimizer
+        self.cfg = cfg
+        self.schedule = lr_schedule(cfg)
+        self.params = [p for g in optimizer.param_groups for p in g["params"]]
+        self.count = 0
+
+    def __call__(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        self.optimizer.zero_grad(set_to_none=True)
+        total, metrics = self.model.loss(batch)
         total.backward()
-        clip_gradients(cfg, params)
-        lr = schedule(count)
-        for group in optimizer.param_groups:
+        clip_gradients(self.cfg, self.params)
+        lr = self.schedule(self.count)
+        for group in self.optimizer.param_groups:
             group["lr"] = lr * group["lr_factor"]
-        optimizer.step()
-        count += 1
+        self.optimizer.step()
+        self.count += 1
         out = {k: v.detach() for k, v in metrics.items()}
         out["total_loss"] = total.detach()
         return out
 
-    return step
+
+def make_train_step(model, optimizer: torch.optim.Optimizer,
+                    cfg) -> TrainStep:
+    return TrainStep(model, optimizer, cfg)
