@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py        # from the repository root; needs one card
+    python3 chip_smoke.py retinanet nms   # only the phases whose names start
+                                 # so; prints no result line and exits 3
 
 Builds the port's CUDA kernels from ``slenderobjdet_torch/ops/csrc`` (at
 first use, into ``build/torch_kernels/``), then, each phase failing the run
@@ -76,6 +78,34 @@ if it fails:
    one, beside the bare step's, the share of a step spent waiting
    for the loader, eval img/s and the peak memory.
 
+9. RetinaNet R-50-FPN (configs/retina/retinanet_R_50_FPN_1x.yaml, nothing
+   cut, FUSED_STEM and FUSED_BLOCKS on, bf16, seeded weights, FrozenBN away
+   from identity) at the loader's 896x1408, the second family's main path:
+   its head's logits and deltas no further from an fp32 model's than 1.5 x
+   the unfused bf16 model's; the classifier's bias moved so that the
+   coarsest level's 99.5th percentile score sits on SCORE_THRESH_TEST; the
+   NMS kernel against ``batched_nms`` on the model's own candidates (B=8,
+   N=5000, thr 0.5, the mask the threshold gives): identical, and timed
+   beside its bound; 3 requests of 8 images, each launching exactly 1 stem,
+   13 bottleneck wrappers and 1 NMS, outputs of the right shapes, finite,
+   holding valid detections, and matched by the same weights with the
+   flags off (``comparable_retinanet``, ``match_detections``: >= 0.99 of
+   the slots paired by class within a score of 2e-2); device time of
+   backbone, head and postprocess; predict img/s at B=8 and 32, flags on
+   and off.
+10. The RetinaNet train step at full width: 11 steps on one batch of 16
+   images at 896x1408 with 100 padded gt, WARMUP_ITERS 0 and BASE_LR 2e-4
+   (the YAML's 0.01 without warm-up gives NaN by step 2 on random weights),
+   flags on: both fused kernels launch, every loss is finite, the last
+   total is below step 0's; train img/s and peak memory with the flags on
+   and off.
+11. ``train_net_torch.main`` on the RetinaNet YAML over the synthetic
+   dataset: 4 iterations with a checkpoint every 2 and the evaluation, every
+   step launching 1 stem and 13 bottleneck kernels on (16, 896, 1408, 3) or
+   (16, 1408, 896, 3) batches with 100 padded gt and every test batch 1
+   NMS; ``--resume`` to iteration 8 from exactly the saved state;
+   ``--eval-only`` with every name of ``STATS_NAMES``; eval img/s.
+
 Every kernel's time stands beside its bound, the least time the card could
 take: the larger of its bytes (inputs read once, outputs written once) over
 3.35 TB/s and its operations over the peak rate of their type (989 TFLOP/s
@@ -88,6 +118,7 @@ non-zero, printing no result, without a CUDA device or on any failure.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
@@ -548,14 +579,17 @@ def sass_check():
                              f"or its one weight bulk copy: {stem}")
 
 
-def flagship_cfg(fused: bool, dtype: str = "bfloat16"):
+FCOS_YAML = "configs/fcos/fcos_R_50_FPN_1x.yaml"
+RETINANET_YAML = "configs/retina/retinanet_R_50_FPN_1x.yaml"
+
+
+def flagship_cfg(fused: bool, dtype: str = "bfloat16", yaml: str = FCOS_YAML):
     from pathlib import Path
 
     from slenderobjdet_torch.config import get_cfg
 
     cfg = get_cfg()
-    cfg.merge_from_file(str(Path(__file__).resolve().parent
-                            / "configs/fcos/fcos_R_50_FPN_1x.yaml"))
+    cfg.merge_from_file(str(Path(__file__).resolve().parent / yaml))
     cfg.MODEL.RESNETS.FUSED_STEM = fused
     cfg.MODEL.RESNETS.FUSED_BLOCKS = fused
     cfg.TPU.COMPUTE_DTYPE = dtype
@@ -563,38 +597,53 @@ def flagship_cfg(fused: bool, dtype: str = "bfloat16"):
     return cfg
 
 
-def requests(n: int, batch: int, seed: int):
+def requests(n: int, batch: int, seed: int, hw=(800, 1344)):
     rs = np.random.RandomState(seed)
     return [{
-        "image": rs.randint(0, 256, (batch, 800, 1344, 3)).astype(np.uint8),
+        "image": rs.randint(0, 256, (batch, *hw, 3)).astype(np.uint8),
         "scale": np.ones((batch,), np.float32),
-        "orig_size": np.tile(np.array([[800, 1344]], np.float32), (batch, 1)),
+        "orig_size": np.tile(np.array([hw], np.float32), (batch, 1)),
     } for _ in range(n)]
 
 
-def build_models(dev):
-    """The fused bf16 model with seeded weights, and the same weights unfused
-    in bf16 (the cuDNN path) and unfused in fp32 (the reference for both).
-
-    FrozenBN buffers are drawn away from identity so the fused seams' folding
-    matters, and the cls_logits bias is 0 so scores pass INFERENCE_TH."""
-    from slenderobjdet_torch.models import build_model
+def randomize_frozen_bn(model, gen):
+    """FrozenBN buffers away from identity, so that the fused seams' folding
+    matters."""
     from slenderobjdet_torch.models.layers import FrozenBatchNorm
 
-    gen = torch.Generator().manual_seed(0)
-    model = build_model(flagship_cfg(True), device=dev, generator=gen)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, FrozenBatchNorm):
                 n = m.scale.numel()
                 m.scale.copy_(torch.rand(n, generator=gen) * 0.5 + 0.75)
                 m.bias.copy_(torch.randn(n, generator=gen) * 0.05)
-        model.head.cls_logits.bias.zero_()
-    plain = build_model(flagship_cfg(False), device=dev)
+
+
+def build_models(dev, yaml: str = FCOS_YAML, cls_bias: float = 0.0):
+    """The fused bf16 model with seeded weights, and the same weights unfused
+    in bf16 (the cuDNN path) and unfused in fp32 (the reference for both).
+
+    FrozenBN buffers are drawn away from identity, and the classifier's bias
+    is ``cls_bias`` so that scores pass the test threshold (the focal prior
+    keeps every score of a random model under it)."""
+    from slenderobjdet_torch.models import build_model
+
+    gen = torch.Generator().manual_seed(0)
+    model = build_model(flagship_cfg(True, yaml=yaml), device=dev, generator=gen)
+    randomize_frozen_bn(model, gen)
+    with torch.no_grad():
+        classifier(model).bias.fill_(cls_bias)
+    plain = build_model(flagship_cfg(False, yaml=yaml), device=dev)
     plain.load_state_dict(model.state_dict())
-    ref32 = build_model(flagship_cfg(False, "float32"), device=dev)
+    ref32 = build_model(flagship_cfg(False, "float32", yaml=yaml), device=dev)
     ref32.load_state_dict(model.state_dict())
     return model, plain, ref32
+
+
+def classifier(model):
+    """The head's last classification conv: FCOS's or RetinaNet's."""
+    head = model.head
+    return head.cls_logits if hasattr(head, "cls_logits") else head.cls_score
 
 
 def one_detection_per_class(gen, *models):
@@ -623,6 +672,8 @@ def one_detection_per_class(gen, *models):
 def check_outputs(out, batch: int):
     shapes = {"boxes": (batch, 100, 4), "scores": (batch, 100),
               "classes": (batch, 100), "valid": (batch, 100)}
+    if sorted(out) != sorted(shapes):
+        raise AssertionError(f"predict returned {sorted(out)}")
     for k, s in shapes.items():
         if tuple(out[k].shape) != s:
             raise AssertionError(f"{k} shape {tuple(out[k].shape)} != {s}")
@@ -639,23 +690,26 @@ def per_class(out, b):
     return {int(c): (float(s), x) for c, s, x in zip(cls, sc, bx)}
 
 
+def check_heads(label, parts, req, dev, model, plain, ref32):
+    """Head outputs: the fused model may be no further from the fp32 model
+    than the unfused bf16 model is, by more than HEAD_FACTOR."""
+    with torch.inference_mode():
+        images = torch.as_tensor(req["image"], device=dev)
+        heads = [m(images) for m in (model, plain, ref32)]
+    for part, f_l, p_l, r_l in zip(parts, *heads):
+        e_f = max(ratio(f, r) for f, r in zip(f_l, r_l))
+        e_p = max(ratio(p, r) for p, r in zip(p_l, r_l))
+        log(f"head {label} {part} vs fp32: fused bf16 err ratio {e_f:.3e}, unfused "
+            f"bf16 {e_p:.3e} (fused <= {HEAD_FACTOR} x unfused and <= {HEAD_TOL})")
+        if not (e_f <= HEAD_FACTOR * e_p and e_f <= HEAD_TOL):
+            raise AssertionError(f"head {label} {part}: fused err {e_f}, unfused {e_p}")
+
+
 def phase_main_path(kernels, dev, model, plain, ref32):
     from slenderobjdet_torch.ops import _build
 
     reqs = requests(3, 8, seed=3)
-    # Head outputs: the fused model may be no further from the fp32 model
-    # than the unfused bf16 model is, by more than HEAD_FACTOR.
-    with torch.inference_mode():
-        images = torch.as_tensor(reqs[0]["image"], device=dev)
-        heads = [m(images) for m in (model, plain, ref32)]
-    for part, f_l, p_l, r_l in zip(("logits", "reg", "ctr"), *heads):
-        e_f = max(ratio(f, r) for f, r in zip(f_l, r_l))
-        e_p = max(ratio(p, r) for p, r in zip(p_l, r_l))
-        log(f"head {part} vs fp32: fused bf16 err ratio {e_f:.3e}, unfused "
-            f"bf16 {e_p:.3e} (fused <= {HEAD_FACTOR} x unfused and <= {HEAD_TOL})")
-        if not (e_f <= HEAD_FACTOR * e_p and e_f <= HEAD_TOL):
-            raise AssertionError(f"head {part}: fused err {e_f}, unfused {e_p}")
-    del heads, images
+    check_heads("fcos", ("logits", "reg", "ctr"), reqs[0], dev, model, plain, ref32)
     one_detection_per_class(torch.Generator().manual_seed(5), model, plain)
 
     _build.reset_launch_counts()
@@ -699,9 +753,12 @@ def phase_main_path(kernels, dev, model, plain, ref32):
         raise AssertionError(f"fused vs unfused: {share:.4f} of slots matched")
 
 
-def phase_throughput(model, plain):
+def phase_throughput(model, plain, family="FCOS", hw=(800, 1344)):
+    """predict img/s at B=8 and B=32, the fused and the unfused model in
+    turns; returns {(batch, "fused" or "unfused"): the last turn's img/s}."""
+    rates = {}
     for batch, iters in ((8, 5), (32, 3)):
-        req = requests(1, batch, seed=4)[0]
+        req = requests(1, batch, seed=4, hw=hw)[0]
         for label, m in (("fused", model), ("unfused", plain),
                          ("fused", model), ("unfused", plain)):
             for _ in range(2):
@@ -712,8 +769,10 @@ def phase_throughput(model, plain):
                 m.predict(req)
             torch.cuda.synchronize()
             dt = (time.perf_counter() - t0) / iters
-            log(f"time predict B={batch} {label}: {dt * 1e3:.3f} ms/batch, "
-                f"{batch / dt:.2f} img/s")
+            rates[batch, label] = batch / dt
+            log(f"time predict {family} B={batch} {hw[0]}x{hw[1]} {label}: "
+                f"{dt * 1e3:.3f} ms/batch, {batch / dt:.2f} img/s")
+    return rates
 
 
 def phase_probes(kernels, dev):
@@ -836,8 +895,8 @@ def phase_probes(kernels, dev):
             raise AssertionError(f"kernel {name} was not launched by its probe tool")
 
 
-def train_cfg(fused: bool, dtype: str = "bfloat16"):
-    cfg = flagship_cfg(fused, dtype)
+def train_cfg(fused: bool, dtype: str = "bfloat16", yaml: str = FCOS_YAML):
+    cfg = flagship_cfg(fused, dtype, yaml)
     cfg.defrost()
     cfg.SOLVER.WARMUP_ITERS = 0      # a test setting: full LR from step 0
     cfg.freeze()
@@ -868,7 +927,6 @@ def phase_train(dev, bare):
     model's last img/s in ``bare``."""
     from slenderobjdet_torch.engine import make_train_step
     from slenderobjdet_torch.models import build_model
-    from slenderobjdet_torch.models.layers import FrozenBatchNorm
     from slenderobjdet_torch.ops import _build
     from slenderobjdet_torch.solver import build_optimizer
 
@@ -879,12 +937,7 @@ def phase_train(dev, bare):
                               ("fp32", False, "float32")):
         m = build_model(train_cfg(fused, dtype), device=dev, generator=gen)
         if weights is None:
-            with torch.no_grad():
-                for mod in m.modules():
-                    if isinstance(mod, FrozenBatchNorm):
-                        n = mod.scale.numel()
-                        mod.scale.copy_(torch.rand(n, generator=gen) * 0.5 + 0.75)
-                        mod.bias.copy_(torch.randn(n, generator=gen) * 0.05)
+            randomize_frozen_bn(m, gen)
             weights = {k: v.clone() for k, v in m.state_dict().items()}
         else:
             m.load_state_dict(weights)
@@ -927,6 +980,20 @@ def phase_train(dev, bare):
     for key in ("fused", "unfused"):
         cfg = train_cfg(key == "fused")
         steps[key] = make_train_step(models[key], build_optimizer(cfg, models[key]), cfg)
+    train_turns("FCOS", steps, batch, ("cls_loss", "reg_loss", "centerness_loss", "num_pos"),
+                bare)
+
+
+def train_turns(family, steps, batch, part_keys, rates):
+    """``steps["fused"]`` and ``steps["unfused"]`` (train steps of two models
+    from the same weights) on one batch, in turns: each one's first turn is
+    the TRAIN_STEPS + 1 steps whose loss must fall and stay finite, its second
+    4 more. The fused steps must launch both fused kernels. Leaves each
+    model's last img/s in ``rates`` and returns {key: peak GiB}."""
+    from slenderobjdet_torch.ops import _build
+
+    batch_size = batch["image"].shape[0]
+    peaks = {}
     for turn, key in enumerate(("fused", "unfused", "fused", "unfused")):
         first = turn < 2
         torch.cuda.synchronize()
@@ -940,23 +1007,25 @@ def phase_train(dev, bare):
             times.append(time.perf_counter() - t0)
             metrics = {k: float(v) for k, v in metrics.items()}
             if not all(np.isfinite(v) for v in metrics.values()):
-                raise AssertionError(f"train {key} step {i}: non-finite {metrics}")
+                raise AssertionError(f"train {family} {key} step {i}: non-finite {metrics}")
             totals.append(metrics["total_loss"])
-            parts.append(" ".join(f"{k.split('_')[0]} {metrics[k]:.3f}" for k in
-                                  ("cls_loss", "reg_loss", "centerness_loss", "num_pos")))
+            parts.append(" ".join(f"{k} {metrics[k]:.3f}" for k in part_keys))
         counts = _build.launch_counts()
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        peaks[key] = torch.cuda.max_memory_allocated() / 2 ** 30
         steady = times[2:] if first else times
-        log(f"train {key} B={batch_size}: totals {[round(t, 4) for t in totals]}; "
+        h, w = batch["image"].shape[1:3]
+        log(f"train {family} {key} B={batch_size} {h}x{w}: totals "
+            f"{[round(t, 4) for t in totals]}; "
             f"{np.mean(steady) * 1e3:.1f} ms/step, {batch_size / np.mean(steady):.2f} "
-            f"img/s, peak {peak:.2f} GiB; launches {counts}")
-        log(f"train {key}: first step {parts[0]}; last step {parts[-1]}")
-        bare[key] = batch_size / float(np.mean(steady))
+            f"img/s, peak {peaks[key]:.2f} GiB; launches {counts}")
+        log(f"train {family} {key}: first step {parts[0]}; last step {parts[-1]}")
+        rates[key] = batch_size / float(np.mean(steady))
         if key == "fused" and not (counts["fused_stem"] > 0 and counts["fused_bottleneck"] > 0):
             raise AssertionError(f"fused train steps launched {counts}")
         if first and not totals[-1] < totals[0]:
-            raise AssertionError(f"train {key}: total {totals[-1]} after {TRAIN_STEPS} "
-                                 f"steps is not below step 0's {totals[0]}")
+            raise AssertionError(f"train {family} {key}: total {totals[-1]} after "
+                                 f"{TRAIN_STEPS} steps is not below step 0's {totals[0]}")
+    return peaks
 
 
 def synthetic_dataset(name, tmpdir, n_images=32, seed=10, repeat=1):
@@ -1026,8 +1095,8 @@ def states_equal(a, b) -> bool:
     return a == b
 
 
-def trainer_args(name, out, *flags, max_iter=8, checkpoint_period=4):
-    """The flagship config, nothing cut, with the synthetic dataset (its
+def trainer_args(name, out, *flags, max_iter=8, checkpoint_period=4, yaml=FCOS_YAML):
+    """The config of ``yaml``, nothing cut, with the synthetic dataset (its
     test set is ``name + "_test"``), 8 iterations, a checkpoint every 4, and
     phase_train's fused bf16 model."""
     from pathlib import Path
@@ -1039,32 +1108,41 @@ def trainer_args(name, out, *flags, max_iter=8, checkpoint_period=4):
             "SOLVER.CHECKPOINT_PERIOD": checkpoint_period, "SEED": 0, "OUTPUT_DIR": out,
             "MODEL.RESNETS.FUSED_STEM": True, "MODEL.RESNETS.FUSED_BLOCKS": True,
             "TPU.COMPUTE_DTYPE": "bfloat16"}
-    config = Path(__file__).resolve().parent / "configs/fcos/fcos_R_50_FPN_1x.yaml"
+    config = Path(__file__).resolve().parent / yaml
     return train_net_torch.default_argument_parser().parse_args(
         ["--config-file", str(config), *flags] + [str(x) for kv in opts.items() for x in kv])
 
 
-def phase_trainer(kernels, dev, smi, bare):
-    """Train, checkpoint, resume and evaluate through ``train_net_torch.main``."""
-    import copy
-    import os
-    import tempfile
+class TrainerWatch:
+    """What ``watched_trainer`` records: a record a train step (``steps``),
+    the seconds each batch was waited for (``waits``), the state just after
+    every ``resume_or_load(resume=True)`` (``resumed_states``); ``sync_at[0]``
+    is the step count before which the card is waited for."""
 
-    import train_net_torch
-    from slenderobjdet_torch.engine import make_train_step
+    def __init__(self):
+        self.steps, self.waits, self.resumed_states, self.sync_at = [], [], [], [2]
+        self.real_call = None
+
+    def clear(self):
+        del self.steps[:], self.waits[:], self.resumed_states[:]
+
+
+@contextlib.contextmanager
+def watched_trainer():
+    """Patch the trainer so that every ``train_net_torch.main`` inside records
+    into a ``TrainerWatch``; everything is put back on the way out."""
+    import copy
+
     from slenderobjdet_torch.engine import trainer as trainer_mod
     from slenderobjdet_torch.engine.train_loop import TrainStep
-    from slenderobjdet_torch.evaluation import COCOEvaluator, native
-    from slenderobjdet_torch.evaluation.coco_evaluation import STATS_NAMES
-    from slenderobjdet_torch.models import build_model
     from slenderobjdet_torch.ops import _build
-    from slenderobjdet_torch.solver import build_optimizer
 
-    name = "chip_smoke_synthetic"
-    steps, waits, resumed_states = [], [], []
-    sync_at = [2]       # the step count before which watched_call waits for the card
+    watch = TrainerWatch()
+    steps, waits, resumed_states, sync_at = (watch.steps, watch.waits, watch.resumed_states,
+                                             watch.sync_at)
     real_call, real_loader = TrainStep.__call__, trainer_mod.build_detection_train_loader
     real_resume = trainer_mod.BaseTrainer.resume_or_load
+    watch.real_call = real_call
 
     def watched_call(self, batch):
         """One train step, its batch's shapes, its launches and its clock;
@@ -1108,6 +1186,32 @@ def phase_trainer(kernels, dev, smi, bare):
     trainer_mod.build_detection_train_loader = timed_loader
     trainer_mod.BaseTrainer.resume_or_load = watched_resume
     try:
+        yield watch
+    finally:
+        TrainStep.__call__ = real_call
+        trainer_mod.build_detection_train_loader = real_loader
+        trainer_mod.BaseTrainer.resume_or_load = real_resume
+
+
+def phase_trainer(kernels, dev, smi, bare):
+    """Train, checkpoint, resume and evaluate through ``train_net_torch.main``."""
+    import os
+    import tempfile
+
+    import train_net_torch
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.engine.train_loop import TrainStep
+    from slenderobjdet_torch.evaluation import COCOEvaluator, native
+    from slenderobjdet_torch.evaluation.coco_evaluation import STATS_NAMES
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.ops import _build
+    from slenderobjdet_torch.solver import build_optimizer
+
+    name = "chip_smoke_synthetic"
+    with watched_trainer() as watch:
+        steps, waits, resumed_states, sync_at = (watch.steps, watch.waits,
+                                                 watch.resumed_states, watch.sync_at)
+        real_call = watch.real_call
         with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
             gt = synthetic_dataset(name, tmp)
             n_test = len(synthetic_dataset(name + "_test", tmp, repeat=4)["images"])
@@ -1126,8 +1230,8 @@ def phase_trainer(kernels, dev, smi, bare):
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             log(f"trainer launches, 8 steps and {n_test_batches} test batches: {counts}")
             for k in PREDICT_KERNELS:     # train steps launch two, test batches all three
-                kernels[k]["launches_by_path"] = {"predict": kernels[k].get("launches"),
-                                                  "trainer": counts[k]}
+                kernels[k].setdefault("launches_by_path", {}).update(
+                    predict=kernels[k].get("launches"), trainer=counts[k])
                 if counts[k] <= 0:
                     raise AssertionError(f"kernel {k} was not launched through the trainer")
             if counts["nms"] != n_test_batches:
@@ -1287,10 +1391,350 @@ def phase_trainer(kernels, dev, smi, bare):
             if not (np.isfinite(res["bbox"]["AP"]) and res["bbox"]["AP"] > 50
                     and res["bbox"]["AP50"] > 90):
                 raise AssertionError(f"evaluator: {res['bbox']}")
-    finally:
-        TrainStep.__call__ = real_call
-        trainer_mod.build_detection_train_loader = real_loader
-        trainer_mod.BaseTrainer.resume_or_load = real_resume
+
+
+# ------------------------------------------------------------- RetinaNet
+RETINANET_HW = LOADER_SHAPES[0]          # the loader's landscape bucket, 896 x 1408
+RETINANET_CLS_BIAS = float(np.log(0.05 / 0.95))   # the logit of SCORE_THRESH_TEST
+RETINANET_TRAIN_LR = 2e-4   # the YAML's 0.01 without warm-up gives NaN by step 2
+
+
+def comparable_retinanet(gen, *models):
+    """Make the detections of two roundings of one RetinaNet comparable, as
+    ``one_detection_per_class`` does for FCOS. Random weights give nearly
+    tied scores, whose order two bf16 programs need not share, and RetinaNet
+    cannot be brought to one detection a class (boxes of different anchor
+    shapes or levels overlap by less than 0.5 however they are scaled), so
+    the NMS is given nothing to decide instead:
+    - the bbox_pred filters are 0 and its bias is (0, 0, -12, -12): every
+      box is its anchor shrunk to a point at its centre, an exact function
+      of the anchor, and boxes of different cells never overlap;
+    - the cls_score bias is -30 for every anchor shape but one, so a cell
+      holds one candidate a class and no two boxes of a class overlap: the
+      detections are the 100 best scores;
+    - the filters are one shared random filter plus a per-channel one a
+      fiftieth its size, and class c's bias is -0.25 c, a step far above
+      both that and the bf16 noise: near-tied cells may swap places, with near-equal scores,
+      but which classes fill the 100 slots is fixed up to the one pair at
+      the cut.
+    The NMS kernel's suppression is held against the plain version on the
+    model's natural candidates before this."""
+    head = models[0].head
+    w = head.cls_score.weight
+    shared = torch.randn(w.shape[1:], generator=gen) * 0.01
+    per_channel = torch.randn(w.shape, generator=gen) * 0.0002
+    class_bias = torch.full((head.num_anchors, head.num_classes), -30.0)
+    class_bias[head.num_anchors // 2] = -0.25 * torch.arange(head.num_classes)
+    with torch.no_grad():
+        for m in models:
+            m.head.bbox_pred.weight.zero_()
+            m.head.bbox_pred.bias.copy_(
+                torch.tensor([0.0, 0.0, -12.0, -12.0]).repeat(head.num_anchors))
+            m.head.cls_score.weight.copy_(shared + per_channel)
+            m.head.cls_score.bias.copy_(class_bias.flatten())
+
+
+def match_detections(out, ref, batch):
+    """(matched, same_box, total, score diffs) over ``batch`` images. Each
+    class's detections are paired rank by rank in score; a slot of ``out`` is
+    matched when its partner in ``ref`` exists and scores within SCORE_TOL
+    (near-tied candidates may swap, and then their scores are near-equal
+    too). ``same_box`` counts the slots whose (class, box to 0.01 px) is in
+    ``ref`` as well, as multisets."""
+    from collections import Counter
+
+    matched = same_box = total = 0
+    diffs = []
+    for b in range(batch):
+        by_class, box_sets = [], []
+        for o in (out, ref):
+            v = o["valid"][b].cpu().numpy()
+            cls = o["classes"][b].cpu().numpy()[v].tolist()
+            sc = o["scores"][b].float().cpu().numpy()[v].tolist()
+            bx = np.round(o["boxes"][b].float().cpu().numpy()[v], 2)
+            scores = {}
+            for c, s in zip(cls, sc):
+                scores.setdefault(c, []).append(s)
+            by_class.append({c: sorted(v, reverse=True) for c, v in scores.items()})
+            box_sets.append(Counter((c, tuple(x)) for c, x in zip(cls, bx.tolist())))
+        total += sum(len(v) for v in by_class[0].values())
+        same_box += sum((box_sets[0] & box_sets[1]).values())
+        for c, scores in by_class[0].items():
+            for s, r in zip(scores, by_class[1].get(c, [])):
+                diffs.append(abs(s - r))
+                matched += diffs[-1] <= SCORE_TOL
+    return matched, same_box, total, diffs
+
+
+def phase_retinanet(kernels, dev, smi, models):
+    """RetinaNet R-50-FPN's predict path at 896 x 1408: head outputs against
+    fp32, the NMS kernel on RetinaNet's own candidates, 3 requests of 8
+    images with the launch counts, fused against unfused detections, the
+    share of a call spent in each part, and predict img/s."""
+    from slenderobjdet_torch.ops import _build
+    from slenderobjdet_torch.ops.nms import batched_nms, cuda_batched_nms, launch_nms
+
+    model, plain, ref32 = models
+    reqs = requests(3, 8, seed=13, hw=RETINANET_HW)
+    check_heads("retinanet", ("logits", "deltas"), reqs[0], dev, model, plain, ref32)
+
+    # ---- move the classifier's bias so that the coarsest level's 99.5th
+    # percentile score sits on SCORE_THRESH_TEST: part of its top 1000 then
+    # falls under the threshold and the NMS gets a mask that is not all true
+    with torch.inference_mode():
+        top = model(torch.as_tensor(reqs[0]["image"], device=dev))[0][-1].flatten()
+        shift = RETINANET_CLS_BIAS - float(torch.kthvalue(top, int(0.995 * top.numel())).values)
+        for m in models:
+            classifier(m).bias.add_(shift)
+    del top
+
+    # ---- the NMS kernel on this model's candidates: 5 levels x 1000, thr 0.5,
+    # the validity mask the score threshold gives
+    with torch.inference_mode():
+        images = torch.as_tensor(reqs[0]["image"], device=dev)
+        boxes, scores, classes, valid, _ = model.candidates(*model(images), RETINANET_HW)
+    del images
+    thr, max_out = model.nms_thresh, model.max_dets
+    if tuple(boxes.shape) != (8, 5000, 4) or (thr, max_out) != (0.5, 100):
+        raise AssertionError(f"RetinaNet candidates {tuple(boxes.shape)}, thr {thr}, "
+                             f"max_out {max_out}")
+    share = float(valid.float().mean())
+    got = cuda_batched_nms(boxes, scores, classes, thr, max_out, valid=valid)
+    want = batched_nms(boxes, scores, classes, thr, max_out, valid=valid)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"NMS kernel != plain on RetinaNet's candidates: "
+                             f"{int((got[0] != want[0]).sum())} indices differ")
+    rounds = torch.zeros(8, dtype=torch.int32, device=dev)
+    launch_nms(boxes, scores, classes, valid, thr, max_out, rounds=rounds)
+    kept = got[1].sum(1).tolist()
+    ms = cuda_ms(lambda: launch_nms(boxes, scores, classes, valid, thr, max_out), 50, queued=True)
+    call_ms = cuda_ms(lambda: cuda_batched_nms(boxes, scores, classes, thr, max_out, valid=valid),
+                      50, queued=True)
+    plain_ms = cuda_ms(lambda: batched_nms(boxes, scores, classes, thr, max_out, valid=valid), 3)
+    out = (torch.empty(8, 100, dtype=torch.int32), torch.empty(8, 100, dtype=torch.bool))
+    b_ms, b_by = bound_ms(nbytes(boxes, scores, classes, valid, *out),
+                          sum(kept) * boxes.shape[1] * NMS_OPS_PER_PAIR, PEAK_FP32_FLOPS)
+    log(f"nms retinanet ({smi}): kernel == plain at B=8 N=5000 thr 0.5, {share:.3f} of the "
+        f"candidates valid, kept an image {min(kept)}-{max(kept)} (sum {sum(kept)}), block-wide "
+        f"rounds an image {rounds.tolist()}; kernel alone {ms:.4f} ms, cuda_batched_nms call "
+        f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), "
+        f"{b_ms / ms:.4f} of bound")
+    kernels["nms"]["at_retinanet_B8_N5000_thr0.5"] = {
+        "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "max_abs_err": 0.0, "valid_share": share, "kept": sum(kept)}
+    del boxes, scores, classes, valid, got, want
+
+    # ---- 3 requests of 8 images through predict, launches counted
+    comparable_retinanet(torch.Generator().manual_seed(15), model, plain)
+    per_call = []
+    outs = []
+    for r in reqs:
+        _build.reset_launch_counts()
+        outs.append(model.predict(r))
+        torch.cuda.synchronize()
+        per_call.append({k: v for k, v in _build.launch_counts().items() if v})
+    log(f"retinanet predict launches a call of B=8 at {RETINANET_HW[0]}x{RETINANET_HW[1]}: "
+        f"{per_call}")
+    want_counts = {"nms": 1, "fused_stem": 1, "fused_bottleneck": 13}
+    if any(c != want_counts for c in per_call):
+        raise AssertionError(f"RetinaNet predict launched {per_call}, expected {want_counts}")
+    for k in PREDICT_KERNELS:
+        kernels[k].setdefault("launches_by_path", {})["retinanet_predict"] = sum(
+            c[k] for c in per_call)
+    for out in outs:
+        check_outputs(out, 8)
+    n_valid = sum(int(o["valid"].sum()) for o in outs)
+    log(f"retinanet predict: {n_valid} valid detections over 24 images")
+    if n_valid <= 0:
+        raise AssertionError("no valid detections")
+
+    matched = same_box = total = 0
+    diffs = []
+    for r, out in zip(reqs, outs):
+        ref = plain.predict(r)
+        check_outputs(ref, 8)
+        if not torch.equal(out["valid"].sum(1), ref["valid"].sum(1)):
+            raise AssertionError("valid counts differ between fused and unfused")
+        m, sb, t, d = match_detections(out, ref, 8)
+        matched, same_box, total, diffs = matched + m, same_box + sb, total + t, diffs + d
+    share = matched / max(total, 1)
+    log(f"retinanet fused vs unfused detections: {matched}/{total} slots matched by class "
+        f"with score diff <= {SCORE_TOL} ({same_box} of them with the same box); score diff "
+        f"median {np.median(diffs):.3e}, max {np.max(diffs):.3e}")
+    if share < MATCH_MIN:
+        raise AssertionError(f"retinanet fused vs unfused: {share:.4f} of slots matched")
+    del outs
+
+    # ---- where a predict call goes: backbone + FPN, head, candidates + NMS
+    with torch.inference_mode():
+        images = torch.as_tensor(reqs[0]["image"], device=dev)
+        x = ((images.float() - model.pixel_mean) / model.pixel_std).to(model.dtype)
+        x = x.permute(0, 3, 1, 2)
+        feats = model.backbone(x)
+        feats_l = [feats[f] for f in model.in_features]
+        logits_l, regs_l = model.head(feats_l)
+        scale = torch.ones(8, device=dev)
+        orig = torch.tensor([RETINANET_HW] * 8, dtype=torch.float32, device=dev)
+        parts = {
+            "backbone": cuda_ms(lambda: model.backbone(x), 5),
+            "head": cuda_ms(lambda: model.head(feats_l), 5),
+            "postprocess": cuda_ms(lambda: model.postprocess(logits_l, regs_l, RETINANET_HW,
+                                                             scale, orig), 5),
+        }
+        whole = cuda_ms(lambda: model.predict(reqs[0]), 5)
+    log(f"time retinanet predict parts ({smi}), B=8 {RETINANET_HW[0]}x{RETINANET_HW[1]} fused, "
+        f"device ms: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; whole predict {whole:.3f}; head share of the three parts "
+        f"{parts['head'] / sum(parts.values()):.4f}")
+    del x, feats, feats_l, logits_l, regs_l, images
+    torch.cuda.empty_cache()
+    phase_throughput(model, plain, family="RetinaNet", hw=RETINANET_HW)
+
+
+def phase_retinanet_train(dev, smi):
+    """The RetinaNet train step at full width, entered as a trainer does: 11
+    steps on one batch of 16 images at 896 x 1408 with 100 padded gt, then 4
+    more a model for the rate, flags on and off in turns; WARMUP_ITERS 0 and
+    BASE_LR RETINANET_TRAIN_LR."""
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.solver import build_optimizer
+
+    gen = torch.Generator().manual_seed(17)
+    steps, weights = {}, None
+    for key in ("fused", "unfused"):
+        cfg = train_cfg(key == "fused", yaml=RETINANET_YAML)
+        cfg.defrost()
+        # a test setting, as WARMUP_ITERS 0 is: random weights under frozen
+        # norms drawn away from identity start at a total loss near 13
+        cfg.SOLVER.BASE_LR = RETINANET_TRAIN_LR
+        cfg.freeze()
+        m = build_model(cfg, device=dev, generator=gen)
+        if weights is None:
+            randomize_frozen_bn(m, gen)
+            weights = {k: v.clone() for k, v in m.state_dict().items()}
+        else:
+            m.load_state_dict(weights)
+        steps[key] = make_train_step(m, build_optimizer(cfg, m), cfg)
+    batch_size = train_cfg(True, yaml=RETINANET_YAML).SOLVER.IMS_PER_BATCH
+    batch = train_batch(batch_size, seed=18, hw=RETINANET_HW)
+    rates = {}
+    peaks = train_turns("RetinaNet", steps, batch, ("loss_cls", "loss_box_reg", "num_pos"), rates)
+    log(f"time retinanet train ({smi}): B={batch_size} {RETINANET_HW[0]}x{RETINANET_HW[1]}, "
+        f"100 padded gt: fused {rates['fused']:.2f} img/s, peak {peaks['fused']:.2f} GiB; "
+        f"unfused {rates['unfused']:.2f} img/s, peak {peaks['unfused']:.2f} GiB")
+
+
+def phase_retinanet_trainer(kernels, dev, smi):
+    """``train_net_torch.main`` on the RetinaNet YAML over the synthetic
+    dataset: 4 iterations with a checkpoint at 2 and the evaluation, then
+    ``--resume`` to 8 from exactly the saved state, then ``--eval-only``."""
+    import os
+    import tempfile
+
+    import train_net_torch
+    from slenderobjdet_torch.evaluation.coco_evaluation import STATS_NAMES
+    from slenderobjdet_torch.ops import _build
+
+    name = "chip_smoke_retinanet"
+    step_launches = {"fused_stem": 1, "fused_bottleneck": 13}
+    with watched_trainer() as watch, \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_retinanet_") as tmp:
+        synthetic_dataset(name, tmp, seed=19)
+        n_test = len(synthetic_dataset(name + "_test", tmp, seed=19, repeat=4)["images"])
+        n_test_batches = n_test // 8
+        out = os.path.join(tmp, "output")
+
+        def args(*flags, **kw):
+            return trainer_args(name, out, *flags, yaml=RETINANET_YAML, **kw)
+
+        def check_steps(first, last):
+            if [r["step"] for r in watch.steps] != list(range(first, last)):
+                raise AssertionError(f"steps taken: {[r['step'] for r in watch.steps]}")
+            for r in watch.steps:
+                if r["image"] not in [((16, *hw, 3), "uint8") for hw in LOADER_SHAPES] \
+                        or r["gt"] != (16, 100, 4):
+                    raise AssertionError(f"step {r['step']}: batch {r['image']}, gt {r['gt']}")
+                if r["launches"] != step_launches:
+                    raise AssertionError(f"step {r['step']} launched {r['launches']}")
+            losses = [float(r["loss"]) for r in watch.steps]
+            if not all(np.isfinite(v) for v in losses):
+                raise AssertionError(f"non-finite loss in {losses}")
+            return losses
+
+        # ---- train 4 iterations, checkpoints at 2 and 4, then evaluate
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = train_net_torch.main(args(max_iter=4, checkpoint_period=2))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = check_steps(0, 4)
+        want = {"nms": n_test_batches, "fused_stem": 4 + n_test_batches,
+                "fused_bottleneck": 13 * (4 + n_test_batches)}
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"RetinaNet trainer launched {counts}, expected {want}")
+        for k in PREDICT_KERNELS:
+            kernels[k].setdefault("launches_by_path", {})["retinanet_trainer"] = counts[k]
+        for fname in ("config.yaml", "metrics.json", "model_0000002.pth", "model_0000004.pth",
+                      "last_checkpoint", "coco_instances_results.json"):
+            if not os.path.exists(os.path.join(out, fname)):
+                raise AssertionError(f"the trainer did not write {fname}")
+        with open(os.path.join(out, "metrics.json")) as f:
+            logged = [json.loads(line) for line in f]
+        if [r["iteration"] for r in logged] != [0] or not all(
+                np.isfinite(v) for r in logged for v in r.values()) \
+                or "loss_box_reg" not in logged[0]:
+            raise AssertionError(f"metrics.json: {logged}")
+        timing = results[name + "_test"]["_timing"]
+        log(f"retinanet trainer: 4 steps and {n_test_batches} test batches launched {counts}; "
+            f"every step 1 stem and 13 bottleneck kernels, every test batch 1 NMS; total "
+            f"losses {[round(v, 4) for v in losses]}; peak memory {peak:.2f} GiB; whole main "
+            f"(build, 4 steps, 2 saves, evaluation) {wall:.1f} s")
+        log(f"time retinanet trainer eval ({smi}): {timing['images']} timed images of {n_test}, "
+            f"{timing['s_per_img'] * 1e3:.2f} ms/img, "
+            f"{1 / timing['s_per_img'] if timing['s_per_img'] else float('nan'):.2f} img/s "
+            f"(B=8, both orientations, fetch to the host included, first 5 batches not timed)")
+
+        # ---- resume: the state just after resume_or_load is the saved one
+        saved = torch.load(os.path.join(out, "model_0000004.pth"), map_location="cpu",
+                           weights_only=True)
+        watch.clear()
+        watch.sync_at[0] = 6
+        train_net_torch.main(args("--resume", max_iter=8, checkpoint_period=1000))
+        start_iter, count, state = watch.resumed_states[0]
+        if (start_iter, count) != (4, 4) or not states_equal(state, saved):
+            raise AssertionError(f"resume: start_iter {start_iter}, count {count}, state "
+                                 f"== saved: {states_equal(state, saved)}")
+        resumed = check_steps(4, 8)
+        span = watch.steps[-1]["t1"] - watch.steps[2]["t0"]
+        log(f"retinanet trainer --resume: starts at iteration 4 with the saved state bit for "
+            f"bit ({len(saved['model'])} model tensors, {len(saved['optimizer']['state'])} "
+            f"momentum buffers); losses of steps 4-7 {[round(v, 4) for v in resumed]}; steps "
+            f"6-7 through the trainer {span / 2 * 1e3:.1f} ms/step, {16 * 2 / span:.2f} img/s")
+
+        # ---- evaluate only
+        _build.reset_launch_counts()
+        results = train_net_torch.main(args("--resume", "--eval-only", max_iter=8))
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        res = results[name + "_test"]
+        missing = [k for k in STATS_NAMES if k not in res["bbox"]]
+        if missing or "AR@100" not in res["ar"]:
+            raise AssertionError(f"--eval-only: bbox lacks {missing}; ar {sorted(res['ar'])}")
+        want = {"nms": n_test_batches, "fused_stem": n_test_batches,
+                "fused_bottleneck": 13 * n_test_batches}
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"--eval-only launched {counts}, expected {want}")
+        timing = res["_timing"]
+        log(f"retinanet trainer --eval-only ({smi}): bbox has all {len(STATS_NAMES)} names, ar "
+            f"has {len(res['ar'])} keys; launches {want}; "
+            f"{1 / timing['s_per_img'] if timing['s_per_img'] else float('nan'):.2f} img/s over "
+            f"{timing['images']} timed images")
 
 
 def main() -> int:
@@ -1333,8 +1777,11 @@ def main() -> int:
                      "replaces": "tools/pallas_bw_probe.py:37"},
     }
     failed = []
+    only = tuple(sys.argv[1:])      # name prefixes: a partial run, for development
 
     def run(name, fn, *args):
+        if only and not name.startswith(only):
+            return False
         t = time.perf_counter()
         try:
             fn(*args)
@@ -1364,9 +1811,22 @@ def main() -> int:
     run("train", phase_train, dev, bare)
     torch.cuda.empty_cache()
     run("trainer", phase_trainer, kernels, dev, smi, bare)
+    torch.cuda.empty_cache()
+    if run("retinanet_build", lambda: models.extend(
+            build_models(dev, RETINANET_YAML, RETINANET_CLS_BIAS))):
+        run("retinanet", phase_retinanet, kernels, dev, smi, models)
+    models.clear()
+    torch.cuda.empty_cache()
+    run("retinanet_train", phase_retinanet_train, dev, smi)
+    torch.cuda.empty_cache()
+    run("retinanet_trainer", phase_retinanet_trainer, kernels, dev, smi)
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
+    if only:
+        log(f"partial run of the phases named {only}*: no result line")
+        print(smi)
+        return 3
     log_bounds(kernels)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

@@ -1,8 +1,10 @@
 """Carry weights from the JAX package's Flax variables to the port.
 
 ``flax_to_state_dict`` renames and re-lays out the nested
-``{"params": ..., "buffers": ...}`` tree of ``FCOS.init_variables`` (numpy or
-array leaves) into a torch ``state_dict``:
+``{"params": ..., "buffers": ...}`` tree of a detector's ``init_variables``
+(numpy or array leaves; FCOS with or without ``head/centerness``, RetinaNet
+with ``head/cls_subnet{i}``, ``head/bbox_subnet{i}``, ``head/cls_score`` and
+the FPN's ``top_p6`` / ``top_p7`` on ``res5``) into a torch ``state_dict``:
 
 - conv kernels HWIO -> OIHW (``transpose(3, 2, 0, 1)``), ``kernel`` ->
   ``weight``;
@@ -11,7 +13,8 @@ array leaves) into a torch ``state_dict``:
   norm module: the ResNet's own (the stem's) ``stem_norm``; in a residual
   block ``norm1``, ``norm2``, ``norm3`` (bottleneck blocks only) and
   ``shortcut_norm`` in the order Flax numbered them;
-- ``head/scale{i}/scale`` -> a scalar parameter.
+- ``head/scale{i}/scale`` -> a scalar parameter;
+- every other ``kernel`` / ``bias`` keeps its path, ``kernel`` as ``weight``.
 
 It raises on any leaf it cannot place. ``load_flax_variables`` also checks
 that every port tensor is filled, with matching shapes.

@@ -20,8 +20,10 @@ from ..solver.build import clip_gradients, lr_schedule
 
 
 class TrainStep:
-    """``step(batch)`` -> metrics (``total_loss``, ``cls_loss``,
-    ``reg_loss``, ``centerness_loss``, ``num_pos``), detached tensors.
+    """``step(batch)`` -> metrics, detached tensors: ``total_loss`` and
+    whatever the model's ``loss`` reports (FCOS: ``cls_loss``, ``reg_loss``,
+    ``centerness_loss``, ``num_pos``; RetinaNet: ``loss_cls``,
+    ``loss_box_reg``, ``num_pos``).
     ``count`` is the number of updates made so far; it starts at 0, so the
     first update uses ``schedule(0)`` as optax does."""
 

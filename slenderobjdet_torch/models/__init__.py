@@ -6,16 +6,49 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch import nn
 
 from .meta_arch.fcos import FCOS
+from .meta_arch.hybrids import FCOSNCRetinaNet, FCOSRetinaNet, PointRetinaNet
+from .meta_arch.retinanet import (CenternessRetinaNet, DeformableConvRetinaNet,
+                                  NearestRetinaNet, RetinaNet)
 
-# FCOSV2 is the reference's refactor of FCOS with the same topk-then-NMS
-# inference, so the two names share one class, as in the JAX package.
-META_ARCHS = {"FCOS": FCOS, "FCOSV2": FCOS}
+
+def _fcos_with_anchor(cfg) -> FCOS:
+    """Diagnosis variant: each detection carries its source location as an
+    (x, y, x, y) box under ``"anchors"``."""
+    return FCOS(cfg, with_anchor=True)
+
+
+def _retinanet_with_anchor(cfg) -> RetinaNet:
+    """Diagnosis variant: each detection carries its anchor through top-k and
+    NMS into the outputs."""
+    return RetinaNet(cfg, with_anchor=True)
+
+
+# name -> constructor taking cfg. FCOSV2 is the reference's refactor of FCOS
+# with the same topk-then-NMS inference and GroupNet's head is FCOS's line for
+# line, so the three names share one class, as in the JAX package.
+# DeformableConvRetinaNet is registered so that its config names what is
+# missing: its constructor raises NotImplementedError.
+META_ARCHS = {
+    "FCOS": FCOS,
+    "FCOSV2": FCOS,
+    "GroupNet": FCOS,
+    "FCOSWithAnchor": _fcos_with_anchor,
+    "FCOSRetinaNet": FCOSRetinaNet,
+    "FCOSNCRetinaNet": FCOSNCRetinaNet,
+    "RetinaNet": RetinaNet,
+    "RetinaNetWithAnchor": _retinanet_with_anchor,
+    "CenternessRetinaNet": CenternessRetinaNet,
+    "NearestRetinaNet": NearestRetinaNet,
+    "PointRetinaNet": PointRetinaNet,
+    "DeformableConvRetinaNet": DeformableConvRetinaNet,
+}
 
 
 def build_model(cfg, device=None,
-                generator: Optional[torch.Generator] = None) -> FCOS:
+                generator: Optional[torch.Generator] = None) -> nn.Module:
     """Build the detector named by cfg.MODEL.META_ARCHITECTURE on ``device``
     with weights drawn from ``generator`` (a CPU ``torch.Generator``; seed 0
     when None). ``device`` None means the card: it raises a RuntimeError

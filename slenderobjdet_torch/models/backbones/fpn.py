@@ -54,6 +54,10 @@ class FPN(nn.Module):
             self.top_p7 = Conv2d(out_channels, out_channels, 3, 2, 1)
         elif top_block not in ("", "maxpool"):
             raise ValueError(f"unknown FPN top block {top_block!r}")
+        # stride of every output: p{k} is at 2^k
+        extra = {"": 0, "maxpool": 1}.get(top_block, 2)
+        self.strides = {f"p{k}": 2 ** k for k in range(
+            self.start_stage, self.start_stage + len(in_channels) + extra)}
 
     def _conv(self, name, x):
         x = getattr(self, name)(x)

@@ -139,6 +139,7 @@ class ResNet(nn.Module):
         block_type, stage_blocks = RESNET_SPECS[depth]
         self.norm = norm
         self.out_features = tuple(out_features)
+        self.strides = {f: RESNET_STRIDES[f] for f in self.out_features}
         self.fused_stem = fused_stem
         self.stem_conv1 = Conv2d(3, stem_out_channels, 7, 2, 3, bias=False)
         self.stem_norm = get_norm(norm, stem_out_channels)

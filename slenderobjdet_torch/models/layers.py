@@ -6,6 +6,7 @@ parameters are float32 and the compute dtype is the input's dtype.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -75,3 +76,38 @@ def get_norm(norm: str, features: int) -> Optional[nn.Module]:
         raise NotImplementedError(
             f"norm {norm!r} (trainable BatchNorm) is not ported yet")
     raise ValueError(f"Unknown norm {norm!r}")
+
+
+@torch.no_grad()
+def init_detector_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw every parameter of a detector from ``generator`` (a CPU generator)
+    as the JAX package initialises them: backbone and FPN convs lecun-normal
+    (untruncated here), convs under ``head.`` normal(0, 0.01), conv biases 0,
+    norms and scales at identity. Modules are visited in ``named_modules``
+    order, which fixes the order of the draws; the caller sets the
+    classification bias to its focal prior afterwards."""
+    def normal(t, std):
+        t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+    for name, m in model.named_modules():
+        if isinstance(m, nn.Conv2d):
+            if name.startswith("head."):
+                std = 0.01
+            else:
+                std = 1.0 / math.sqrt(m.weight[0].numel())
+            normal(m.weight, std)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, FrozenBatchNorm):
+            m.scale.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, nn.GroupNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, Scale):
+            m.scale.fill_(1.0)
+
+
+def prior_bias(prior_prob: float) -> float:
+    """The classification bias at which sigmoid gives ``prior_prob``."""
+    return -math.log((1 - prior_prob) / prior_prob)

@@ -1,7 +1,9 @@
 """FCOS (counterpart of ``slenderobjdet_tpu/models/meta_arch/fcos.py``:
 ``FCOSHead``, ``FCOSModule``, ``fcos_assign_single`` batched as
 ``fcos_assign``, ``compute_centerness_targets``, ``FCOS.loss``,
-``FCOS.predict`` and ``_fcos_level_candidates``).
+``FCOS.predict`` and ``_fcos_level_candidates``; ``use_centerness=False`` is
+the no-centerness ablation ``FCOSNCRetinaNet`` and ``with_anchor`` the
+diagnosis variant ``FCOSWithAnchor``).
 
 Training is fixed-shape as in the JAX package: padded gt boxes with a
 validity mask, every location assigned to the smallest-area gt box that
@@ -18,7 +20,6 @@ tensors the NMS always runs the hand-written kernel
 
 from __future__ import annotations
 
-import math
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -32,18 +33,21 @@ from ...ops.topk import pair_top_k
 from ...structures import boxes as box_ops
 from ..anchors import fcos_locations
 from ..backbones.fpn import build_backbone
-from ..layers import Conv2d, FrozenBatchNorm, GroupNorm32, Scale
+from ..layers import (Conv2d, GroupNorm32, Scale, init_detector_weights,
+                      prior_bias)
 
 
 class FCOSHead(nn.Module):
     """Shared 4-conv GroupNorm cls/bbox towers, per-level ``Scale`` on the
-    bbox prediction, exp() decoding (the NORM_REG_TARGETS=False path)."""
+    bbox prediction, exp() decoding (the NORM_REG_TARGETS=False path).
+    ``with_ctr=False`` leaves the centerness conv out."""
 
     def __init__(self, in_channels: int, num_classes: int, num_levels: int,
                  num_convs: int = 4, prior_prob: float = 0.01,
                  centerness_on_reg: bool = False,
                  norm_reg_targets: bool = False,
-                 strides: Sequence[int] = (8, 16, 32, 64, 128)):
+                 strides: Sequence[int] = (8, 16, 32, 64, 128),
+                 with_ctr: bool = True):
         super().__init__()
         c = in_channels
         self.num_classes = num_classes
@@ -52,13 +56,15 @@ class FCOSHead(nn.Module):
         self.centerness_on_reg = centerness_on_reg
         self.norm_reg_targets = norm_reg_targets
         self.strides = tuple(strides)
+        self.with_ctr = with_ctr
         for prefix in ("cls", "bbox"):
             for i in range(num_convs):
                 self.add_module(f"{prefix}_tower{i}", Conv2d(c, c, 3, padding=1))
                 self.add_module(f"{prefix}_tower_gn{i}", GroupNorm32(c))
         self.cls_logits = Conv2d(c, num_classes, 3, padding=1)
         self.bbox_pred = Conv2d(c, 4, 3, padding=1)
-        self.centerness = Conv2d(c, 1, 3, padding=1)
+        if with_ctr:
+            self.centerness = Conv2d(c, 1, 3, padding=1)
         for i in range(num_levels):
             self.add_module(f"scale{i}", Scale())
 
@@ -71,7 +77,8 @@ class FCOSHead(nn.Module):
     def forward(self, feats: List[torch.Tensor], train: bool = False):
         """feats: list of (B, C, H_l, W_l). Returns per-level lists of
         (B, H*W, num_classes) logits, (B, H*W, 4) reg and (B, H*W)
-        centerness, float32, in row-major (h, w) order. With NORM_REG_TARGETS
+        centerness (None in place of the list without the centerness conv),
+        float32, in row-major (h, w) order. With NORM_REG_TARGETS
         the regression is in stride units when ``train`` (the loss divides
         its targets by the stride) and in pixels otherwise."""
         logits_all, reg_all, ctr_all = [], [], []
@@ -92,11 +99,12 @@ class FCOSHead(nn.Module):
             def flat(t):
                 return t.permute(0, 2, 3, 1).reshape(b, h * w, t.shape[1])
 
-            ctr = self.centerness(bt if self.centerness_on_reg else ct)
             logits_all.append(flat(logits))
             reg_all.append(flat(reg))
-            ctr_all.append(flat(ctr.float())[..., 0])
-        return logits_all, reg_all, ctr_all
+            if self.with_ctr:
+                ctr = self.centerness(bt if self.centerness_on_reg else ct)
+                ctr_all.append(flat(ctr.float())[..., 0])
+        return logits_all, reg_all, (ctr_all if self.with_ctr else None)
 
 
 INF = 1e8
@@ -190,20 +198,25 @@ def _fcos_level_candidates(logits, reg, ctr, locations, pre_nms_thresh,
                            pre_nms_top_n):
     """Fixed-shape per-level candidate selection.
 
-    logits (B, L, C); reg (B, L, 4); ctr (B, L); locations (L, 2).
-    Returns boxes (B, K, 4), scores (B, K), classes (B, K) int32 and valid
-    (B, K) bool, with K = min(pre_nms_top_n, L*C)."""
+    logits (B, L, C); reg (B, L, 4); ctr (B, L) or None (ranking by the raw
+    class score); locations (L, 2). Returns boxes (B, K, 4), scores (B, K),
+    classes (B, K) int32, valid (B, K) bool and each candidate's source
+    location (B, K, 2), with K = min(pre_nms_top_n, L*C)."""
     scores = torch.sigmoid(logits.float())                        # (B, L, C)
     candidate = scores > pre_nms_thresh
-    ranked = scores * torch.sigmoid(ctr.float())[:, :, None]  # cls * ctr
+    if ctr is not None:
+        ranked = scores * torch.sigmoid(ctr.float())[:, :, None]  # cls * ctr
+    else:
+        ranked = scores
     rank = torch.where(candidate, ranked, 0.0)
 
     top_scores, loc_idx, cls_idx = pair_top_k(rank, pre_nms_top_n)
     valid = top_scores > 0.0
 
     sel_reg = torch.gather(reg, 1, loc_idx[..., None].expand(-1, -1, 4))
-    boxes = box_ops.decode_ltrb(locations[loc_idx], sel_reg)
-    return boxes, torch.sqrt(top_scores), cls_idx, valid
+    sel_loc = locations[loc_idx]                                  # (B, K, 2)
+    boxes = box_ops.decode_ltrb(sel_loc, sel_reg)
+    return boxes, torch.sqrt(top_scores), cls_idx, valid, sel_loc
 
 
 class FCOS(FCOSModule):
@@ -215,10 +228,13 @@ class FCOS(FCOSModule):
     topk_per_gt = None
     mask_center_sampling = False
 
-    def __init__(self, cfg, use_centerness: bool = True):
-        if not use_centerness:
-            raise NotImplementedError(
-                "use_centerness=False (FCOSNCRetinaNet) is not ported")
+    def __init__(self, cfg, use_centerness: bool = True,
+                 with_anchor: bool = False):
+        """``use_centerness=False``: no centerness branch, the regression loss
+        normalised by ``num_pos`` instead of the centerness sum, inference
+        ranked by the raw class score. ``with_anchor``: ``predict`` also
+        returns each detection's source location as a degenerate (x, y, x, y)
+        box under ``"anchors"``."""
         f = cfg.MODEL.FCOS
         unported = {
             "MODEL.FCOS.USE_DCN_IN_TOWER": f.USE_DCN_IN_TOWER,
@@ -240,9 +256,12 @@ class FCOS(FCOSModule):
             centerness_on_reg=f.CENTERNESS_ON_REG,
             norm_reg_targets=f.NORM_REG_TARGETS,
             strides=tuple(f.FPN_STRIDES),
+            with_ctr=use_centerness,
         )
         super().__init__(backbone, head, f.IN_FEATURES, cfg.MODEL.PIXEL_MEAN,
                          cfg.MODEL.PIXEL_STD, dtype)
+        self.use_centerness = use_centerness
+        self.with_anchor = with_anchor
         self.strides = list(f.FPN_STRIDES)
         self.num_classes = f.NUM_CLASSES
         self.focal_alpha = f.FOCAL_LOSS_ALPHA
@@ -257,40 +276,17 @@ class FCOS(FCOSModule):
     # ------------------------------------------------------------ weights
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """Draw every parameter from ``generator`` (a CPU generator) as the
-        JAX package initialises them: backbone and FPN convs lecun-normal
-        (untruncated here), head convs normal(0, 0.01), the cls bias at the
-        focal prior, norms and scales at identity."""
-        def normal(t, std):
-            t.copy_(torch.randn(t.shape, generator=generator) * std)
-
-        for name, m in self.named_modules():
-            if isinstance(m, nn.Conv2d):
-                if name.startswith("head."):
-                    std = 0.01
-                else:
-                    std = 1.0 / math.sqrt(m.weight[0].numel())
-                normal(m.weight, std)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, FrozenBatchNorm):
-                m.scale.fill_(1.0)
-                m.bias.zero_()
-            elif isinstance(m, nn.GroupNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-            elif isinstance(m, Scale):
-                m.scale.fill_(1.0)
-        p = self.head.prior_prob
-        self.head.cls_logits.bias.fill_(-math.log((1 - p) / p))
+        """``init_detector_weights`` and the cls bias at the focal prior."""
+        init_detector_weights(self, generator)
+        self.head.cls_logits.bias.fill_(prior_bias(self.head.prior_prob))
 
     # --------------------------------------------------------------- loss
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {"image": uint8 (B, H, W, 3), "gt_boxes": (B, G, 4) XYXY,
         "gt_classes": (B, G) int, "gt_valid": (B, G) bool} as numpy arrays
         or tensors. Returns the total loss and {"cls_loss", "reg_loss",
-        "centerness_loss", "num_pos"}; every normaliser is a sum over the
-        whole batch."""
+        "centerness_loss" (with the centerness branch), "num_pos"}; every
+        normaliser is a sum over the whole batch."""
         if self.topk_per_gt or self.mask_center_sampling:
             raise NotImplementedError(
                 "topk_per_gt / mask_center_sampling are not ported")
@@ -304,7 +300,7 @@ class FCOS(FCOSModule):
         logits_l, reg_l, ctr_l = self(images, train=True)
         logits = torch.cat(logits_l, dim=1)          # (B, L, C)
         reg = torch.cat(reg_l, dim=1)                # (B, L, 4)
-        ctr = torch.cat(ctr_l, dim=1)                # (B, L)
+        ctr = None if ctr_l is None else torch.cat(ctr_l, dim=1)   # (B, L)
 
         labels, reg_targets, _ = fcos_assign(
             locations, soi,
@@ -336,6 +332,12 @@ class FCOS(FCOSModule):
         ctr_targets = torch.where(pos, ctr_targets, 0.0)
 
         reg_losses = iou_loss_ltrb(reg, safe_targets, self.iou_loss_type)
+        if not self.use_centerness:
+            # unweighted IoU loss over num_pos
+            reg_loss = torch.where(pos, reg_losses, 0.0).sum() / num_pos
+            return cls_loss + reg_loss, {"cls_loss": cls_loss,
+                                         "reg_loss": reg_loss,
+                                         "num_pos": num_pos}
         sum_ctr = torch.clamp(torch.where(pos, ctr_targets, 0.0).sum(),
                               min=1e-6)
         reg_loss = torch.where(pos, reg_losses * ctr_targets,
@@ -352,7 +354,8 @@ class FCOS(FCOSModule):
         """batch: {"image": uint8 (B, H, W, 3), "scale": (B,),
         "orig_size": (B, 2)} as numpy arrays or tensors. Returns fixed-shape
         detections in original image coordinates: boxes (B, D, 4), scores
-        (B, D), classes (B, D) int32, valid (B, D) bool."""
+        (B, D), classes (B, D) int32, valid (B, D) bool and, ``with_anchor``,
+        anchors (B, D, 4)."""
         dev = self.pixel_mean.device
         images = torch.as_tensor(batch["image"], device=dev)
         logits_l, reg_l, ctr_l = self(images)
@@ -372,10 +375,11 @@ class FCOS(FCOSModule):
             locs = torch.as_tensor(
                 locations_np[offsets[lvl]: offsets[lvl + 1]], device=dev)
             cands.append(_fcos_level_candidates(
-                logits_l[lvl], reg_l[lvl], ctr_l[lvl], locs,
+                logits_l[lvl], reg_l[lvl],
+                None if ctr_l is None else ctr_l[lvl], locs,
                 self.pre_nms_thresh, self.pre_nms_top_n))
-        boxes, scores, classes, valid = (torch.cat(t, dim=1)
-                                         for t in zip(*cands))
+        boxes, scores, classes, valid, locs = (torch.cat(t, dim=1)
+                                               for t in zip(*cands))
 
         keep_idx, keep_valid = cuda_batched_nms(
             boxes, scores, classes, self.nms_thresh, self.max_dets,
@@ -385,9 +389,13 @@ class FCOS(FCOSModule):
         orig = orig_size.float()
         kb = torch.gather(boxes, 1, keep[..., None].expand(-1, -1, 4)) / scale
         kb = box_ops.clip(kb, orig[:, 0:1], orig[:, 1:2])
-        return {
+        out = {
             "boxes": kb,
             "scores": torch.gather(scores, 1, keep),
             "classes": torch.gather(classes, 1, keep),
             "valid": keep_valid,
         }
+        if self.with_anchor:
+            pts = torch.gather(locs, 1, keep[..., None].expand(-1, -1, 2)) / scale
+            out["anchors"] = torch.cat([pts, pts], dim=-1)
+        return out

@@ -16,9 +16,10 @@
 SGD folds the weight decay into the gradient before the momentum, as the
 optax chain does, and so does torch's ``SGD(weight_decay=...)``; ADAM and
 ADAMW are torch's ``Adam`` and ``AdamW``, the same updates as optax's chains
-up to float rounding. ADAGRAD raises: optax's ``scale_by_rss`` starts its
-accumulator at 0.1 and takes ``rsqrt(sum + 1e-7)``, torch's ``Adagrad``
-divides by ``sqrt(sum) + eps``.
+up to float rounding. ADAGRAD is ``Adagrad`` below, optax's chain written
+out, since torch's ``Adagrad`` starts its accumulator at 0 and divides by
+``sqrt(sum) + eps`` where optax's ``scale_by_rss`` starts at 0.1 and takes
+``rsqrt(sum + 1e-7)``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,43 @@ import torch
 from torch import nn
 
 from ..models.layers import Scale
+
+
+class Adagrad(torch.optim.Optimizer):
+    """optax's ``add_decayed_weights`` -> ``scale_by_rss(0.1, 1e-7)`` ->
+    ``scale_by_learning_rate``: the group's weight decay is added to the
+    gradient, the sum of squares starts at ``initial_accumulator_value``, and
+    the update is ``-lr * g * rsqrt(sum + eps)`` (0 where the sum is 0). The
+    caller sets each group's ``lr`` before a step, as for every optimizer
+    here; the state, one ``sum`` a parameter, goes through ``state_dict``."""
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0,
+                 initial_accumulator_value: float = 0.1, eps: float = 1e-7):
+        super().__init__(params, dict(
+            lr=lr, weight_decay=weight_decay, eps=eps,
+            initial_accumulator_value=initial_accumulator_value))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if group["weight_decay"]:
+                    g = g.add(p, alpha=group["weight_decay"])
+                state = self.state[p]
+                if not state:
+                    state["sum"] = torch.full_like(
+                        p, group["initial_accumulator_value"])
+                acc = state["sum"].addcmul_(g, g)
+                scale = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]), 0.0)
+                p.add_(g * scale, alpha=-group["lr"])
+        return loss
 
 
 def lr_schedule(cfg) -> Callable[[int], float]:
@@ -103,10 +141,7 @@ def build_optimizer(cfg, model: nn.Module) -> torch.optim.Optimizer:
     if optim == "ADAMW":
         return torch.optim.AdamW(groups, lr=s.BASE_LR)
     if optim == "ADAGRAD":
-        raise NotImplementedError(
-            "SOLVER.OPTIM ADAGRAD is not ported: torch's Adagrad cannot "
-            "reproduce optax's scale_by_rss (initial accumulator 0.1, "
-            "rsqrt(sum + 1e-7))")
+        return Adagrad(groups, lr=s.BASE_LR)
     raise ValueError(f"Unknown SOLVER.OPTIM {s.OPTIM!r}")
 
 

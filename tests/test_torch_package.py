@@ -20,11 +20,12 @@ from slenderobjdet_tpu.config import get_cfg as jax_get_cfg
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = ROOT / "configs/fcos/fcos_R_50_FPN_1x.yaml"
+RETINA_CONFIG = ROOT / "configs/retina/retinanet_R_50_FPN_1x.yaml"
 
 
 def test_port_imports_no_jax():
     """Importing the port (its train step and probe tools included) and
-    building the flagship model leaves jax, flax and the JAX package out of
+    building the flagship model and RetinaNet leaves jax, flax and the JAX package out of
     sys.modules (a fresh interpreter)."""
     code = f"""
 import sys
@@ -36,11 +37,15 @@ from slenderobjdet_torch.checkpoint import bridge
 from slenderobjdet_torch.engine import make_train_step
 from slenderobjdet_torch.solver import build_optimizer
 from slenderobjdet_torch.tools import bw_probe, dma_streams_probe, fused_kernel_probe
-cfg = get_cfg()
-cfg.merge_from_file({str(CONFIG)!r})
-cfg.MODEL.RESNETS.DEPTH = 18
-model = build_model(cfg, device="cpu")
-make_train_step(model, build_optimizer(cfg, model), cfg)
+from slenderobjdet_torch.models import anchors, matchers
+from slenderobjdet_torch.models.meta_arch import hybrids, reppoints, retinanet
+for config in ({str(CONFIG)!r}, {str(RETINA_CONFIG)!r}):
+    cfg = get_cfg()
+    cfg.merge_from_file(config)
+    cfg.MODEL.RESNETS.DEPTH = 18
+    model = build_model(cfg, device="cpu")
+    make_train_step(model, build_optimizer(cfg, model), cfg)
+assert type(model).__name__ == "RetinaNet"
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'slenderobjdet_tpu')]
 print(bad)
@@ -80,8 +85,8 @@ def test_unported_options_raise(key, value):
 
 
 def test_unknown_meta_architecture_lists_available():
-    cfg = _flagship(**{"MODEL.META_ARCHITECTURE": "RetinaNet"})
-    with pytest.raises(KeyError, match="FCOSV2"):
+    cfg = _flagship(**{"MODEL.META_ARCHITECTURE": "RepPointsDetector"})
+    with pytest.raises(KeyError, match="FCOSV2.*RetinaNet"):
         build_model(cfg, device="cpu")
 
 

@@ -330,11 +330,16 @@ def test_param_groups_and_freeze_mask_match_jax():
      "SOLVER.CLIP_GRADIENTS.CLIP_TYPE": "value", "SOLVER.CLIP_GRADIENTS.CLIP_VALUE": 0.01},
     {"SOLVER.CLIP_GRADIENTS.ENABLED": True, "SOLVER.CLIP_GRADIENTS.CLIP_TYPE": "norm",
      "SOLVER.CLIP_GRADIENTS.CLIP_VALUE": 0.5, "SOLVER.BIAS_LR_FACTOR": 2.0},
+    {"SOLVER.OPTIM": "ADAGRAD", "SOLVER.BIAS_LR_FACTOR": 2.0, "SOLVER.WEIGHT_DECAY": 0.01,
+     "SOLVER.WEIGHT_DECAY_BIAS": 0.01},
+    {"SOLVER.OPTIM": "ADAGRAD", "SOLVER.WEIGHT_DECAY": 0.0, "SOLVER.WEIGHT_DECAY_NORM": 0.0,
+     "SOLVER.WEIGHT_DECAY_BIAS": 0.0},
 ])
 def test_two_optimizer_steps_match_optax(overrides):
     """Two updates from the same random gradients on a small FCOS head, for
     the options the flagship leaves at default: ADAM, ADAMW, Nesterov,
-    clipping by value and by global norm, the bias LR factor."""
+    clipping by value and by global norm, the bias LR factor, and ADAGRAD
+    (optax's scale_by_rss) with and without weight decay."""
     over = {"SOLVER.WARMUP_ITERS": 0, "SOLVER.BASE_LR": 0.1, **overrides}
     jcfg, cfg = jax_cfg(**over), port_cfg(**over)
     head = tfcos.FCOSHead(32, num_classes=3, num_levels=2, num_convs=1)
@@ -373,11 +378,15 @@ def test_two_optimizer_steps_match_optax(overrides):
 
 
 def test_adagrad_and_unported_variants_raise():
+    """ADAGRAD and ``use_centerness=False`` are ported and build; an unknown
+    optimizer and the variants that are still missing raise."""
     model = torch_build_model(port_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ADAGRAD"):
-        tsolver.build_optimizer(port_cfg(**{"SOLVER.OPTIM": "ADAGRAD"}), model)
-    with pytest.raises(NotImplementedError, match="use_centerness"):
-        tfcos.FCOS(port_cfg(), use_centerness=False)
+    opt = tsolver.build_optimizer(port_cfg(**{"SOLVER.OPTIM": "ADAGRAD"}), model)
+    assert isinstance(opt, tsolver.Adagrad)
+    assert {g["label"] for g in opt.param_groups} == {"regular", "norm", "bias"}
+    with pytest.raises(ValueError, match="LAMB"):
+        tsolver.build_optimizer(port_cfg(**{"SOLVER.OPTIM": "LAMB"}), model)
+    assert not hasattr(tfcos.FCOS(port_cfg(), use_centerness=False).head, "centerness")
     model.topk_per_gt = 5
     with pytest.raises(NotImplementedError):
         model.loss(dryrun_batch())
