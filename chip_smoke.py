@@ -4,6 +4,7 @@
     python3 chip_smoke.py        # from the repository root; needs one card
     python3 chip_smoke.py retinanet nms   # only the phases whose names start
                                  # so; prints no result line and exits 3
+    python3 chip_smoke.py rcnn   # the Faster R-CNN phases
 
 Builds the port's CUDA kernels from ``slenderobjdet_torch/ops/csrc`` (at
 first use, into ``build/torch_kernels/``), then, each phase failing the run
@@ -105,6 +106,25 @@ if it fails:
    (16, 1408, 896, 3) batches with 100 padded gt and every test batch 1
    NMS; ``--resume`` to iteration 8 from exactly the saved state;
    ``--eval-only`` with every name of ``STATS_NAMES``; eval img/s.
+12. Faster R-CNN R-50-FPN (configs/faster/faster_rcnn_R_50_FPN_1x.yaml,
+   nothing cut, bf16, flags on and off, seeded weights shaped by
+   ``randomize_rcnn``) at 896x1408: RPN outputs and ROI features against
+   fp32; the NMS kernel against ``batched_nms`` on the model's own
+   candidates, identical, at the RPN's predict shape (B=8, 4,924 -> 1,000),
+   its train shape (B=16, 8,924 -> 1,000; rows of one level) and the box
+   head's (B=8, 1,000 in 80 classes -> 100), each timed with its rounds and
+   bound; 3 requests of 8 images with exactly 1 stem, 13 bottleneck and 2
+   NMS launches each; fused against unfused detections on shared proposals
+   (``comparable_rcnn``, ``match_on_shared_proposals``: >= 0.99 of the
+   slots matched or swapped at the cut with their unfused candidate); device
+   ms of each part; predict img/s at B=8 and 32.
+13. The Faster R-CNN train step: 11 steps at B=16 with 100 padded gt,
+   BASE_LR RCNN_TRAIN_LR, each launching exactly 1 stem, 13 bottleneck and
+   1 NMS (flags off: the NMS), finite losses ending below step 0's, img/s
+   and peak memory flags on and off; the pooler's forward and backward ms.
+14. ``train_net_torch.main`` on the Faster R-CNN YAML (``family_trainer``):
+   every step 1 stem, 13 bottleneck and 1 NMS, every test batch 2 NMS;
+   ``--resume`` bit-equal; ``--eval-only``.
 
 Every kernel's time stands beside its bound, the least time the card could
 take: the larger of its bytes (inputs read once, outputs written once) over
@@ -984,12 +1004,14 @@ def phase_train(dev, bare):
                 bare)
 
 
-def train_turns(family, steps, batch, part_keys, rates):
+def train_turns(family, steps, batch, part_keys, rates, launches=None):
     """``steps["fused"]`` and ``steps["unfused"]`` (train steps of two models
     from the same weights) on one batch, in turns: each one's first turn is
     the TRAIN_STEPS + 1 steps whose loss must fall and stay finite, its second
-    4 more. The fused steps must launch both fused kernels. Leaves each
-    model's last img/s in ``rates`` and returns {key: peak GiB}."""
+    4 more. The fused steps must launch both fused kernels; ``launches``, if
+    given, is {key: the kernels a step of that model launches, exactly}.
+    Leaves each model's last img/s in ``rates`` and returns {key: peak
+    GiB}."""
     from slenderobjdet_torch.ops import _build
 
     batch_size = batch["image"].shape[0]
@@ -1022,6 +1044,11 @@ def train_turns(family, steps, batch, part_keys, rates):
         rates[key] = batch_size / float(np.mean(steady))
         if key == "fused" and not (counts["fused_stem"] > 0 and counts["fused_bottleneck"] > 0):
             raise AssertionError(f"fused train steps launched {counts}")
+        if launches is not None:
+            want = {k: v * len(times) for k, v in launches[key].items()}
+            if {k: v for k, v in counts.items() if v} != want:
+                raise AssertionError(f"train {family} {key}: {len(times)} steps launched "
+                                     f"{counts}, expected {want}")
         if first and not totals[-1] < totals[0]:
             raise AssertionError(f"train {family} {key}: total {totals[-1]} after "
                                  f"{TRAIN_STEPS} steps is not below step 0's {totals[0]}")
@@ -1627,9 +1654,17 @@ def phase_retinanet_train(dev, smi):
 
 
 def phase_retinanet_trainer(kernels, dev, smi):
-    """``train_net_torch.main`` on the RetinaNet YAML over the synthetic
-    dataset: 4 iterations with a checkpoint at 2 and the evaluation, then
-    ``--resume`` to 8 from exactly the saved state, then ``--eval-only``."""
+    """``train_net_torch.main`` on the RetinaNet YAML (``family_trainer``)."""
+    family_trainer(kernels, smi, "retinanet", RETINANET_YAML, 19,
+                   {"fused_stem": 1, "fused_bottleneck": 13}, predict_nms=1)
+
+
+def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms):
+    """``train_net_torch.main`` on ``yaml`` over the synthetic dataset: 4
+    iterations with a checkpoint at 2 and the evaluation, then ``--resume``
+    to 8 from exactly the saved state, then ``--eval-only``. Every step must
+    launch ``step_launches`` and every test batch 1 stem, 13 bottleneck and
+    ``predict_nms`` NMS kernels."""
     import os
     import tempfile
 
@@ -1637,17 +1672,16 @@ def phase_retinanet_trainer(kernels, dev, smi):
     from slenderobjdet_torch.evaluation.coco_evaluation import STATS_NAMES
     from slenderobjdet_torch.ops import _build
 
-    name = "chip_smoke_retinanet"
-    step_launches = {"fused_stem": 1, "fused_bottleneck": 13}
+    name = f"chip_smoke_{family}"
     with watched_trainer() as watch, \
-            tempfile.TemporaryDirectory(prefix="chip_smoke_retinanet_") as tmp:
-        synthetic_dataset(name, tmp, seed=19)
-        n_test = len(synthetic_dataset(name + "_test", tmp, seed=19, repeat=4)["images"])
+            tempfile.TemporaryDirectory(prefix=f"chip_smoke_{family}_") as tmp:
+        synthetic_dataset(name, tmp, seed=seed)
+        n_test = len(synthetic_dataset(name + "_test", tmp, seed=seed, repeat=4)["images"])
         n_test_batches = n_test // 8
         out = os.path.join(tmp, "output")
 
         def args(*flags, **kw):
-            return trainer_args(name, out, *flags, yaml=RETINANET_YAML, **kw)
+            return trainer_args(name, out, *flags, yaml=yaml, **kw)
 
         def check_steps(first, last):
             if [r["step"] for r in watch.steps] != list(range(first, last)):
@@ -1674,12 +1708,13 @@ def phase_retinanet_trainer(kernels, dev, smi):
         counts = _build.launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         losses = check_steps(0, 4)
-        want = {"nms": n_test_batches, "fused_stem": 4 + n_test_batches,
+        want = {"nms": 4 * step_launches.get("nms", 0) + predict_nms * n_test_batches,
+                "fused_stem": 4 + n_test_batches,
                 "fused_bottleneck": 13 * (4 + n_test_batches)}
         if {k: counts[k] for k in want} != want:
-            raise AssertionError(f"RetinaNet trainer launched {counts}, expected {want}")
+            raise AssertionError(f"{family} trainer launched {counts}, expected {want}")
         for k in PREDICT_KERNELS:
-            kernels[k].setdefault("launches_by_path", {})["retinanet_trainer"] = counts[k]
+            kernels[k].setdefault("launches_by_path", {})[f"{family}_trainer"] = counts[k]
         for fname in ("config.yaml", "metrics.json", "model_0000002.pth", "model_0000004.pth",
                       "last_checkpoint", "coco_instances_results.json"):
             if not os.path.exists(os.path.join(out, fname)):
@@ -1691,11 +1726,11 @@ def phase_retinanet_trainer(kernels, dev, smi):
                 or "loss_box_reg" not in logged[0]:
             raise AssertionError(f"metrics.json: {logged}")
         timing = results[name + "_test"]["_timing"]
-        log(f"retinanet trainer: 4 steps and {n_test_batches} test batches launched {counts}; "
-            f"every step 1 stem and 13 bottleneck kernels, every test batch 1 NMS; total "
+        log(f"{family} trainer: 4 steps and {n_test_batches} test batches launched {counts}; "
+            f"every step {step_launches}, every test batch {predict_nms} NMS; total "
             f"losses {[round(v, 4) for v in losses]}; peak memory {peak:.2f} GiB; whole main "
             f"(build, 4 steps, 2 saves, evaluation) {wall:.1f} s")
-        log(f"time retinanet trainer eval ({smi}): {timing['images']} timed images of {n_test}, "
+        log(f"time {family} trainer eval ({smi}): {timing['images']} timed images of {n_test}, "
             f"{timing['s_per_img'] * 1e3:.2f} ms/img, "
             f"{1 / timing['s_per_img'] if timing['s_per_img'] else float('nan'):.2f} img/s "
             f"(B=8, both orientations, fetch to the host included, first 5 batches not timed)")
@@ -1712,7 +1747,7 @@ def phase_retinanet_trainer(kernels, dev, smi):
                                  f"== saved: {states_equal(state, saved)}")
         resumed = check_steps(4, 8)
         span = watch.steps[-1]["t1"] - watch.steps[2]["t0"]
-        log(f"retinanet trainer --resume: starts at iteration 4 with the saved state bit for "
+        log(f"{family} trainer --resume: starts at iteration 4 with the saved state bit for "
             f"bit ({len(saved['model'])} model tensors, {len(saved['optimizer']['state'])} "
             f"momentum buffers); losses of steps 4-7 {[round(v, 4) for v in resumed]}; steps "
             f"6-7 through the trainer {span / 2 * 1e3:.1f} ms/step, {16 * 2 / span:.2f} img/s")
@@ -1726,15 +1761,434 @@ def phase_retinanet_trainer(kernels, dev, smi):
         missing = [k for k in STATS_NAMES if k not in res["bbox"]]
         if missing or "AR@100" not in res["ar"]:
             raise AssertionError(f"--eval-only: bbox lacks {missing}; ar {sorted(res['ar'])}")
-        want = {"nms": n_test_batches, "fused_stem": n_test_batches,
+        want = {"nms": predict_nms * n_test_batches, "fused_stem": n_test_batches,
                 "fused_bottleneck": 13 * n_test_batches}
         if {k: counts[k] for k in want} != want:
             raise AssertionError(f"--eval-only launched {counts}, expected {want}")
         timing = res["_timing"]
-        log(f"retinanet trainer --eval-only ({smi}): bbox has all {len(STATS_NAMES)} names, ar "
+        log(f"{family} trainer --eval-only ({smi}): bbox has all {len(STATS_NAMES)} names, ar "
             f"has {len(res['ar'])} keys; launches {want}; "
             f"{1 / timing['s_per_img'] if timing['s_per_img'] else float('nan'):.2f} img/s over "
             f"{timing['images']} timed images")
+
+
+# ------------------------------------------------------------ Faster R-CNN
+RCNN_YAML = "configs/faster/faster_rcnn_R_50_FPN_1x.yaml"
+RCNN_HW = LOADER_SHAPES[0]          # the loader's landscape bucket, 896 x 1408
+# a test setting, as WARMUP_ITERS 0 is: the random trunk's features are in
+# the hundreds, the box head's softmax loss starts above 100, and 2e-4
+# without warm-up diverges by step 5 (R-50 at 256x384 on the CPU)
+RCNN_TRAIN_LR = 2e-5
+RCNN_CLS_STEP = 0.25     # the comparison's class bias step
+RCNN_STEP_LAUNCHES = {"fused_stem": 1, "fused_bottleneck": 13, "nms": 1}
+RCNN_PREDICT_LAUNCHES = {"fused_stem": 1, "fused_bottleneck": 13, "nms": 2}
+
+
+def randomize_rcnn(model, gen):
+    """FrozenBN buffers away from identity, and the RPN's delta filters a
+    hundredth of their draw: the random trunk's features are large enough
+    that the drawn deltas throw most boxes off the image, where clipping
+    leaves them empty (invalid for the NMS); so scaled, the candidates are
+    their anchors moved a little, as a trained RPN's are."""
+    randomize_frozen_bn(model, gen)
+    with torch.no_grad():
+        model.rpn_head.anchor_deltas.weight.mul_(0.01)
+
+
+def build_rcnn_models(dev):
+    """Faster R-CNN R-50-FPN fused in bf16, and the same weights unfused in
+    bf16 and in fp32 (``randomize_rcnn``)."""
+    from slenderobjdet_torch.models import build_model
+
+    gen = torch.Generator().manual_seed(20)
+    model = build_model(flagship_cfg(True, yaml=RCNN_YAML), device=dev, generator=gen)
+    randomize_rcnn(model, gen)
+    models = [model]
+    for dtype in ("bfloat16", "float32"):
+        m = build_model(flagship_cfg(False, dtype, yaml=RCNN_YAML), device=dev)
+        m.load_state_dict(model.state_dict())
+        models.append(m)
+    return models
+
+
+def rcnn_nms_check(kernels, smi, key, boxes, scores, valid, thr, max_out, counts=None,
+                   classes=None):
+    """The NMS kernel on Faster R-CNN's own candidates against the plain
+    ``batched_nms``: the RPN's level-aware route (``counts``: one launch over
+    rows of (image, level), then the merge of the rows' kept lists) or the
+    box head's class-aware call (``classes``). Identical, or it fails; then
+    the kernel alone, the whole call and the plain version are timed, beside
+    the bound: the bytes of the inputs and outputs, and the reference's work,
+    each kept box against every candidate it could suppress (its row's, or
+    its image's) at NMS_OPS_PER_PAIR operations in fp32."""
+    from slenderobjdet_torch.ops.nms import (batched_nms, cuda_batched_nms, launch_nms,
+                                             level_batched_nms, level_rows)
+
+    B, N = scores.shape
+    if counts is not None:
+        idxs = torch.cat([torch.full((c,), i, device=boxes.device)
+                          for i, c in enumerate(counts)]).expand(B, -1)
+        rb, rs, rv, offset, _ = level_rows(boxes, scores, counts, valid)
+        row_n = torch.tensor(counts, device=boxes.device).repeat(B)
+
+        def call():
+            return level_batched_nms(boxes, scores, counts, thr, max_out, valid=valid)
+
+        def kernel(rounds=None):
+            return launch_nms(rb, rs, None, rv, thr, max_out, rounds=rounds, row_offset=offset)
+    else:
+        idxs = classes
+        row_n = torch.full((B,), N, device=boxes.device)
+
+        def call():
+            return cuda_batched_nms(boxes, scores, classes, thr, max_out, valid=valid)
+
+        def kernel(rounds=None):
+            return launch_nms(boxes, scores, classes, valid, thr, max_out, rounds=rounds)
+
+    got = call()
+    want = batched_nms(boxes, scores, idxs, thr, max_out, valid=valid)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"NMS kernel != plain on Faster R-CNN's {key} candidates: "
+                             f"{int((got[0] != want[0]).sum())} indices differ")
+    rounds = torch.zeros(row_n.numel(), dtype=torch.int32, device=boxes.device)
+    row_kept = kernel(rounds)[1].sum(1)
+    work = int((row_kept * row_n).sum())
+    kept = got[1].sum(1).tolist()
+    ms = cuda_ms(kernel, 20, queued=True)
+    call_ms = cuda_ms(call, 20, queued=True)
+    plain_ms = cuda_ms(lambda: batched_nms(boxes, scores, idxs, thr, max_out, valid=valid), 1)
+    out = (torch.empty(B, max_out, dtype=torch.int32), torch.empty(B, max_out, dtype=torch.bool))
+    b_ms, b_by = bound_ms(nbytes(boxes, scores, valid, classes, *out),
+                          work * NMS_OPS_PER_PAIR, PEAK_FP32_FLOPS)
+    per_image = rounds.view(B, -1)
+    share = float(valid.float().mean())
+    log(f"nms rcnn {key} ({smi}): kernel == plain at B={B} N={N} thr {thr} max_out {max_out} "
+        f"({'levels ' + str(list(counts)) if counts else 'classes'}), {share:.3f} valid, kept an "
+        f"image {min(kept)}-{max(kept)}; block-wide rounds a row {int(rounds.min())}-"
+        f"{int(rounds.max())} (an image: the largest row {per_image.max(1).values.tolist()}, "
+        f"sum of its rows {per_image.sum(1).tolist()}); kernel alone {ms:.4f} ms, whole call "
+        f"{call_ms:.4f} ms, plain {plain_ms:.2f} ms; bound {b_ms:.4f} ms ({b_by}), "
+        f"{b_ms / ms:.4f} of bound")
+    kernels["nms"][f"at_rcnn_{key}"] = {
+        "batch": B, "candidates": N, "max_out": max_out, "thr": thr, "ms": ms,
+        "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "max_abs_err": 0.0, "valid_share": share, "kept": sum(kept),
+        "rounds_max": int(rounds.max()), "rounds_mean": float(rounds.float().mean())}
+
+
+def shape_rcnn_classifier(models, feats, props, prop_valid):
+    """Make the box head's scores those of a classifier that has learnt a
+    little: its filters scaled so that the foreground logits spread by 1 on
+    these proposals (drawn, they spread by tens on the random trunk's
+    features and every top pair scores 1), class c's bias -RCNN_CLS_STEP *
+    c, and the background's bisected so that about half of the top 1000
+    (proposal, class) pairs pass the score threshold: the NMS then sees a
+    mask that is neither empty nor full."""
+    model = models[0]
+    layer = model.roi_box.outputs.cls_score
+    with torch.no_grad():
+        layer.bias.zero_()
+        logits = model.roi_box(model.roi_heads.pool(feats, props))[0][..., :-1]
+        layer.weight.div_(float(logits[prop_valid].float().std()))
+        fg = -RCNN_CLS_STEP * torch.arange(layer.bias.numel() - 1, dtype=torch.float32,
+                                           device=layer.bias.device)
+        lo, hi = -10.0, 30.0
+        for _ in range(24):
+            mid = (lo + hi) / 2
+            layer.bias.copy_(torch.cat([fg, fg.new_tensor([mid])]))
+            share = float(model.roi_heads.candidates(model.roi_box, feats, props,
+                                                     prop_valid)[3].float().mean())
+            lo, hi = (mid, hi) if share > 0.5 else (lo, mid)
+        for m in models[1:]:
+            m.roi_box.outputs.cls_score.weight.copy_(layer.weight)
+            m.roi_box.outputs.cls_score.bias.copy_(layer.bias)
+
+
+def comparable_rcnn(*models):
+    """Make the detections of two roundings of one Faster R-CNN comparable
+    on shared proposals: the bbox_pred filters are 0 and its bias is (0, 0,
+    -60, -60) a class (dw / 5 = -12 under BBOX_REG_WEIGHTS (10, 10, 5, 5)),
+    so every detection is its proposal shrunk to a point at its centre, the
+    same bits in both models, and boxes of different proposals never
+    overlap: the class-aware NMS has nothing to decide, and a detection is
+    known by (class, box)."""
+    with torch.no_grad():
+        for m in models:
+            pred = m.roi_box.outputs.bbox_pred
+            pred.weight.zero_()
+            pred.bias.copy_(torch.tensor([0.0, 0.0, -60.0, -60.0]).repeat(pred.bias.numel() // 4))
+
+
+def match_on_shared_proposals(out, ref, ref_cands, batch, thresh):
+    """(matched, swapped, total, score diffs, cut gaps) over ``batch`` images
+    of two detection sets from the same proposals (``comparable_rcnn``), a
+    detection known by (class, box). A valid slot of ``out`` is matched when
+    ``ref`` kept the same detection with a score within SCORE_TOL; it is
+    swapped when ``ref`` did not keep it but holds it among the NMS's input
+    (``ref_cands``: boxes, scores, classes of its top 1000 pairs) with a
+    score within SCORE_TOL, at or below ``ref``'s cut (its lowest kept score
+    where its slots are full, else ``thresh``): a near-tie at the top-100 cut
+    or at the threshold, the one decision the shaping leaves. ``cut gaps``
+    are the swapped slots' distances from that cut."""
+    matched = swapped = total = 0
+    diffs, gaps = [], []
+    for b in range(batch):
+        kept = []
+        for o in (out, ref):
+            v = o["valid"][b].cpu().numpy()
+            cls = o["classes"][b].cpu().numpy()[v].tolist()
+            sc = o["scores"][b].float().cpu().numpy()[v].tolist()
+            bx = o["boxes"][b].float().cpu().numpy()[v].tolist()
+            kept.append({(c, tuple(x)): s for c, x, s in zip(cls, bx, sc)})
+        mine, theirs = kept
+        cands = {(c, tuple(x)): s for x, s, c in zip(
+            ref_cands[0][b].float().cpu().numpy().tolist(),
+            ref_cands[1][b].float().cpu().numpy().tolist(), ref_cands[2][b].tolist())}
+        cut = min(theirs.values()) if len(theirs) == out["valid"].shape[1] else thresh
+        for k, s in mine.items():
+            total += 1
+            if k in theirs:
+                diffs.append(abs(s - theirs[k]))
+                matched += diffs[-1] <= SCORE_TOL
+            elif k in cands and abs(s - cands[k]) <= SCORE_TOL and cands[k] <= cut:
+                swapped += 1
+                gaps.append(s - cut)
+    return matched, swapped, total, diffs, gaps
+
+
+def check_rcnn_outputs(out, batch, proposals):
+    shapes = {"boxes": (batch, 100, 4), "scores": (batch, 100), "classes": (batch, 100),
+              "valid": (batch, 100), "proposals": (batch, proposals, 4),
+              "proposal_scores": (batch, proposals), "proposal_valid": (batch, proposals)}
+    if sorted(out) != sorted(shapes):
+        raise AssertionError(f"predict returned {sorted(out)}")
+    for k, s in shapes.items():
+        if tuple(out[k].shape) != s:
+            raise AssertionError(f"{k} shape {tuple(out[k].shape)} != {s}")
+    for k in ("boxes", "scores", "proposals", "proposal_scores"):
+        if not bool(torch.isfinite(out[k]).all()):
+            raise AssertionError(f"non-finite {k}")
+
+
+def phase_rcnn(kernels, dev, smi, models):
+    """Faster R-CNN R-50-FPN's predict path at 896 x 1408: RPN outputs and
+    ROI features against fp32; the NMS kernel on the model's own candidates
+    at the RPN's predict shape (B = 8, 4,924 -> 1,000), its training shape
+    (B = 16, 8,924 -> 1,000) and the box head's (B = 8, 1,000 in 80 classes
+    -> 100); 3 requests of 8 images with the launch counts; fused against
+    unfused detections on shared proposals; device ms of each part; predict
+    img/s."""
+    from slenderobjdet_torch.ops import _build
+
+    model, plain, ref32 = models
+    reqs = requests(3, 8, seed=21, hw=RCNN_HW)
+    check_heads("rcnn", ("rpn logits", "rpn deltas", "roi features"), reqs[0], dev, model,
+                plain, ref32)
+    models.pop()
+    del ref32
+    torch.cuda.empty_cache()
+    rpn, roi = model.rpn, model.roi_heads
+    anchors, counts = model.rpn_anchors(RCNN_HW)
+
+    def rpn_outputs(images):
+        logits_l, deltas_l, feats = model(torch.as_tensor(images, device=dev))
+        sizes = torch.tensor([RCNN_HW] * images.shape[0], device=dev)
+        return torch.cat(logits_l, 1), torch.cat(deltas_l, 1), feats, sizes
+
+    # ---- the NMS kernel on the RPN's candidates: predict, then train
+    with torch.inference_mode():
+        for key, images, train in (
+                ("rpn_predict_B8", reqs[0]["image"], False),
+                ("rpn_train_B16", train_batch(16, seed=22, hw=RCNN_HW)["image"], True)):
+            logits, deltas, _, sizes = rpn_outputs(images)
+            boxes, scores, wh_ok, _, ks = rpn.candidates(anchors, counts, logits, deltas,
+                                                         sizes, train=train)
+            want_n = sum(min(rpn.pre_nms_topk[train], c) for c in counts)   # 4,924 / 8,924
+            if boxes.shape[1] != want_n or rpn.post_nms_topk[train] != 1000:
+                raise AssertionError(f"RPN {key}: {boxes.shape[1]} candidates, levels {ks}")
+            rcnn_nms_check(kernels, smi, key, boxes, scores, wh_ok, rpn.nms_thresh,
+                           rpn.post_nms_topk[train], counts=ks)
+            del logits, deltas, boxes, scores, wh_ok
+        torch.cuda.empty_cache()
+
+        # ---- the box head's candidates, its classifier shaped so that part
+        # of them pass the score threshold
+        logits, deltas, feats, sizes = rpn_outputs(reqs[0]["image"])
+        props, _, prop_valid = rpn.proposals(anchors, counts, logits, deltas, sizes, train=False)
+        shape_rcnn_classifier(models, feats, props, prop_valid)
+        boxes, scores, classes, valid, _ = roi.candidates(model.roi_box, feats, props, prop_valid)
+        rcnn_nms_check(kernels, smi, "box_head_B8", boxes, scores, valid, roi.nms_thresh,
+                       roi.max_dets, classes=classes)
+        del logits, deltas, feats, props, boxes, scores, classes, valid
+
+    # ---- 3 requests of 8 images through predict, launches counted
+    comparable_rcnn(model, plain)
+    per_call, outs = [], []
+    for r in reqs:
+        _build.reset_launch_counts()
+        outs.append(model.predict(r))
+        torch.cuda.synchronize()
+        per_call.append({k: v for k, v in _build.launch_counts().items() if v})
+    log(f"rcnn predict launches a call of B=8 at {RCNN_HW[0]}x{RCNN_HW[1]}: {per_call}")
+    if any(c != RCNN_PREDICT_LAUNCHES for c in per_call):
+        raise AssertionError(f"Faster R-CNN predict launched {per_call}, expected "
+                             f"{RCNN_PREDICT_LAUNCHES}")
+    for k in PREDICT_KERNELS:
+        kernels[k].setdefault("launches_by_path", {})["rcnn_predict"] = sum(
+            c[k] for c in per_call)
+    for out in outs:
+        check_rcnn_outputs(out, 8, rpn.post_nms_topk[False])
+    n_valid = sum(int(o["valid"].sum()) for o in outs)
+    n_props = sum(int(o["proposal_valid"].sum()) for o in outs)
+    log(f"rcnn predict: {n_valid} valid detections and {n_props} valid proposals over 24 images")
+    if n_valid <= 0 or n_props <= 0:
+        raise AssertionError("no valid detections or proposals")
+
+    # ---- fused against unfused: the ROI stage on the fused model's
+    # proposals (the RPN's top-k and NMS cut over near-tied random
+    # objectness, which two bf16 programs need not share), and, reported
+    # only, how many proposals the two whole predict calls share
+    matched = swapped = total = same_props = 0
+    diffs, gaps = [], []
+    for r, out in zip(reqs, outs):
+        with torch.inference_mode():
+            _, _, feats = plain(torch.as_tensor(r["image"], device=dev))
+            ref = roi.inference(plain.roi_box, feats, out["proposals"], out["proposal_valid"],
+                                torch.as_tensor(r["scale"], device=dev),
+                                torch.as_tensor(r["orig_size"], device=dev))
+            ref_cands = roi.candidates(plain.roi_box, feats, out["proposals"],
+                                       out["proposal_valid"])
+            whole = plain.predict(r)
+        del feats
+        m, e, t, d, g = match_on_shared_proposals(out, ref, ref_cands, 8, roi.score_thresh)
+        matched, swapped, total = matched + m, swapped + e, total + t
+        diffs, gaps = diffs + d, gaps + g
+        for b in range(8):       # within half a pixel in every coordinate
+            mine = out["proposals"][b][out["proposal_valid"][b]]
+            theirs = whole["proposals"][b][whole["proposal_valid"][b]]
+            if len(mine) and len(theirs):
+                gap = (mine[:, None] - theirs[None]).abs().amax(-1).amin(1)
+                same_props += int((gap <= 0.5).sum())
+    share = (matched + swapped) / max(total, 1)
+    log(f"rcnn fused vs unfused on shared proposals: {matched}/{total} slots matched by "
+        f"(class, box) with score diff <= {SCORE_TOL}, {swapped} more swapped at the "
+        f"other's cut (its candidate there within {SCORE_TOL}; above the cut by at most "
+        f"{max(gaps, default=0.0):.3e}): {share:.4f}; score diff median "
+        f"{np.median(diffs):.3e}, max {np.max(diffs):.3e}; the two whole predict calls "
+        f"share {same_props}/{n_props} valid proposals within 0.5 px (reported only)")
+    if share < MATCH_MIN:
+        raise AssertionError(f"rcnn fused vs unfused: {share:.4f} of slots matched")
+    del outs
+
+    # ---- where a predict call goes
+    with torch.inference_mode():
+        images = torch.as_tensor(reqs[0]["image"], device=dev)
+        x = ((images.float() - model.pixel_mean) / model.pixel_std).to(model.dtype)
+        x = x.permute(0, 3, 1, 2)
+        feats = model.backbone(x)
+        rpn_feats = [feats[f] for f in model.rpn_in_features]
+        roi_feats = [feats[f] for f in model.roi_in_features]
+        logits_l, deltas_l = model.rpn_head(rpn_feats)
+        logits, deltas = torch.cat(logits_l, 1), torch.cat(deltas_l, 1)
+        sizes = torch.tensor([RCNN_HW] * 8, device=dev)
+        props, _, prop_valid = rpn.proposals(anchors, counts, logits, deltas, sizes, train=False)
+        pooled = roi.pool(roi_feats, props)
+        scale = torch.ones(8, device=dev)
+        orig = torch.tensor([RCNN_HW] * 8, dtype=torch.float32, device=dev)
+        parts = {
+            "backbone + FPN": cuda_ms(lambda: model.backbone(x), 5),
+            "RPN head": cuda_ms(lambda: model.rpn_head(rpn_feats), 5),
+            "RPN proposals": cuda_ms(lambda: rpn.proposals(anchors, counts, logits, deltas,
+                                                           sizes, train=False), 5),
+            "pooler": cuda_ms(lambda: roi.pool(roi_feats, props), 5),
+            "box head": cuda_ms(lambda: model.roi_box(pooled), 5),
+            "ROI inference": cuda_ms(lambda: roi.inference(model.roi_box, roi_feats, props,
+                                                           prop_valid, scale, orig), 5),
+        }
+        whole = cuda_ms(lambda: model.predict(reqs[0]), 5)
+    post = parts["ROI inference"] - parts["pooler"] - parts["box head"]
+    log(f"time rcnn predict parts ({smi}), B=8 {RCNN_HW[0]}x{RCNN_HW[1]} fused, device ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f" (of which the box postprocess {post:.3f}); whole predict {whole:.3f}")
+    kernels["nms"].setdefault("rcnn_predict_parts_ms", {}).update(parts, whole=whole)
+    del x, feats, rpn_feats, roi_feats, logits_l, deltas_l, logits, deltas, props, pooled, images
+    torch.cuda.empty_cache()
+    phase_throughput(model, plain, family="Faster R-CNN", hw=RCNN_HW)
+
+
+def phase_rcnn_train(kernels, dev, smi):
+    """The Faster R-CNN train step at full width, entered as a trainer does:
+    11 steps on one batch of 16 images at 896 x 1408 with 100 padded gt,
+    then 4 more a model, flags on and off in turns, each step launching
+    exactly 1 stem, 13 bottleneck and 1 NMS (flags off: the NMS); WARMUP_ITERS
+    0 and BASE_LR RCNN_TRAIN_LR. Then the pooler alone at the step's shape
+    (16 x 512 RoIs): forward, and forward with the feature gradient."""
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.solver import build_optimizer
+
+    gen = torch.Generator().manual_seed(23)
+    steps, weights = {}, None
+    for key in ("fused", "unfused"):
+        cfg = train_cfg(key == "fused", yaml=RCNN_YAML)
+        cfg.defrost()
+        cfg.SOLVER.BASE_LR = RCNN_TRAIN_LR
+        cfg.freeze()
+        m = build_model(cfg, device=dev, generator=gen)
+        if weights is None:
+            randomize_rcnn(m, gen)
+            weights = {k: v.clone() for k, v in m.state_dict().items()}
+        else:
+            m.load_state_dict(weights)
+        steps[key] = make_train_step(m, build_optimizer(cfg, m), cfg)
+    del weights
+    batch_size = train_cfg(True, yaml=RCNN_YAML).SOLVER.IMS_PER_BATCH
+    batch = train_batch(batch_size, seed=24, hw=RCNN_HW)
+    rates = {}
+    peaks = train_turns("Faster R-CNN", steps, batch,
+                        ("loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg", "num_fg"),
+                        rates, launches={"fused": RCNN_STEP_LAUNCHES, "unfused": {"nms": 1}})
+    for k in PREDICT_KERNELS:
+        kernels[k].setdefault("launches_by_path", {})["rcnn_train_step"] = \
+            RCNN_STEP_LAUNCHES[k]
+    log(f"time rcnn train ({smi}): B={batch_size} {RCNN_HW[0]}x{RCNN_HW[1]}, 100 padded gt: "
+        f"fused {rates['fused']:.2f} img/s, peak {peaks['fused']:.2f} GiB; unfused "
+        f"{rates['unfused']:.2f} img/s, peak {peaks['unfused']:.2f} GiB")
+
+    # ---- the pooler alone at the train step's shape
+    model = steps["fused"].model
+    del steps
+    torch.cuda.empty_cache()
+    roi = model.roi_heads
+    with torch.no_grad():
+        logits_l, deltas_l, feats = model(torch.as_tensor(batch["image"], device=dev))
+        anchors, counts = model.rpn_anchors(RCNN_HW)
+        sizes = torch.tensor([RCNN_HW] * batch_size, device=dev)
+        props = model.rpn.proposals(anchors, counts, torch.cat(logits_l, 1),
+                                    torch.cat(deltas_l, 1), sizes, train=True)[0]
+    rois = props[:, :roi.batch_size_per_image].contiguous()
+    feats = [f.detach().requires_grad_() for f in feats]
+    grad = torch.randn(batch_size, rois.shape[1], roi.pooler_resolution,
+                       roi.pooler_resolution, feats[0].shape[1], device=dev)
+
+    def forward_backward():
+        torch.autograd.grad(roi.pool(feats, rois), feats, grad_outputs=grad)
+
+    fwd = cuda_ms(lambda: roi.pool(feats, rois), 5)
+    both = cuda_ms(forward_backward, 5)
+    log(f"time rcnn pooler ({smi}): {batch_size} x {rois.shape[1]} RoIs over "
+        f"{[tuple(f.shape[2:]) for f in feats]}, bf16 features: forward {fwd:.3f} ms, forward "
+        f"+ feature gradient {both:.3f} ms (backward {both - fwd:.3f}, index_add_ into fp32)")
+    kernels["nms"].setdefault("rcnn_train_pooler_ms", {}).update(forward=fwd, backward=both - fwd)
+
+
+def phase_rcnn_trainer(kernels, dev, smi):
+    """``train_net_torch.main`` on the Faster R-CNN YAML (``family_trainer``):
+    1 NMS a step (the RPN's), 2 a test batch."""
+    family_trainer(kernels, smi, "rcnn", RCNN_YAML, 25, RCNN_STEP_LAUNCHES, predict_nms=2)
+
 
 
 def main() -> int:
@@ -1820,6 +2274,14 @@ def main() -> int:
     run("retinanet_train", phase_retinanet_train, dev, smi)
     torch.cuda.empty_cache()
     run("retinanet_trainer", phase_retinanet_trainer, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    if run("rcnn_build", lambda: models.extend(build_rcnn_models(dev))):
+        run("rcnn", phase_rcnn, kernels, dev, smi, models)
+    models.clear()
+    torch.cuda.empty_cache()
+    run("rcnn_train", phase_rcnn_train, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("rcnn_trainer", phase_rcnn_trainer, kernels, dev, smi)
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

@@ -4,10 +4,16 @@
 ``{"params": ..., "buffers": ...}`` tree of a detector's ``init_variables``
 (numpy or array leaves; FCOS with or without ``head/centerness``, RetinaNet
 with ``head/cls_subnet{i}``, ``head/bbox_subnet{i}``, ``head/cls_score`` and
-the FPN's ``top_p6`` / ``top_p7`` on ``res5``) into a torch ``state_dict``:
+the FPN's ``top_p6`` / ``top_p7`` on ``res5``; Faster R-CNN with
+``rpn_head/{conv,objectness_logits,anchor_deltas}`` and
+``roi_box/head/fc{i}``, ``roi_box/outputs/{cls_score,bbox_pred}``) into a
+torch ``state_dict``:
 
 - conv kernels HWIO -> OIHW (``transpose(3, 2, 0, 1)``), ``kernel`` ->
   ``weight``;
+- ``Dense`` kernels (in, out) -> ``nn.Linear``'s (out, in). ``fc1``'s input
+  rows stay in the JAX package's (P, P, C) order, since the port pools
+  channels last and flattens the same way;
 - ``<name>/GroupNorm_0/{scale,bias}`` -> ``<name>.{weight,bias}``;
 - FrozenBN ``buffers/.../FrozenBatchNorm_i/{scale,bias}`` -> the port's
   norm module: the ResNet's own (the stem's) ``stem_norm``; in a residual
@@ -95,6 +101,8 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
             a = np.asarray(value, dtype=np.float32)
             if a.ndim == 4 and name.endswith(".weight"):
                 a = a.transpose(3, 2, 0, 1)
+            elif a.ndim == 2 and name.endswith(".weight"):
+                a = a.T
             if name in out:
                 raise KeyError(f"two Flax leaves map to {name}")
             out[name] = torch.tensor(a)

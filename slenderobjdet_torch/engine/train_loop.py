@@ -8,6 +8,11 @@ FrozenBN only: no BatchNorm statistics are written back, and trainable BN
 raises at model build. The update count is state (the JAX package's
 ``TrainState.step``): a checkpoint saves it and a resumed run sets it, so
 the LR schedule goes on where it stopped.
+
+``step_generator`` is the per-step source of training randomness (the R-CNN
+subsampling), the counterpart of ``fold_in(PRNGKey(SEED + 7919), i)``: a
+function of the seed and the iteration only, so that a resumed run draws
+what an uninterrupted one draws.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ class TrainStep:
     """``step(batch)`` -> metrics, detached tensors: ``total_loss`` and
     whatever the model's ``loss`` reports (FCOS: ``cls_loss``, ``reg_loss``,
     ``centerness_loss``, ``num_pos``; RetinaNet: ``loss_cls``,
-    ``loss_box_reg``, ``num_pos``).
+    ``loss_box_reg``, ``num_pos``; R-CNN: ``loss_rpn_cls``, ``loss_rpn_loc``,
+    ``loss_cls``, ``loss_box_reg``, ``num_fg``).
     ``count`` is the number of updates made so far; it starts at 0, so the
     first update uses ``schedule(0)`` as optax does."""
 
@@ -48,6 +54,13 @@ class TrainStep:
         out = {k: v.detach() for k, v in metrics.items()}
         out["total_loss"] = total.detach()
         return out
+
+
+def step_generator(seed: int, iteration: int, device) -> torch.Generator:
+    """The generator of iteration ``iteration`` on ``device``, seeded from
+    ``seed + 7919`` and the iteration."""
+    return torch.Generator(device=device).manual_seed(
+        ((max(seed, 0) + 7919) << 32) + iteration)
 
 
 def make_train_step(model, optimizer: torch.optim.Optimizer,

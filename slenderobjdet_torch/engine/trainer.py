@@ -33,7 +33,7 @@ from ..evaluation import COCOEvaluator, inference_on_dataset
 from ..models import build_model
 from ..solver import build_optimizer
 from .events import CommonMetricPrinter, EventStorage, JSONWriter
-from .train_loop import make_train_step
+from .train_loop import make_train_step, step_generator
 
 logger = logging.getLogger(__name__)
 
@@ -94,6 +94,7 @@ class BaseTrainer:
         self.storage.iter = self.start_iter
         data_t0 = time.perf_counter()
 
+        device = next(self.model.parameters()).device
         profile_start = cfg.TPU.PROFILE_START_ITER
         profile_stop = profile_start + cfg.TPU.PROFILE_NUM_ITERS
         profiler = None
@@ -111,6 +112,8 @@ class BaseTrainer:
                 k: v for k, v in host_batch.items()
                 if k not in ("image_id", "batch_valid")
             }
+            # the step's draws (R-CNN subsampling)
+            batch["generator"] = step_generator(cfg.SEED, i, device)
             data_time = time.perf_counter() - data_t0
 
             metrics = self.train_step(batch)
@@ -161,11 +164,10 @@ class BaseTrainer:
                 "not ported: it comes with serving, int8 and multi-node")
 
         def predict_fn(batch):
+            # image_size: R-CNN clips proposals to the unpadded image
             return self.model.predict({
-                "image": batch["image"],
-                "scale": batch["scale"],
-                "orig_size": batch["orig_size"],
-            })
+                k: batch[k] for k in ("image", "scale", "orig_size", "image_size")
+                if k in batch})
 
         all_results = {}
         for dataset_name in cfg.DATASETS.TEST:

@@ -10,6 +10,7 @@ from torch import nn
 
 from .meta_arch.fcos import FCOS
 from .meta_arch.hybrids import FCOSNCRetinaNet, FCOSRetinaNet, PointRetinaNet
+from .meta_arch.rcnn import ProposalVisibleRCNN
 from .meta_arch.retinanet import (CenternessRetinaNet, DeformableConvRetinaNet,
                                   NearestRetinaNet, RetinaNet)
 
@@ -26,9 +27,16 @@ def _retinanet_with_anchor(cfg) -> RetinaNet:
     return RetinaNet(cfg, with_anchor=True)
 
 
+def _rcnn_with_anchor(cfg) -> ProposalVisibleRCNN:
+    """Diagnosis variant: each proposal keeps its source anchor and each
+    detection its (proposal, anchor) pair."""
+    return ProposalVisibleRCNN(cfg, with_anchor=True)
+
+
 # name -> constructor taking cfg. FCOSV2 is the reference's refactor of FCOS
 # with the same topk-then-NMS inference and GroupNet's head is FCOS's line for
-# line, so the three names share one class, as in the JAX package.
+# line, so the three names share one class, as in the JAX package; so do
+# GeneralizedRCNN and ProposalVisibleRCNN.
 # DeformableConvRetinaNet is registered so that its config names what is
 # missing: its constructor raises NotImplementedError.
 META_ARCHS = {
@@ -44,6 +52,9 @@ META_ARCHS = {
     "NearestRetinaNet": NearestRetinaNet,
     "PointRetinaNet": PointRetinaNet,
     "DeformableConvRetinaNet": DeformableConvRetinaNet,
+    "ProposalVisibleRCNN": ProposalVisibleRCNN,
+    "GeneralizedRCNN": ProposalVisibleRCNN,
+    "ProposalVisibleRCNNWithAnchor": _rcnn_with_anchor,
 }
 
 

@@ -23,6 +23,15 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` with float32 parameters that computes in the input's
+    dtype, as Flax's ``nn.Dense(dtype=..., param_dtype=float32)`` does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
 class Scale(nn.Module):
     """Learnable scalar multiplier (per-FPN-level bbox scaling in FCOS)."""
 

@@ -8,6 +8,15 @@
 // (box + float(class) * (largest finite coordinate of the image + 1)) is
 // formed inside the kernel, so a class-aware call is one launch.
 //
+// Rows instead of images: a launch may also take a per-row offset that is
+// added to every box of the row (box + offset, as the reference adds a
+// class offset). The RPN's level-aware NMS (ops/nms.py:level_batched_nms)
+// runs one row per (image, level), each shifted by float(level) * (the
+// whole image's largest finite coordinate + 1), the offset the reference's
+// single call gives that level; levels never suppress each other, so the
+// rows' kept lists merged by (score descending, index ascending) are that
+// call's result.
+//
 // What bounds it on an H100: neither bytes nor FLOPs of the roofline (an
 // image's candidates are 0.1 MB, read once). The TPU kernel is a loop of
 // max_out steps (argmax, pick, suppress), each waiting for the one before,
@@ -245,6 +254,7 @@ __host__ __device__ __forceinline__ int next_pow2(int x) {
 __global__ void __launch_bounds__(kThreads)
 nms_kernel(const float* __restrict__ boxes, const float* __restrict__ scores,
            const void* __restrict__ cls, int cls_is_64,
+           const float* __restrict__ row_offset,
            const uint8_t* __restrict__ valid, int n, float thr, int max_out,
            int32_t* __restrict__ keep_idx, uint8_t* __restrict__ keep_valid,
            int32_t* __restrict__ rounds_out) {
@@ -357,6 +367,12 @@ nms_kernel(const float* __restrict__ boxes, const float* __restrict__ scores,
               ? __ll2float_rn(reinterpret_cast<const long long*>(cls)[at])
               : __int2float_rn(reinterpret_cast<const int*>(cls)[at]);
           const float off = __fmul_rn(c, coord);
+          q.x = __fadd_rn(q.x, off);
+          q.y = __fadd_rn(q.y, off);
+          q.z = __fadd_rn(q.z, off);
+          q.w = __fadd_rn(q.w, off);
+        } else if (row_offset) {
+          const float off = row_offset[b];
           q.x = __fadd_rn(q.x, off);
           q.y = __fadd_rn(q.y, off);
           q.z = __fadd_rn(q.z, off);
@@ -513,22 +529,24 @@ int nms_smem_bytes(int n, int max_out) {
 }
 
 // boxes (B, N, 4) float32 XYXY, scores (B, N) float32; cls (B, N) int32 or
-// int64 (cls_is_64) or null for class-free NMS; valid (B, N) bytes or null;
+// int64 (cls_is_64) or null for class-free NMS; row_offset (B) float32 or
+// null, added to every box of a row (only where cls is null); valid (B, N)
+// bytes or null;
 // keep_idx (B, max_out) int32, keep_valid (B, max_out) bytes; rounds (B)
 // int32 or null: the block-wide rounds each image took. Returns
 // cudaGetLastError() after the launch.
 int nms_launch(const void* boxes, const void* scores, const void* cls,
-               int cls_is_64, const void* valid, int batch, int n, float thr,
-               int max_out, void* keep_idx, void* keep_valid, void* rounds,
-               void* stream) {
+               int cls_is_64, const void* row_offset, const void* valid,
+               int batch, int n, float thr, int max_out, void* keep_idx,
+               void* keep_valid, void* rounds, void* stream) {
   const int smem = nms_smem_bytes(n, max_out);
   cudaError_t err = cudaFuncSetAttribute(
       nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   nms_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)boxes, (const float*)scores, cls, cls_is_64,
-      (const uint8_t*)valid, n, thr, max_out, (int32_t*)keep_idx,
-      (uint8_t*)keep_valid, (int32_t*)rounds);
+      (const float*)row_offset, (const uint8_t*)valid, n, thr, max_out,
+      (int32_t*)keep_idx, (uint8_t*)keep_valid, (int32_t*)rounds);
   return (int)cudaGetLastError();
 }
 

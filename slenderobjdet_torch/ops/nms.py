@@ -11,6 +11,10 @@
   in shared memory, then resolved 32 a round; the class offset is formed in
   the kernel), which gives exactly the plain version's results in one launch.
   On CPU tensors it runs the plain version.
+- ``level_batched_nms``: the RPN's level-aware NMS, ``batched_nms`` with the
+  candidates' pyramid level as the class, as one kernel launch over rows of
+  (image, level) (``level_rows``) and a merge of the rows' kept lists (the
+  plain version row by row on CPU tensors).
 - ``ordered_key``, ``iou_exceeds`` and ``grouped_nms_model``: the kernel's
   three ideas in plain PyTorch, so that the CPU tests can hold them against
   the reference. Nothing else uses them.
@@ -21,6 +25,7 @@ image, as ``FCOS.predict`` computes it by vmapping ``batched_nms``.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -99,12 +104,15 @@ def launch_nms(
     iou_threshold: float,
     max_out: int,
     rounds: Optional[torch.Tensor] = None,
+    row_offset: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the CUDA kernel on CUDA tensors: boxes (B, N, 4) and
     scores (B, N) float32, ``idxs`` (B, N) int32/int64 or None (class-free),
     ``valid`` (B, N) bool or None. ``rounds`` (B,) int32, if given, receives
-    the block-wide rounds each image took."""
-    given = [t for t in (boxes, scores, idxs, valid, rounds) if t is not None]
+    the block-wide rounds each row took. ``row_offset`` (B,) float32, only
+    without ``idxs``, is added to every box of its row."""
+    given = [t for t in (boxes, scores, idxs, valid, rounds, row_offset)
+             if t is not None]
     _build.require_cuda("cuda_nms", *given)
     bsz, n, four = boxes.shape
     if four != 4 or scores.shape != (bsz, n) or n < 1 or max_out < 1:
@@ -113,19 +121,24 @@ def launch_nms(
     for name, t, shape, dtypes in (
             ("idxs", idxs, (bsz, n), (torch.int32, torch.int64)),
             ("valid", valid, (bsz, n), (torch.bool,)),
-            ("rounds", rounds, (bsz,), (torch.int32,))):
+            ("rounds", rounds, (bsz,), (torch.int32,)),
+            ("row_offset", row_offset, (bsz,), (torch.float32,))):
         if t is not None and (t.shape != shape or t.dtype not in dtypes):
             raise ValueError(f"cuda_nms: {name} {tuple(t.shape)} {t.dtype}, "
                              f"expected {shape} of {dtypes}")
+    if idxs is not None and row_offset is not None:
+        raise ValueError("cuda_nms: classes and row offsets exclude each other")
     lib = _build.library()
     if lib.nms_smem_bytes(n, max_out) > torch.cuda.get_device_properties(
             boxes.device).shared_memory_per_block_optin:
         raise ValueError(f"cuda_nms: N={n} candidates and {max_out} slots do not fit in "
-                         f"shared memory (at most 8192 candidates)")
+                         f"shared memory (at most 8192 candidates a row, fewer with "
+                         f"more slots)")
     boxes = boxes.to(torch.float32).contiguous()
     scores = scores.to(torch.float32).contiguous()
     idxs = None if idxs is None else idxs.contiguous()
     valid = None if valid is None else valid.contiguous()
+    row_offset = None if row_offset is None else row_offset.contiguous()
     if rounds is not None and not rounds.is_contiguous():
         raise ValueError("cuda_nms: rounds must be contiguous")
     keep_idx = torch.empty((bsz, max_out), dtype=torch.int32, device=boxes.device)
@@ -136,7 +149,7 @@ def launch_nms(
 
     rc = lib.nms_launch(boxes.data_ptr(), scores.data_ptr(), ptr(idxs),
                         int(idxs is not None and idxs.dtype == torch.int64),
-                        ptr(valid), bsz, n, float(iou_threshold), max_out,
+                        ptr(row_offset), ptr(valid), bsz, n, float(iou_threshold), max_out,
                         keep_idx.data_ptr(), keep_valid.data_ptr(), ptr(rounds),
                         _build.stream_ptr(boxes))
     _build.check(rc, "nms_launch")
@@ -174,6 +187,107 @@ def cuda_batched_nms(
     return launch_nms(boxes, scores, idxs, valid, iou_threshold, max_out)
 
 
+def _order_key(scores: torch.Tensor, index: torch.Tensor,
+               selectable: torch.Tensor) -> torch.Tensor:
+    """int64 keys whose descending order is (score descending, index
+    ascending) over the selectable entries, -0 being +0; the others share
+    the least key. Any shape; ``index`` below 2^32."""
+    scores = torch.where(scores == 0, 0.0, scores.to(torch.float32))
+    bits = scores.view(torch.int32).to(torch.int64)
+    high = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+    low = ~index.to(torch.int64) & 0xFFFFFFFF
+    return torch.where(selectable, high * 2 ** 32 + low, -2 ** 63)
+
+
+@functools.lru_cache(maxsize=None)
+def _level_index(counts: Tuple[int, ...], device: torch.device):
+    """For levels of ``counts`` candidates: which of the (L, K) row
+    positions hold one, K the largest count, and its candidate index (0 in
+    the padding). Kept per shape, so that a call copies nothing from the
+    host."""
+    starts = torch.tensor([sum(counts[:i]) for i in range(len(counts))], device=device)
+    pos = torch.arange(max(counts), device=device)
+    filled = pos[None] < torch.tensor(counts, device=device)[:, None]
+    return filled, torch.where(filled, starts[:, None] + pos[None], 0)
+
+
+def level_rows(boxes: torch.Tensor, scores: torch.Tensor, counts,
+               valid: Optional[torch.Tensor] = None):
+    """The rows ``level_batched_nms`` gives the kernel: (B, N) candidates in
+    ``len(counts)`` consecutive levels of ``counts[l]`` each -> boxes (B * L,
+    K, 4), scores (B * L, K) and validity (B * L, K), K the largest count
+    (the padding invalid), each row's offset (B * L,) float32, float(level)
+    * (the image's largest finite coordinate + 1), and each row position's
+    candidate index (L, K)."""
+    bsz, n = scores.shape
+    dev = boxes.device
+    counts = tuple(int(c) for c in counts)
+    if sum(counts) != n or boxes.shape != (bsz, n, 4):
+        raise ValueError(f"level_batched_nms: counts {list(counts)} for boxes "
+                         f"{tuple(boxes.shape)}, scores {tuple(scores.shape)}")
+    filled, index = _level_index(counts, dev)
+    levels, width = index.shape
+
+    def rows(t):
+        return t[:, index].reshape(bsz * levels, width, *t.shape[2:])
+
+    row_valid = filled[None].expand(bsz, -1, -1).reshape(bsz * levels, width)
+    if valid is not None:
+        row_valid = row_valid & rows(valid)
+    finite = torch.where(torch.isfinite(boxes), boxes, 0.0)
+    max_coord = finite.amax(dim=(1, 2)) + 1.0                         # (B,)
+    offset = (torch.arange(levels, dtype=boxes.dtype, device=dev)[None]
+              * max_coord[:, None]).reshape(-1)                       # (B * L,)
+    return rows(boxes), rows(scores), row_valid, offset.to(torch.float32), index
+
+
+def level_batched_nms(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    counts,
+    iou_threshold: float,
+    max_out: int,
+    valid: Optional[torch.Tensor] = None,
+    rounds: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``batched_nms(boxes, scores, levels, ...)`` where the (B, N)
+    candidates are ``len(counts)`` consecutive levels of ``counts[l]`` each
+    and ``levels`` is each one's level, exactly, as the RPN calls it.
+
+    The candidates go in rows of (image, level) (``level_rows``), each
+    shifted by the offset the single call gives its level. Shifted so,
+    levels lie apart and never suppress each other (boxes with finite
+    coordinates; the RPN's are clipped to the image), so each row's greedy
+    NMS keeps what the single call keeps of that level, in order; the rows'
+    kept lists merged by (score descending, index ascending) are the single
+    call's selection order, of which the first ``max_out`` are kept. On
+    CUDA tensors the rows are one launch of the kernel (``rounds``, (B * L,)
+    int32, receives each row's rounds), which raises where a row does not
+    fit; on CPU tensors they go through ``nms_select``. Returns keep_idx
+    (B, max_out) int32 into the N candidates (0 where invalid) and
+    keep_valid (B, max_out) bool."""
+    bsz = scores.shape[0]
+    row_boxes, row_scores, row_valid, offset, index = level_rows(boxes, scores, counts,
+                                                                 valid)
+    if boxes.device.type == "cpu":
+        kept, kept_valid = nms_select(row_boxes + offset[:, None, None], row_scores,
+                                      iou_threshold, max_out, valid=row_valid)
+    else:
+        kept, kept_valid = launch_nms(row_boxes, row_scores, None, row_valid,
+                                      iou_threshold, max_out, rounds=rounds,
+                                      row_offset=offset)
+    # rows' kept lists -> candidate indices, merged per image
+    levels, width = index.shape
+    gidx = torch.gather(index[None].expand(bsz, -1, -1).reshape(bsz * levels, width),
+                        1, kept.long()).reshape(bsz, levels * max_out)
+    kept_valid = kept_valid.reshape(bsz, levels * max_out)
+    key = _order_key(torch.gather(scores, 1, gidx), gidx, kept_valid)
+    order = torch.sort(key, dim=1, descending=True).indices[:, :max_out]
+    keep_valid = torch.gather(kept_valid, 1, order)
+    keep_idx = torch.where(keep_valid, torch.gather(gidx, 1, order), 0)
+    return keep_idx.to(torch.int32), keep_valid
+
+
 # --- the kernel's algorithm in plain PyTorch (used by the CPU tests only) ---
 
 GROUP = 32              # candidates the kernel resolves a round
@@ -189,14 +303,10 @@ def ordered_key(scores: torch.Tensor, valid: Optional[torch.Tensor] = None
     candidates (valid and score > NEG_INF / 2); the others share the least
     key. The kernel's key is unsigned; this one is the same bits with the
     top one flipped, so that signed order equals the kernel's."""
-    scores = torch.where(scores == 0, 0.0, scores.to(torch.float32))  # -0 is 0
-    bits = scores.view(torch.int32).to(torch.int64)
-    high = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
-    low = ~torch.arange(scores.shape[0], dtype=torch.int64) & 0xFFFFFFFF
     selectable = scores > NEG_INF / 2
     if valid is not None:
         selectable = selectable & valid
-    return torch.where(selectable, high * 2 ** 32 + low, -2 ** 63)
+    return _order_key(scores, torch.arange(scores.shape[0]), selectable)
 
 
 def iou_exceeds(inter: torch.Tensor, uni: torch.Tensor, iou_threshold: float,

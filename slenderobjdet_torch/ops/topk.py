@@ -1,5 +1,6 @@
 """Pair top-k over (location, class) scores (counterpart of
-``slenderobjdet_tpu/ops/topk.py:pair_top_k``), exact through ``torch.topk``."""
+``slenderobjdet_tpu/ops/topk.py:pair_top_k``), exact through ``torch.topk``,
+and ``top_k_by_index``, a top-k that orders ties as ``jax.lax.top_k``."""
 
 from __future__ import annotations
 
@@ -33,3 +34,12 @@ def pair_top_k(rank: torch.Tensor, k: int, approx: bool = False):
     if loc_sel is not None:
         loc_idx = torch.gather(loc_sel, 1, loc_idx)
     return values, loc_idx, cls_idx
+
+
+def top_k_by_index(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries along the last axis, in
+    descending order with ties to the lower index, as ``jax.lax.top_k``
+    orders them (``torch.topk`` promises no order among ties): a stable
+    descending sort."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]

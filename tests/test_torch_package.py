@@ -21,12 +21,13 @@ from slenderobjdet_tpu.config import get_cfg as jax_get_cfg
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = ROOT / "configs/fcos/fcos_R_50_FPN_1x.yaml"
 RETINA_CONFIG = ROOT / "configs/retina/retinanet_R_50_FPN_1x.yaml"
+RCNN_CONFIG = ROOT / "configs/faster/faster_rcnn_R_50_FPN_1x.yaml"
 
 
 def test_port_imports_no_jax():
     """Importing the port (its train step and probe tools included) and
-    building the flagship model and RetinaNet leaves jax, flax and the JAX package out of
-    sys.modules (a fresh interpreter)."""
+    building the flagship model, RetinaNet and Faster R-CNN leaves jax, flax
+    and the JAX package out of sys.modules (a fresh interpreter)."""
     code = f"""
 import sys
 sys.path.insert(0, {str(ROOT)!r})
@@ -38,14 +39,18 @@ from slenderobjdet_torch.engine import make_train_step
 from slenderobjdet_torch.solver import build_optimizer
 from slenderobjdet_torch.tools import bw_probe, dma_streams_probe, fused_kernel_probe
 from slenderobjdet_torch.models import anchors, matchers
-from slenderobjdet_torch.models.meta_arch import hybrids, reppoints, retinanet
-for config in ({str(CONFIG)!r}, {str(RETINA_CONFIG)!r}):
+from slenderobjdet_torch.models.meta_arch import hybrids, rcnn, reppoints, retinanet
+from slenderobjdet_torch.models import sampling
+from slenderobjdet_torch.ops import roi_align
+names = []
+for config in ({str(CONFIG)!r}, {str(RETINA_CONFIG)!r}, {str(RCNN_CONFIG)!r}):
     cfg = get_cfg()
     cfg.merge_from_file(config)
     cfg.MODEL.RESNETS.DEPTH = 18
     model = build_model(cfg, device="cpu")
     make_train_step(model, build_optimizer(cfg, model), cfg)
-assert type(model).__name__ == "RetinaNet"
+    names.append(type(model).__name__)
+assert names == ["FCOS", "RetinaNet", "ProposalVisibleRCNN"], names
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'slenderobjdet_tpu')]
 print(bad)
@@ -426,3 +431,42 @@ def test_probe_kernels_match_plain_on_gpu():
     for mode in ("blocked", "chunked"):
         for th in (1, 7, 40):
             assert torch.equal(bw_copy(x, th, mode), reference_copy(x))
+
+
+@pytest.mark.gpu
+def test_rpn_level_nms_matches_plain_on_gpu():
+    """The RPN's level-aware NMS (``level_batched_nms``: one kernel launch
+    over rows of (image, level), then the merge) equals the plain
+    ``batched_nms`` with the level as the class, bit for bit, at the RPN's
+    training shape at 896 x 1408 (2000 x 4 + 924 = 8,924 candidates, 1,000
+    slots) and its predict shape (4,924), on integer-pixel boxes with tied
+    scores; a row beyond the kernel's limit raises instead of taking the
+    plain loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from slenderobjdet_torch.ops import nms
+
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(8)
+    for counts in ([2000] * 4 + [924], [1000] * 4 + [924]):
+        n = sum(counts)
+        xy = rs.randint(0, 1408, (2, n, 2))
+        boxes = np.clip(np.concatenate([xy, xy + rs.randint(2, 350, (2, n, 2))], 2), 0, 1408)
+        boxes = torch.tensor(boxes, dtype=torch.float32, device=dev)
+        scores = torch.tensor(np.floor(rs.rand(2, n) * 64) / 64, dtype=torch.float32, device=dev)
+        valid = torch.tensor(rs.rand(2, n) < 0.9, device=dev)
+        levels = torch.cat([torch.full((c,), i, device=dev) for i, c in enumerate(counts)])
+        _build.reset_launch_counts()
+        rounds = torch.zeros(2 * len(counts), dtype=torch.int32, device=dev)
+        got = nms.level_batched_nms(boxes, scores, counts, 0.7, 1000, valid=valid,
+                                    rounds=rounds)
+        assert _build.launch_counts()["nms"] == 1
+        want = nms.batched_nms(boxes, scores, levels.expand(2, -1), 0.7, 1000, valid=valid)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), counts
+        assert int(got[1].sum(1).min()) == 1000 and int(rounds.min()) >= 1
+    with pytest.raises(ValueError, match="shared memory"):
+        nms.level_batched_nms(torch.zeros(1, 9000, 4, device=dev),
+                              torch.zeros(1, 9000, device=dev), [8193, 807], 0.7, 1000)
+    with pytest.raises(ValueError, match="shared memory"):
+        nms.cuda_batched_nms(torch.zeros(1, 8924, 4, device=dev), torch.zeros(1, 8924, device=dev),
+                             torch.zeros(1, 8924, dtype=torch.int32, device=dev), 0.7, 1000)
