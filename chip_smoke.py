@@ -5,6 +5,7 @@
     python3 chip_smoke.py retinanet nms   # only the phases whose names start
                                  # so; prints no result line and exits 3
     python3 chip_smoke.py rcnn   # the Faster R-CNN phases
+    python3 chip_smoke.py reppoints   # the RepPoints and DCN phases
 
 Builds the port's CUDA kernels from ``slenderobjdet_torch/ops/csrc`` (at
 first use, into ``build/torch_kernels/``), then, each phase failing the run
@@ -125,6 +126,32 @@ if it fails:
 14. ``train_net_torch.main`` on the Faster R-CNN YAML (``family_trainer``):
    every step 1 stem, 13 bottleneck and 1 NMS, every test batch 2 NMS;
    ``--resume`` bit-equal; ``--eval-only``.
+15. RepPointsDetector R-50-FPN
+   (configs/rep-points/rep_points_detector_R_50_FPN_1x.yaml, nothing cut,
+   bf16, flags on and off, seeded weights, FrozenBN away from identity) at
+   896x1408: head logits and init and refine offsets against fp32; the NMS
+   kernel against ``batched_nms`` on the model's own 5,000 candidates (B=8,
+   thr 0.5), identical, timed with its rounds and bound; 3 requests of 8
+   images with exactly 1 stem, 13 bottleneck and 1 NMS launch each; fused
+   against unfused detections by (class, box) on fixed point sets
+   (``comparable_reppoints``, ``match_on_shared_proposals``: >= 0.99 of the
+   slots matched or swapped at the other's cut, the count stated); device
+   ms of backbone + FPN, towers, offsets_init, the deform sampling, the
+   deform matmuls, the 1x1 outputs and the postprocess; the deform op alone
+   at the P3 gather (B=8, 112x176, K 9, 2C 512): bf16 forward and backward
+   within 3e-2 of fp32, ``F.grid_sample`` of the same samples within 1e-4
+   in fp32 and timed, ``DFConv2d`` at zero offsets within 1e-4 of the cuDNN
+   conv (v1) and half of it (v2) in fp32, with a random ``offset_conv``
+   within 3e-2 in bf16; predict img/s at B=8 and 32.
+16. The RepPoints train step: 11 steps at B=16 with 100 padded gt, BASE_LR
+   REPPOINTS_TRAIN_LR and the classifier shaped, each fused step launching
+   exactly 1 stem and 13 bottleneck kernels, finite losses ending below
+   step 0's, the EMA loss normaliser moved off 20; img/s and peak memory.
+17. ``train_net_torch.main`` on the RepPoints YAML (``family_trainer``):
+   the normaliser in the checkpoint, ``--resume`` bit-equal, evaluation.
+18. The six other point-set and DCN names (REPPOINTS_VARIANTS) built at
+   full width: one predict and one train step at B=2, exact launch counts
+   (3 bottleneck wrappers with res3-res5 deformable), finite outputs.
 
 Every kernel's time stands beside its bound, the least time the card could
 take: the larger of its bytes (inputs read once, outputs written once) over
@@ -661,9 +688,13 @@ def build_models(dev, yaml: str = FCOS_YAML, cls_bias: float = 0.0):
 
 
 def classifier(model):
-    """The head's last classification conv: FCOS's or RetinaNet's."""
+    """The head's last classification conv: FCOS's, RetinaNet's or the
+    point-set head's."""
     head = model.head
-    return head.cls_logits if hasattr(head, "cls_logits") else head.cls_score
+    for name in ("cls_logits", "cls_score", "logits_out"):
+        if hasattr(head, name):
+            return getattr(head, name)
+    raise AttributeError(f"{type(head).__name__} has no classifier")
 
 
 def one_detection_per_class(gen, *models):
@@ -1659,12 +1690,15 @@ def phase_retinanet_trainer(kernels, dev, smi):
                    {"fused_stem": 1, "fused_bottleneck": 13}, predict_nms=1)
 
 
-def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms):
+def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
+                   loss_key="loss_box_reg"):
     """``train_net_torch.main`` on ``yaml`` over the synthetic dataset: 4
     iterations with a checkpoint at 2 and the evaluation, then ``--resume``
     to 8 from exactly the saved state, then ``--eval-only``. Every step must
     launch ``step_launches`` and every test batch 1 stem, 13 bottleneck and
-    ``predict_nms`` NMS kernels."""
+    ``predict_nms`` NMS kernels; ``metrics.json`` must log ``loss_key``. A
+    model's running statistic (RepPoints' ``loss_normalizer``) rides in the
+    checkpoint and must have moved off its initial value."""
     import os
     import tempfile
 
@@ -1723,7 +1757,7 @@ def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms)
             logged = [json.loads(line) for line in f]
         if [r["iteration"] for r in logged] != [0] or not all(
                 np.isfinite(v) for r in logged for v in r.values()) \
-                or "loss_box_reg" not in logged[0]:
+                or loss_key not in logged[0]:
             raise AssertionError(f"metrics.json: {logged}")
         timing = results[name + "_test"]["_timing"]
         log(f"{family} trainer: 4 steps and {n_test_batches} test batches launched {counts}; "
@@ -1738,6 +1772,13 @@ def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms)
         # ---- resume: the state just after resume_or_load is the saved one
         saved = torch.load(os.path.join(out, "model_0000004.pth"), map_location="cpu",
                            weights_only=True)
+        if "loss_normalizer" in saved["model"]:
+            from slenderobjdet_torch.models.meta_arch.reppoints import RepPointsDetector
+
+            normalizer = float(saved["model"]["loss_normalizer"])
+            log(f"{family} trainer: the checkpoint holds loss_normalizer {normalizer!r}")
+            if normalizer == RepPointsDetector.loss_normalizer_init:
+                raise AssertionError("the saved loss_normalizer never moved")
         watch.clear()
         watch.sync_at[0] = 6
         train_net_torch.main(args("--resume", max_iter=8, checkpoint_period=1000))
@@ -1811,12 +1852,12 @@ def build_rcnn_models(dev):
     return models
 
 
-def rcnn_nms_check(kernels, smi, key, boxes, scores, valid, thr, max_out, counts=None,
-                   classes=None):
-    """The NMS kernel on Faster R-CNN's own candidates against the plain
+def nms_check(kernels, smi, family, key, boxes, scores, valid, thr, max_out, counts=None,
+              classes=None):
+    """The NMS kernel on a model's own candidates against the plain
     ``batched_nms``: the RPN's level-aware route (``counts``: one launch over
-    rows of (image, level), then the merge of the rows' kept lists) or the
-    box head's class-aware call (``classes``). Identical, or it fails; then
+    rows of (image, level), then the merge of the rows' kept lists) or a
+    class-aware call (``classes``: Faster R-CNN's box head, RepPoints). Identical, or it fails; then
     the kernel alone, the whole call and the plain version are timed, beside
     the bound: the bytes of the inputs and outputs, and the reference's work,
     each kept box against every candidate it could suppress (its row's, or
@@ -1850,7 +1891,7 @@ def rcnn_nms_check(kernels, smi, key, boxes, scores, valid, thr, max_out, counts
     want = batched_nms(boxes, scores, idxs, thr, max_out, valid=valid)
     torch.cuda.synchronize()
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        raise AssertionError(f"NMS kernel != plain on Faster R-CNN's {key} candidates: "
+        raise AssertionError(f"NMS kernel != plain on {family}'s {key} candidates: "
                              f"{int((got[0] != want[0]).sum())} indices differ")
     rounds = torch.zeros(row_n.numel(), dtype=torch.int32, device=boxes.device)
     row_kept = kernel(rounds)[1].sum(1)
@@ -1864,14 +1905,14 @@ def rcnn_nms_check(kernels, smi, key, boxes, scores, valid, thr, max_out, counts
                           work * NMS_OPS_PER_PAIR, PEAK_FP32_FLOPS)
     per_image = rounds.view(B, -1)
     share = float(valid.float().mean())
-    log(f"nms rcnn {key} ({smi}): kernel == plain at B={B} N={N} thr {thr} max_out {max_out} "
+    log(f"nms {family} {key} ({smi}): kernel == plain at B={B} N={N} thr {thr} max_out {max_out} "
         f"({'levels ' + str(list(counts)) if counts else 'classes'}), {share:.3f} valid, kept an "
         f"image {min(kept)}-{max(kept)}; block-wide rounds a row {int(rounds.min())}-"
         f"{int(rounds.max())} (an image: the largest row {per_image.max(1).values.tolist()}, "
         f"sum of its rows {per_image.sum(1).tolist()}); kernel alone {ms:.4f} ms, whole call "
         f"{call_ms:.4f} ms, plain {plain_ms:.2f} ms; bound {b_ms:.4f} ms ({b_by}), "
         f"{b_ms / ms:.4f} of bound")
-    kernels["nms"][f"at_rcnn_{key}"] = {
+    kernels["nms"][f"at_{family}_{key}"] = {
         "batch": B, "candidates": N, "max_out": max_out, "thr": thr, "ms": ms,
         "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "max_abs_err": 0.0, "valid_share": share, "kept": sum(kept),
@@ -2008,7 +2049,7 @@ def phase_rcnn(kernels, dev, smi, models):
             want_n = sum(min(rpn.pre_nms_topk[train], c) for c in counts)   # 4,924 / 8,924
             if boxes.shape[1] != want_n or rpn.post_nms_topk[train] != 1000:
                 raise AssertionError(f"RPN {key}: {boxes.shape[1]} candidates, levels {ks}")
-            rcnn_nms_check(kernels, smi, key, boxes, scores, wh_ok, rpn.nms_thresh,
+            nms_check(kernels, smi, "rcnn", key, boxes, scores, wh_ok, rpn.nms_thresh,
                            rpn.post_nms_topk[train], counts=ks)
             del logits, deltas, boxes, scores, wh_ok
         torch.cuda.empty_cache()
@@ -2019,7 +2060,7 @@ def phase_rcnn(kernels, dev, smi, models):
         props, _, prop_valid = rpn.proposals(anchors, counts, logits, deltas, sizes, train=False)
         shape_rcnn_classifier(models, feats, props, prop_valid)
         boxes, scores, classes, valid, _ = roi.candidates(model.roi_box, feats, props, prop_valid)
-        rcnn_nms_check(kernels, smi, "box_head_B8", boxes, scores, valid, roi.nms_thresh,
+        nms_check(kernels, smi, "rcnn", "box_head_B8", boxes, scores, valid, roi.nms_thresh,
                        roi.max_dets, classes=classes)
         del logits, deltas, feats, props, boxes, scores, classes, valid
 
@@ -2191,6 +2232,443 @@ def phase_rcnn_trainer(kernels, dev, smi):
 
 
 
+# ------------------------------------------------------------- RepPoints
+REPPOINTS_YAML = "configs/rep-points/rep_points_detector_R_50_FPN_1x.yaml"
+REPPOINTS_HW = LOADER_SHAPES[0]       # the loader's landscape bucket, 896 x 1408
+# a test setting, as WARMUP_ITERS 0 is: the focal loss sums over 420,112
+# points x 80 classes a batch of 16 at 896 x 1408, so its gradient is ~60 x
+# that of the 2 x 320 x 512 batch on which the CPU found the loss falling
+# over 10 steps from 4e-5 to 3e-4 (diverging at 1e-3) with the shaped
+# classifier; 2e-6 is the middle of that range scaled down
+REPPOINTS_TRAIN_LR = 2e-6
+REPPOINTS_STEP_LAUNCHES = {"fused_stem": 1, "fused_bottleneck": 13}
+REPPOINTS_PREDICT_LAUNCHES = {"fused_stem": 1, "fused_bottleneck": 13, "nms": 1}
+DEFORM_P3 = (8, 112, 176, 9, 512)      # B, H, W, K, 2C: the head's shared gather at P3
+# (label, yaml, overrides, fused bottleneck wrappers a call): the DCN options
+# and the point-set names beside RepPointsDetector
+REPPOINTS_VARIANTS = (
+    ("RepPointsCenterness", "configs/rep-points/rep_points_centerness_R_50_FPN_1x.yaml", {}, 13),
+    ("RepPointsV2", "configs/rep-points/reppointsv2_R_50_FPN_1x.yaml", {}, 13),
+    ("FCOSRepPoints", REPPOINTS_YAML, {"MODEL.META_ARCHITECTURE": "FCOSRepPoints"}, 13),
+    ("ReppointsRetinaNet", "configs/group_exp_for_backbone/rep-points/base.yaml", {}, 13),
+    ("DeformableConvRetinaNet", "configs/retina/retinanet_dc_R_50_FPN_1x.yaml", {}, 13),
+    ("FCOS USE_DCN_IN_TOWER v2", "configs/fcos/fcos_R_50_FPN_2x_dcnv2.yaml", {}, 13),
+    # STRIDE_IN_1X1: every res3-res5 block's conv2 has stride 1 and deforms
+    ("RetinaNet DEFORM_ON_PER_STAGE [F, T, T, T]", RETINANET_YAML,
+     {"MODEL.RESNETS.DEFORM_ON_PER_STAGE": [False, True, True, True]}, 3),
+)
+
+
+def comparable_reppoints(gen, feats_of, *models):
+    """Make the detections of two roundings of one RepPoints comparable, as
+    ``comparable_retinanet`` does for RetinaNet: the NMS is given nothing to
+    decide, and a detection is known by (class, box).
+    - ``offsets_init_out`` and ``offsets_refine_out`` have zero filters and a
+      bias of the kernel grid x 0.3 + 0.35 (and 0): every point set, so every
+      box, is the same bits in both models and an exact function of its
+      point; the boxes (0.6 point strides wide) of two points never overlap
+      by IoU 0.5 and stay inside the image; the deform convs sample at those
+      fixed fractional offsets;
+    - ``logits_out``'s filters are one shared random filter, scaled so that
+      the logits of ``feats_of``'s images spread by 0.3, plus a per-class
+      one a fiftieth its size, and class c's bias is -3 - 0.25 c: which
+      classes fill the 100 slots is fixed up to near-ties at the cut, and
+      the two roundings' scores differ by a few 1e-3 (by 6e-3 in the median
+      and up to 3e-2 at a spread of 1)."""
+    from slenderobjdet_torch.ops.deform_conv import kernel_base_offsets
+
+    head = models[0].head
+    grid = torch.from_numpy(kernel_base_offsets(3)[:, ::-1].copy()).flatten()   # (x, y) pairs
+    w = head.logits_out.weight
+    shared = torch.randn(w.shape[1:], generator=gen)
+    per_class = torch.randn(w.shape, generator=gen) / 50
+    with torch.no_grad():
+        for m in models:
+            for conv, bias in ((m.head.offsets_init_out, grid * 0.3 + 0.35),
+                               (m.head.offsets_refine_out, torch.zeros_like(grid))):
+                conv.weight.zero_()
+                conv.bias.copy_(bias)
+            m.head.logits_out.weight.copy_(shared + per_class)
+            m.head.logits_out.bias.zero_()
+        logits = torch.cat([lg.flatten() for lg in models[0](feats_of)[0]])
+        for m in models:
+            m.head.logits_out.weight.mul_(0.3 / float(logits.float().std()))
+            m.head.logits_out.bias.copy_(-3.0 - 0.25 * torch.arange(w.shape[0]))
+
+
+def build_reppoints_models(dev):
+    """RepPointsDetector R-50-FPN fused in bf16, and the same weights unfused
+    in bf16 and in fp32 (``build_models``), the classifier's bias at the
+    logit of SCORE_THRESH_TEST."""
+    return build_models(dev, REPPOINTS_YAML, RETINANET_CLS_BIAS)
+
+
+def deform_op_check(smi, dev):
+    """The deformable conv alone at the head's P3 gather (DEFORM_P3): bf16
+    forward and backward against the same op in fp32 on the card; the
+    sampling, its backward and a deform matmul timed beside their bounds and
+    beside ``F.grid_sample`` (the same bilinear, zero-padded sampling in one
+    PyTorch call); ``DFConv2d`` at zero offsets against the cuDNN 3x3 conv
+    (v1) and half of it (v2) in fp32, and with a random ``offset_conv`` in
+    bf16 against fp32."""
+    import torch.nn.functional as F
+
+    from slenderobjdet_torch.models.layers import DFConv2d
+    from slenderobjdet_torch.ops import deform_conv as dc
+
+    B, H, W, K, C2 = DEFORM_P3
+    gen = torch.Generator(device=dev).manual_seed(31)
+    feat32 = torch.randn(B, H, W, C2, device=dev, generator=gen)
+    # the head's points: the kernel grid plus 1.5 px of spread, fractional,
+    # some outside the map
+    off = (torch.as_tensor(dc.kernel_base_offsets(3), device=dev)
+           + torch.randn(B, H, W, K, 2, device=dev, generator=gen) * 1.5)
+    ys = torch.arange(H, device=dev)[None, :, None, None] + off[..., 0]
+    xs = torch.arange(W, device=dev)[None, None, :, None] + off[..., 1]
+    outside = float(((ys <= -1) | (ys >= H) | (xs <= -1) | (xs >= W)).float().mean())
+    grad = torch.randn(B, H, W, K, C2, device=dev, generator=gen)
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        f = feat32.to(dt).detach().requires_grad_(True)
+        o = off.clone().requires_grad_(True)
+        out = dc.deform_sample_batched(f, o)
+        out.backward(grad.to(dt))
+        res[dt] = (out.detach().float(), f.grad.float(), o.grad.float())
+        del f, o, out
+    errs = {name: ratio(a, b) for name, a, b in zip(
+        ("samples", "feature grad", "offset grad"), res[torch.bfloat16], res[torch.float32])}
+    del res
+    log(f"deform op bf16 vs fp32 at B={B} {H}x{W} K={K} 2C={C2}, {outside:.3f} of the samples "
+        f"fully outside: err ratio " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (<= {BF16_TOL}; the feature grad sums in fp32, the JAX scatter in bf16)")
+    if any(v > BF16_TOL for v in errs.values()):
+        raise AssertionError(f"deform op bf16 vs fp32: {errs}")
+
+    # ---- the same sampling by F.grid_sample (NCHW, the (x, y) grid
+    # normalised with align_corners, zero padding) must agree with it in
+    # fp32; in bf16 its grid is bf16 too (0.3 px apart at W = 176), so it is
+    # only timed there
+    grid = torch.stack([xs / (W - 1) * 2 - 1, ys / (H - 1) * 2 - 1], -1).reshape(B, H, W * K, 2)
+
+    def grid_sample(f):
+        nchw = f.permute(0, 3, 1, 2)
+        return F.grid_sample(nchw, grid.to(f.dtype), mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    with torch.no_grad():
+        lib_err = ratio(grid_sample(feat32).permute(0, 2, 3, 1).reshape(B, H, W, K, C2),
+                        dc.deform_sample_batched(feat32, off))
+    if lib_err > FP32_TOL:
+        raise AssertionError(f"deform sampling vs F.grid_sample in fp32: {lib_err}")
+
+    # ---- times: the sampling (forward, backward), a deform matmul, and
+    # F.grid_sample
+    feat = feat32.to(torch.bfloat16)
+    del feat32
+    samples = dc.deform_sample_batched(feat, off)
+    fwd_ms = cuda_ms(lambda: dc.deform_sample_batched(feat, off), 5)
+    lib_ms = cuda_ms(lambda: grid_sample(feat), 5)
+    f = feat.detach().requires_grad_(True)
+    o = off.detach().requires_grad_(True)
+    g = grad.to(torch.bfloat16)
+    del grad
+
+    def forward_backward():
+        torch.autograd.grad(dc.deform_sample_batched(f, o), (f, o), grad_outputs=g)
+
+    both_ms = cuda_ms(forward_backward, 3)
+    weight = torch.randn(K, C2 // 2, C2 // 2, device=dev) * 0.01
+    half = samples[..., :C2 // 2]
+    mm_ms = cuda_ms(lambda: dc.deform_apply(half, weight), 5)
+    n_samples = B * H * W * K
+    s_bound, s_by = bound_ms(nbytes(feat, off, samples), n_samples * C2 * 8, PEAK_FP32_FLOPS)
+    b_bound, b_by = bound_ms(nbytes(feat, off, g) + nbytes(feat, off),
+                             n_samples * C2 * 16, PEAK_FP32_FLOPS)
+    mm_flops = 2 * B * H * W * K * (C2 // 2) ** 2
+    m_bound, m_by = bound_ms(nbytes(half, weight) + B * H * W * (C2 // 2) * 2, mm_flops)
+    log(f"time deform op ({smi}), bf16 at B={B} {H}x{W} K={K} 2C={C2}: sampling forward "
+        f"{fwd_ms:.3f} ms (bound {s_bound:.3f} ms by {s_by}, {s_bound / fwd_ms:.3f} of it; "
+        f"F.grid_sample of the same samples {lib_ms:.3f} ms, agreeing in fp32 to "
+        f"{lib_err:.2e}); "
+        f"forward + backward {both_ms:.3f} ms (bound {b_bound:.3f} ms by {b_by}); one deform "
+        f"matmul (B*H*W, {K * C2 // 2}) @ ({K * C2 // 2}, {C2 // 2}) with its slice copy "
+        f"{mm_ms:.3f} ms ({mm_flops / mm_ms / 1e9:.1f} TFLOP/s; bound {m_bound:.3f} ms by "
+        f"{m_by})")
+    del samples, half, f, o, g, grid, feat, off, ys, xs
+    torch.cuda.empty_cache()
+
+    # ---- DFConv2d: zero offsets against cuDNN (fp32), random offsets bf16
+    # against fp32
+    x = torch.randn(B, C2 // 2, H, W, device=dev, generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    for modulated in (False, True):
+        layer = DFConv2d(C2 // 2, C2 // 2, modulated=modulated).to(dev)
+        with torch.no_grad():
+            layer.weight.normal_(0.0, 0.01, generator=gen)
+            layer.bias.normal_(0.0, 0.1, generator=gen)
+            got = layer(x)
+            w = layer.weight.permute(2, 1, 0).reshape(C2 // 2, C2 // 2, 3, 3)
+            want = F.conv2d(x, w, layer.bias, padding=1)
+            if modulated:
+                want = F.conv2d(x, w, padding=1) * 0.5 + layer.bias.view(1, -1, 1, 1)
+            err0 = ratio(got, want)
+            del got, want
+            layer.offset_conv.weight.normal_(0.0, 0.005, generator=gen)
+            layer.offset_conv.bias.normal_(0.0, 1.5, generator=gen)
+            ref = layer(x)
+            got = layer(x.to(torch.bfloat16)).float()
+            err = ratio(got, ref)
+            del got, ref
+        log(f"DFConv2d {'v2' if modulated else 'v1'} at B={B} {H}x{W} C={C2 // 2}: zero "
+            f"offsets vs the cuDNN 3x3 conv{' x 0.5' if modulated else ''} in fp32 err ratio "
+            f"{err0:.3e} (<= {FP32_TOL}); random offset_conv, bf16 vs fp32 {err:.3e} "
+            f"(<= {BF16_TOL})")
+        if err0 > FP32_TOL or err > BF16_TOL:
+            raise AssertionError(f"DFConv2d modulated={modulated}: {err0}, {err}")
+    del x
+    torch.cuda.empty_cache()
+
+
+def phase_reppoints(kernels, dev, smi, models):
+    """RepPointsDetector R-50-FPN's predict path at 896 x 1408: head outputs
+    against fp32; the NMS kernel on the model's own 5,000 candidates an
+    image; 3 requests of 8 images with the launch counts; fused against
+    unfused detections; device ms of each part; the deform op alone; predict
+    img/s at B=8 and 32."""
+    from slenderobjdet_torch.ops import _build
+
+    model, plain, ref32 = models
+    head = model.head
+    reqs = requests(3, 8, seed=26, hw=REPPOINTS_HW)
+    check_heads("reppoints", ("logits", "init offsets", "refine offsets"), reqs[0], dev,
+                model, plain, ref32)
+    models.pop()
+    del ref32
+    torch.cuda.empty_cache()
+
+    # ---- the classifier's bias moved so that the coarsest level's 99.5th
+    # percentile score sits on SCORE_THRESH_TEST (as for RetinaNet)
+    with torch.inference_mode():
+        images = torch.as_tensor(reqs[0]["image"], device=dev)
+        logits_l, init_l, refine_l = model(images)
+        frac = (init_l[0] % 1).float()
+        frac = float(((frac > 0.01) & (frac < 0.99)).float().mean())
+        top = logits_l[-1].flatten().float()
+        shift = RETINANET_CLS_BIAS - float(torch.kthvalue(top, int(0.995 * top.numel())).values)
+        for m in models:
+            classifier(m).bias.add_(shift)
+        logits_l = model(images)[0]
+        boxes, scores, classes, valid = model.candidates(logits_l, refine_l, REPPOINTS_HW)
+    log(f"reppoints: {frac:.3f} of P3's init offsets are fractional (the deform convs "
+        f"sample between pixels)")
+    want_n = sum(min(model.topk_candidates, lg.shape[1] * lg.shape[2]) for lg in logits_l)
+    if boxes.shape[1] != want_n or (model.nms_thresh, model.max_dets) != (0.5, 100):
+        raise AssertionError(f"RepPoints candidates {tuple(boxes.shape)}, not {want_n}")
+    nms_check(kernels, smi, "reppoints", f"B8_N{want_n}", boxes, scores, valid, model.nms_thresh,
+              model.max_dets, classes=classes)
+    del images, logits_l, init_l, refine_l, boxes, scores, classes, valid, top
+
+    # ---- 3 requests of 8 images through predict, launches counted
+    comparable_reppoints(torch.Generator().manual_seed(27),
+                         torch.as_tensor(reqs[0]["image"], device=dev), model, plain)
+    per_call, outs = [], []
+    for r in reqs:
+        _build.reset_launch_counts()
+        outs.append(model.predict(r))
+        torch.cuda.synchronize()
+        per_call.append({k: v for k, v in _build.launch_counts().items() if v})
+    log(f"reppoints predict launches a call of B=8 at {REPPOINTS_HW[0]}x{REPPOINTS_HW[1]}: "
+        f"{per_call}")
+    if any(c != REPPOINTS_PREDICT_LAUNCHES for c in per_call):
+        raise AssertionError(f"RepPoints predict launched {per_call}, expected "
+                             f"{REPPOINTS_PREDICT_LAUNCHES}")
+    for k in PREDICT_KERNELS:
+        kernels[k].setdefault("launches_by_path", {})["reppoints_predict"] = sum(
+            c[k] for c in per_call)
+    for out in outs:
+        check_outputs(out, 8)
+    n_valid = sum(int(o["valid"].sum()) for o in outs)
+    log(f"reppoints predict: {n_valid} valid detections over 24 images")
+    if n_valid <= 0:
+        raise AssertionError("no valid detections")
+
+    # ---- fused against unfused: a detection is known by (class, box); a
+    # slot the other did not keep is excused only as a near-tie at its cut
+    matched = swapped = total = 0
+    diffs, gaps = [], []
+    for r, out in zip(reqs, outs):
+        with torch.inference_mode():
+            ref = plain.predict(r)
+            outputs = plain(torch.as_tensor(r["image"], device=dev))
+            ref_cands = plain.candidates(plain.score_logits(outputs), outputs[2], REPPOINTS_HW)
+        check_outputs(ref, 8)
+        m, e, t, d, g = match_on_shared_proposals(out, ref, ref_cands, 8, model.score_thresh)
+        matched, swapped, total = matched + m, swapped + e, total + t
+        diffs, gaps = diffs + d, gaps + g
+        del outputs, ref_cands
+    share = (matched + swapped) / max(total, 1)
+    log(f"reppoints fused vs unfused: {matched}/{total} slots matched by (class, box) with "
+        f"score diff <= {SCORE_TOL}, {swapped} more swapped at the other's cut (its "
+        f"candidate there within {SCORE_TOL}; above the cut by at most "
+        f"{max(gaps, default=0.0):.3e}): {share:.4f}; score diff median "
+        f"{np.median(diffs):.3e}, max {np.max(diffs):.3e}")
+    if share < MATCH_MIN:
+        raise AssertionError(f"reppoints fused vs unfused: {share:.4f} of slots matched")
+    del outs
+    torch.cuda.empty_cache()
+
+    # ---- where a predict call goes
+    with torch.inference_mode():
+        images = torch.as_tensor(reqs[0]["image"], device=dev)
+        x = ((images.float() - model.pixel_mean) / model.pixel_std).to(model.dtype)
+        x = x.permute(0, 3, 1, 2)
+        feats = model.features(images)
+        towers = [head.towers(f) for f in feats]
+        offs = [head.init_offsets(rf) for _, rf in towers]
+        samples = [head.sample(cf, rf, o) for (cf, rf), o in zip(towers, offs)]
+        convs = [head.deform_convs(s) for s in samples]
+        logits_l, refine_l = zip(*[head.outputs(dc, dr, o) for (dc, dr), o in zip(convs, offs)])
+        logits_l = [lg.flatten(1, 2) for lg in logits_l]
+        refine_l = [rf.flatten(1, 2) for rf in refine_l]
+        scale = torch.ones(8, device=dev)
+        orig = torch.tensor([REPPOINTS_HW] * 8, dtype=torch.float32, device=dev)
+        parts = {
+            "backbone + FPN": cuda_ms(lambda: model.backbone(x), 5),
+            "towers": cuda_ms(lambda: [head.towers(f) for f in feats], 5),
+            "offsets_init": cuda_ms(lambda: [head.init_offsets(rf) for _, rf in towers], 5),
+            "deform sampling": cuda_ms(lambda: [head.sample(cf, rf, o) for (cf, rf), o
+                                                in zip(towers, offs)], 5),
+            "deform matmuls": cuda_ms(lambda: [head.deform_convs(s) for s in samples], 5),
+            "1x1 outputs": cuda_ms(lambda: [head.outputs(dc, dr, o) for (dc, dr), o
+                                            in zip(convs, offs)], 5),
+            "postprocess": cuda_ms(lambda: model.postprocess(logits_l, refine_l, REPPOINTS_HW,
+                                                             scale, orig), 5),
+        }
+        whole = cuda_ms(lambda: model.predict(reqs[0]), 5)
+    gathered = sum(s.numel() * s.element_size() for s in samples)
+    log(f"time reppoints predict parts ({smi}), B=8 {REPPOINTS_HW[0]}x{REPPOINTS_HW[1]} fused, "
+        f"device ms: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; whole predict {whole:.3f}; the shared gathers write {gathered / 1e9:.3f} GB "
+        f"of samples")
+    kernels["nms"].setdefault("reppoints_predict_parts_ms", {}).update(parts, whole=whole)
+    del x, feats, towers, offs, samples, convs, logits_l, refine_l, images
+    torch.cuda.empty_cache()
+    deform_op_check(smi, dev)
+    phase_throughput(model, plain, family="RepPoints", hw=REPPOINTS_HW)
+
+
+def shape_reppoints_classifier(model, images):
+    """Scale ``logits_out``'s filters so that the logits spread by 1 on
+    ``images`` (about 0.05 as drawn), the bias left at the focal prior: a
+    classifier that has learnt a little, as ``shape_rcnn_classifier`` makes
+    Faster R-CNN's."""
+    with torch.no_grad():
+        layer = model.head.logits_out
+        bias = layer.bias.clone()
+        layer.bias.zero_()
+        logits = torch.cat([lg.flatten() for lg in model(images)[0]])
+        layer.weight.div_(float(logits.float().std()))
+        layer.bias.copy_(bias)
+
+
+def phase_reppoints_train(kernels, dev, smi):
+    """The RepPoints train step at full width: 11 steps on one batch of 16
+    images at 896 x 1408 with 100 padded gt, then 4 more a model, flags on
+    and off in turns, each fused step launching exactly 1 stem and 13
+    bottleneck kernels; WARMUP_ITERS 0, BASE_LR REPPOINTS_TRAIN_LR and the
+    classifier shaped (``shape_reppoints_classifier``). The EMA loss
+    normaliser must move off its initial 20."""
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.solver import build_optimizer
+
+    gen = torch.Generator().manual_seed(28)
+    batch_size = train_cfg(True, yaml=REPPOINTS_YAML).SOLVER.IMS_PER_BATCH
+    batch = train_batch(batch_size, seed=29, hw=REPPOINTS_HW)
+    steps, weights = {}, None
+    for key in ("fused", "unfused"):
+        cfg = train_cfg(key == "fused", yaml=REPPOINTS_YAML)
+        cfg.defrost()
+        cfg.SOLVER.BASE_LR = REPPOINTS_TRAIN_LR
+        cfg.freeze()
+        m = build_model(cfg, device=dev, generator=gen)
+        if weights is None:
+            randomize_frozen_bn(m, gen)
+            shape_reppoints_classifier(m, torch.as_tensor(batch["image"][:2], device=dev))
+            weights = {k: v.clone() for k, v in m.state_dict().items()}
+        else:
+            m.load_state_dict(weights)
+        steps[key] = make_train_step(m, build_optimizer(cfg, m), cfg)
+    del weights
+    rates = {}
+    peaks = train_turns("RepPoints", steps, batch,
+                        ("loss_cls", "loss_localization_init", "loss_localization_refine",
+                         "num_pos", "loss_normalizer"),
+                        rates, launches={"fused": REPPOINTS_STEP_LAUNCHES, "unfused": {}})
+    for k in ("fused_stem", "fused_bottleneck"):
+        kernels[k].setdefault("launches_by_path", {})["reppoints_train_step"] = \
+            REPPOINTS_STEP_LAUNCHES[k]
+    normalizers = {k: float(s.model.loss_normalizer) for k, s in steps.items()}
+    log(f"time reppoints train ({smi}): B={batch_size} {REPPOINTS_HW[0]}x{REPPOINTS_HW[1]}, "
+        f"100 padded gt: fused {rates['fused']:.2f} img/s, peak {peaks['fused']:.2f} GiB; "
+        f"unfused {rates['unfused']:.2f} img/s, peak {peaks['unfused']:.2f} GiB; "
+        f"loss_normalizer after 15 steps {normalizers}")
+    if any(v == steps["fused"].model.loss_normalizer_init for v in normalizers.values()):
+        raise AssertionError(f"the EMA loss normaliser never moved: {normalizers}")
+
+
+def phase_reppoints_trainer(kernels, dev, smi):
+    """``train_net_torch.main`` on the RepPoints YAML (``family_trainer``):
+    train with a save, ``--resume`` bit-equal (the loss normaliser
+    included), evaluate; 1 NMS a test batch."""
+    family_trainer(kernels, smi, "reppoints", REPPOINTS_YAML, 30, REPPOINTS_STEP_LAUNCHES,
+                   predict_nms=1, loss_key="loss_localization_refine")
+
+
+def phase_reppoints_variants(kernels, dev, smi):
+    """Each of REPPOINTS_VARIANTS built at full width (bf16, the fused flags
+    on, seeded weights): one predict of B=2 at 896 x 1408 with finite outputs
+    and exactly 1 stem, the listed bottleneck wrappers and 1 NMS launch; one
+    train step of B=2 with 100 padded gt, exactly 1 stem and the listed
+    bottleneck launches, and a finite loss."""
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.ops import _build
+    from slenderobjdet_torch.solver import build_optimizer
+
+    req = requests(1, 2, seed=32, hw=REPPOINTS_HW)[0]
+    batch = train_batch(2, seed=33, hw=REPPOINTS_HW)
+    for i, (label, yaml, overrides, blocks) in enumerate(REPPOINTS_VARIANTS):
+        cfg = train_cfg(True, yaml=yaml)
+        cfg.defrost()
+        cfg.merge_from_list([x for kv in overrides.items() for x in kv])
+        cfg.SOLVER.BASE_LR = REPPOINTS_TRAIN_LR
+        cfg.freeze()
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(40 + i))
+        _build.reset_launch_counts()
+        out = model.predict(req)
+        torch.cuda.synchronize()
+        predicted = {k: v for k, v in _build.launch_counts().items() if v}
+        check_outputs(out, 2)
+        step = make_train_step(model, build_optimizer(cfg, model), cfg)
+        _build.reset_launch_counts()
+        metrics = {k: float(v) for k, v in step(batch).items()}
+        torch.cuda.synchronize()
+        stepped = {k: v for k, v in _build.launch_counts().items() if v}
+        want_step = {"fused_stem": 1, "fused_bottleneck": blocks}
+        log(f"reppoints variant {label} ({type(model).__name__}, {yaml}): predict B=2 launched "
+            f"{predicted}, {int(out['valid'].sum())} valid; train step B=2 launched {stepped}, "
+            f"total loss {metrics['total_loss']:.4f}; {time.perf_counter() - t0:.1f} s")
+        if predicted != {**want_step, "nms": 1} or stepped != want_step:
+            raise AssertionError(f"{label}: predict launched {predicted}, step {stepped}, "
+                                 f"expected {blocks} bottleneck wrappers")
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"{label}: non-finite train metrics {metrics}")
+        del model, step, out
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -2282,6 +2760,16 @@ def main() -> int:
     run("rcnn_train", phase_rcnn_train, kernels, dev, smi)
     torch.cuda.empty_cache()
     run("rcnn_trainer", phase_rcnn_trainer, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    if run("reppoints_build", lambda: models.extend(build_reppoints_models(dev))):
+        run("reppoints", phase_reppoints, kernels, dev, smi, models)
+    models.clear()
+    torch.cuda.empty_cache()
+    run("reppoints_train", phase_reppoints_train, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("reppoints_trainer", phase_reppoints_trainer, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("reppoints_variants", phase_reppoints_variants, kernels, dev, smi)
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

@@ -20,6 +20,13 @@ torch ``state_dict``:
   block ``norm1``, ``norm2``, ``norm3`` (bottleneck blocks only) and
   ``shortcut_norm`` in the order Flax numbered them;
 - ``head/scale{i}/scale`` -> a scalar parameter;
+- a Flax ``nn.GroupNorm`` named ``<tower>_gn{i}`` (the RepPoints head's
+  ``cls_gn{i}`` / ``reg_gn{i}``): ``scale`` -> ``weight``;
+- a deformable conv's raw ``weight`` (K, Cin, Cout) and ``bias``
+  (``DeformConvLayer``, ``DFConv2d``) keep their path and layout; the
+  ``offset_conv`` under a ``DFConv2d`` is a conv like any other;
+- the detector-level ``buffers/loss_normalizer`` (RepPoints' EMA) ->
+  ``loss_normalizer``;
 - every other ``kernel`` / ``bias`` keeps its path, ``kernel`` as ``weight``.
 
 It raises on any leaf it cannot place. ``load_flax_variables`` also checks
@@ -51,6 +58,8 @@ def _leaves(tree: Mapping, prefix=()):
 
 def _torch_name(collection: str, path, basic_blocks) -> str:
     *mods, leaf = path
+    if collection == "buffers" and not mods and leaf == "loss_normalizer":
+        return leaf
     if collection == "buffers":
         m = re.fullmatch(r"FrozenBatchNorm_(\d+)", mods[-1]) if mods else None
         if m is not None:
@@ -73,7 +82,9 @@ def _torch_name(collection: str, path, basic_blocks) -> str:
         return ".".join(mods[:-1] + [{"scale": "weight", "bias": "bias"}[leaf]])
     if re.fullmatch(r"scale\d+", mods[-1] if mods else "") and leaf == "scale":
         return ".".join(mods + ["scale"])
-    if leaf == "kernel":
+    if re.fullmatch(r"\w+_gn\d+", mods[-1] if mods else "") and leaf == "scale":
+        return ".".join(mods + ["weight"])
+    if leaf in ("kernel", "weight"):
         return ".".join(mods + ["weight"])
     if leaf == "bias":
         return ".".join(mods + ["bias"])

@@ -223,7 +223,9 @@ def import_d2_weights(state_dict: Dict[str, np.ndarray],
     def put_param(path_tuple, value):
         nonlocal loaded
         key = ".".join(path_tuple)
-        if key in own:
+        # a deformable conv2's (K, Cin, Cout) weight has no d2 counterpart
+        # here and keeps its initialisation, as the JAX import leaves it
+        if key in own and own[key].ndim != 3:
             if tuple(own[key].shape) != value.shape:
                 raise ValueError(f"shape mismatch {key}: "
                                  f"{tuple(own[key].shape)} vs {value.shape}")

@@ -5,9 +5,14 @@ layers cast each weight to the compute dtype), backward, gradient clipping,
 the LR of the step's schedule and the optimizer update.
 
 FrozenBN only: no BatchNorm statistics are written back, and trainable BN
-raises at model build. The update count is state (the JAX package's
-``TrainState.step``): a checkpoint saves it and a resumed run sets it, so
-the LR schedule goes on where it stopped.
+raises at model build. A detector-level running statistic is: the RepPoints
+EMA loss normaliser, which ``loss`` reports as ``metrics["loss_normalizer"]``
+and the step copies into the model's ``loss_normalizer`` buffer after the
+update, as the JAX train step writes it into ``TrainState.buffers``.
+
+The update count is state (the JAX package's ``TrainState.step``): a
+checkpoint saves it and a resumed run sets it, so the LR schedule goes on
+where it stopped.
 
 ``step_generator`` is the per-step source of training randomness (the R-CNN
 subsampling), the counterpart of ``fold_in(PRNGKey(SEED + 7919), i)``: a
@@ -29,7 +34,9 @@ class TrainStep:
     whatever the model's ``loss`` reports (FCOS: ``cls_loss``, ``reg_loss``,
     ``centerness_loss``, ``num_pos``; RetinaNet: ``loss_cls``,
     ``loss_box_reg``, ``num_pos``; R-CNN: ``loss_rpn_cls``, ``loss_rpn_loc``,
-    ``loss_cls``, ``loss_box_reg``, ``num_fg``).
+    ``loss_cls``, ``loss_box_reg``, ``num_fg``; RepPoints: ``loss_cls``,
+    ``loss_localization_init``, ``loss_localization_refine``, ``num_pos``,
+    ``loss_normalizer``).
     ``count`` is the number of updates made so far; it starts at 0, so the
     first update uses ``schedule(0)`` as optax does."""
 
@@ -50,6 +57,10 @@ class TrainStep:
         for group in self.optimizer.param_groups:
             group["lr"] = lr * group["lr_factor"]
         self.optimizer.step()
+        normalizer = getattr(self.model, "loss_normalizer", None)
+        if normalizer is not None and "loss_normalizer" in metrics:
+            with torch.no_grad():
+                normalizer.copy_(metrics["loss_normalizer"])
         self.count += 1
         out = {k: v.detach() for k, v in metrics.items()}
         out["total_loss"] = total.detach()

@@ -9,8 +9,11 @@ import torch
 from torch import nn
 
 from .meta_arch.fcos import FCOS
-from .meta_arch.hybrids import FCOSNCRetinaNet, FCOSRetinaNet, PointRetinaNet
+from .meta_arch.hybrids import (FCOSNCRetinaNet, FCOSRepPoints, FCOSRetinaNet,
+                                PointRetinaNet, RepPointsCenterness,
+                                ReppointsRetinaNet, RepPointsV2)
 from .meta_arch.rcnn import ProposalVisibleRCNN
+from .meta_arch.reppoints import RepPointsDetector
 from .meta_arch.retinanet import (CenternessRetinaNet, DeformableConvRetinaNet,
                                   NearestRetinaNet, RetinaNet)
 
@@ -36,9 +39,9 @@ def _rcnn_with_anchor(cfg) -> ProposalVisibleRCNN:
 # name -> constructor taking cfg. FCOSV2 is the reference's refactor of FCOS
 # with the same topk-then-NMS inference and GroupNet's head is FCOS's line for
 # line, so the three names share one class, as in the JAX package; so do
-# GeneralizedRCNN and ProposalVisibleRCNN.
-# DeformableConvRetinaNet is registered so that its config names what is
-# missing: its constructor raises NotImplementedError.
+# GeneralizedRCNN and ProposalVisibleRCNN. Not ported yet: AblationMetaArch
+# (ROADMAP.md queue 1, item 8), FCOSTopK, FCOSV3 and FCOSAnchor,
+# ProposalNetwork(WithMasks), RotatedRetinaNet and CornerNet.
 META_ARCHS = {
     "FCOS": FCOS,
     "FCOSV2": FCOS,
@@ -55,6 +58,11 @@ META_ARCHS = {
     "ProposalVisibleRCNN": ProposalVisibleRCNN,
     "GeneralizedRCNN": ProposalVisibleRCNN,
     "ProposalVisibleRCNNWithAnchor": _rcnn_with_anchor,
+    "RepPointsDetector": RepPointsDetector,
+    "RepPointsCenterness": RepPointsCenterness,
+    "RepPointsV2": RepPointsV2,
+    "FCOSRepPoints": FCOSRepPoints,
+    "ReppointsRetinaNet": ReppointsRetinaNet,
 }
 
 

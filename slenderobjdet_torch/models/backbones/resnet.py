@@ -10,9 +10,14 @@ Two seams run hand-written CUDA kernels in place of the plain layers, as the
 JAX package's Pallas seams do:
 - ``MODEL.RESNETS.FUSED_STEM``: the stem (``ops/fused_stem.py``);
 - ``MODEL.RESNETS.FUSED_BLOCKS``: each stride-1, groups-1, dilation-1
-  FrozenBN bottleneck block (``ops/fused_bottleneck.py``).
+  FrozenBN bottleneck block (``ops/fused_bottleneck.py``) whose conv2 is not
+  deformable.
 Both fold the FrozenBN scale into a weight rounded to the compute dtype and
 add the bias in fp32; in bf16 they differ from the plain path by rounding.
+
+``MODEL.RESNETS.DEFORM_ON_PER_STAGE`` makes a stage's conv2 a ``DFConv2d``
+(modulated with ``DEFORM_MODULATED``) where it has stride 1, groups 1 and
+dilation 1; such a block takes the plain path.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from torch import nn
 
 from ...ops.fused_bottleneck import fused_bottleneck
 from ...ops.fused_stem import fused_stem, stem_eligible
-from ..layers import Conv2d, get_norm
+from ..layers import Conv2d, DFConv2d, get_norm
 
 # depth -> (block type, stage block counts)
 RESNET_SPECS = {
@@ -76,16 +81,21 @@ class BottleneckBlock(nn.Module):
     def __init__(self, in_channels: int, features: int, bottleneck: int,
                  stride: int = 1, stride_in_1x1: bool = True, groups: int = 1,
                  dilation: int = 1, norm: str = "FrozenBN",
-                 fused: bool = False):
+                 fused: bool = False, deform: bool = False,
+                 deform_modulated: bool = False):
         super().__init__()
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.stride, self.groups, self.dilation = stride, groups, dilation
         self.norm = norm
         self.fused = fused
+        self.deform = deform
         self.conv1 = Conv2d(in_channels, bottleneck, 1, s1, bias=False)
         self.norm1 = get_norm(norm, bottleneck)
-        self.conv2 = Conv2d(bottleneck, bottleneck, 3, s3, padding=dilation,
-                            dilation=dilation, groups=groups, bias=False)
+        if deform and s3 == 1 and groups == 1 and dilation == 1:
+            self.conv2 = DFConv2d(bottleneck, bottleneck, modulated=deform_modulated)
+        else:
+            self.conv2 = Conv2d(bottleneck, bottleneck, 3, s3, padding=dilation,
+                                dilation=dilation, groups=groups, bias=False)
         self.norm2 = get_norm(norm, bottleneck)
         self.conv3 = Conv2d(bottleneck, features, 1, bias=False)
         self.norm3 = get_norm(norm, features)
@@ -97,8 +107,9 @@ class BottleneckBlock(nn.Module):
             self.shortcut = None
 
     def fused_eligible(self) -> bool:
-        return (self.fused and self.stride == 1 and self.groups == 1
-                and self.dilation == 1 and self.norm == "FrozenBN")
+        return (self.fused and self.stride == 1 and not self.deform
+                and self.groups == 1 and self.dilation == 1
+                and self.norm == "FrozenBN")
 
     def _fused_call(self, x):
         """The whole block as one fused kernel call, FrozenBN folded into
@@ -134,6 +145,8 @@ class ResNet(nn.Module):
                  num_groups: int = 1, width_per_group: int = 64,
                  stem_out_channels: int = 64, res2_out_channels: int = 256,
                  stride_in_1x1: bool = True, res5_dilation: int = 1,
+                 deform_on_per_stage: Sequence[bool] = (False,) * 4,
+                 deform_modulated: bool = False,
                  fused_blocks: bool = False, fused_stem: bool = False):
         super().__init__()
         block_type, stage_blocks = RESNET_SPECS[depth]
@@ -162,7 +175,9 @@ class ResNet(nn.Module):
                         in_channels, out_channels, bottleneck_channels,
                         stride=stride, stride_in_1x1=stride_in_1x1,
                         groups=num_groups, dilation=dilation, norm=norm,
-                        fused=fused_blocks)
+                        fused=fused_blocks,
+                        deform=deform_on_per_stage[stage_idx],
+                        deform_modulated=deform_modulated)
                 else:
                     block = BasicBlock(in_channels, out_channels,
                                        stride=stride, norm=norm)
@@ -205,9 +220,6 @@ def resnet_from_cfg(cfg) -> ResNet:
     if r.NORM != "FrozenBN":
         raise NotImplementedError(
             f"MODEL.RESNETS.NORM={r.NORM!r} is not ported (FrozenBN only)")
-    if any(r.DEFORM_ON_PER_STAGE):
-        raise NotImplementedError(
-            "MODEL.RESNETS.DEFORM_ON_PER_STAGE (deformable conv2) is not ported")
     return ResNet(
         depth=r.DEPTH,
         norm=r.NORM,
@@ -218,6 +230,8 @@ def resnet_from_cfg(cfg) -> ResNet:
         res2_out_channels=r.RES2_OUT_CHANNELS,
         stride_in_1x1=r.STRIDE_IN_1X1,
         res5_dilation=r.RES5_DILATION,
+        deform_on_per_stage=tuple(r.DEFORM_ON_PER_STAGE),
+        deform_modulated=r.DEFORM_MODULATED,
         fused_blocks=r.FUSED_BLOCKS,
         fused_stem=r.FUSED_STEM,
     )

@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.deform_conv import deform_apply, deform_conv2d_batched, kernel_base_offsets
+
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with float32 parameters that computes in the input's
@@ -73,6 +75,52 @@ class GroupNorm32(nn.GroupNorm):
                             self.bias, self.eps).to(x.dtype)
 
 
+class DeformConvLayer(nn.Module):
+    """3x3 deformable conv with the absolute-offset convention of
+    ``ops/deform_conv.py`` (counterpart of the JAX package's
+    ``meta_arch/reppoints.py:DeformConvLayer``): a float32 (K, Cin, Cout)
+    ``weight`` drawn from normal(0, 0.01) and a zero ``bias``.
+
+    Channels last: ``x`` (B, H, W, Cin) with offsets (B, H, W, K, 2), or
+    ``samples`` (B, H, W, K, Cin) gathered once for several convs at the same
+    offsets; the output (B, H, W, Cout) is in the input's dtype."""
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(9, in_channels, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x=None, offsets=None, samples=None, mask=None):
+        if samples is not None:
+            return deform_apply(samples, self.weight, self.bias)
+        return deform_conv2d_batched(x, offsets.float(), self.weight, self.bias, mask)
+
+
+class DFConv2d(DeformConvLayer):
+    """Offset-predicting 3x3 deformable conv, stride 1 (counterpart of the
+    JAX package's ``layers.py:DFConv2d``): a zero-initialised 3x3
+    ``offset_conv`` predicts 18 offsets (v1) or 27, offsets and a sigmoid
+    mask (v2, ``modulated``), in torch DCN's relative (dy, dx) x 9 convention,
+    shifted by ``kernel_base_offsets(3)`` to absolute ones. NCHW in and out
+    (``channels_last`` memory)."""
+
+    def __init__(self, in_channels: int, features: int, modulated: bool = True):
+        super().__init__(in_channels, features)
+        self.modulated = modulated
+        self.offset_conv = Conv2d(in_channels, 27 if modulated else 18, 3, padding=1)
+        nn.init.zeros_(self.offset_conv.weight)
+        nn.init.zeros_(self.offset_conv.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, h, w = x.shape
+        pred = self.offset_conv(x).float().permute(0, 2, 3, 1)     # (B, H, W, 27)
+        rel = pred[..., :18].reshape(b, h, w, 9, 2)
+        mask = torch.sigmoid(pred[..., 18:]) if self.modulated else None
+        base = torch.as_tensor(kernel_base_offsets(3), device=x.device)
+        out = super().forward(x.permute(0, 2, 3, 1), rel + base, mask=mask)
+        return out.permute(0, 3, 1, 2)
+
+
 def get_norm(norm: str, features: int) -> Optional[nn.Module]:
     """Norm factory for the norms the predict path uses."""
     if norm == "" or norm is None:
@@ -94,12 +142,21 @@ def init_detector_weights(model: nn.Module, generator: torch.Generator) -> None:
     (untruncated here), convs under ``head.`` normal(0, 0.01), conv biases 0,
     norms and scales at identity. Modules are visited in ``named_modules``
     order, which fixes the order of the draws; the caller sets the
-    classification bias to its focal prior afterwards."""
+    classification bias to its focal prior afterwards. A deformable conv's
+    (K, Cin, Cout) weight is drawn from normal(0, 0.01) wherever it sits, and
+    a ``DFConv2d``'s ``offset_conv`` starts at zero, so that its samples
+    start on the plain conv's grid."""
     def normal(t, std):
         t.copy_(torch.randn(t.shape, generator=generator) * std)
 
     for name, m in model.named_modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, DeformConvLayer):
+            normal(m.weight, 0.01)
+            m.bias.zero_()
+        elif name.endswith("offset_conv") and isinstance(m, nn.Conv2d):
+            m.weight.zero_()
+            m.bias.zero_()
+        elif isinstance(m, nn.Conv2d):
             if name.startswith("head."):
                 std = 0.01
             else:

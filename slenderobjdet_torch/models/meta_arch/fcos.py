@@ -33,21 +33,24 @@ from ...ops.topk import pair_top_k
 from ...structures import boxes as box_ops
 from ..anchors import fcos_locations
 from ..backbones.fpn import build_backbone
-from ..layers import (Conv2d, GroupNorm32, Scale, init_detector_weights,
-                      prior_bias)
+from ..layers import (Conv2d, DFConv2d, GroupNorm32, Scale,
+                      init_detector_weights, prior_bias)
 
 
 class FCOSHead(nn.Module):
     """Shared 4-conv GroupNorm cls/bbox towers, per-level ``Scale`` on the
     bbox prediction, exp() decoding (the NORM_REG_TARGETS=False path).
-    ``with_ctr=False`` leaves the centerness conv out."""
+    ``with_ctr=False`` leaves the centerness conv out; ``use_dcn_in_tower``
+    makes the last conv of each tower a ``DFConv2d``, modulated with
+    ``use_dcn_v2``."""
 
     def __init__(self, in_channels: int, num_classes: int, num_levels: int,
                  num_convs: int = 4, prior_prob: float = 0.01,
                  centerness_on_reg: bool = False,
                  norm_reg_targets: bool = False,
                  strides: Sequence[int] = (8, 16, 32, 64, 128),
-                 with_ctr: bool = True):
+                 with_ctr: bool = True, use_dcn_in_tower: bool = False,
+                 use_dcn_v2: bool = True):
         super().__init__()
         c = in_channels
         self.num_classes = num_classes
@@ -59,7 +62,10 @@ class FCOSHead(nn.Module):
         self.with_ctr = with_ctr
         for prefix in ("cls", "bbox"):
             for i in range(num_convs):
-                self.add_module(f"{prefix}_tower{i}", Conv2d(c, c, 3, padding=1))
+                deform = use_dcn_in_tower and i == num_convs - 1
+                self.add_module(f"{prefix}_tower{i}",
+                                DFConv2d(c, c, modulated=use_dcn_v2) if deform
+                                else Conv2d(c, c, 3, padding=1))
                 self.add_module(f"{prefix}_tower_gn{i}", GroupNorm32(c))
         self.cls_logits = Conv2d(c, num_classes, 3, padding=1)
         self.bbox_pred = Conv2d(c, 4, 3, padding=1)
@@ -237,7 +243,6 @@ class FCOS(FCOSModule):
         box under ``"anchors"``."""
         f = cfg.MODEL.FCOS
         unported = {
-            "MODEL.FCOS.USE_DCN_IN_TOWER": f.USE_DCN_IN_TOWER,
             "TPU.PACK_HEAD_LEVELS": cfg.TPU.PACK_HEAD_LEVELS,
             "TPU.INT8_PREDICT": cfg.TPU.INT8_PREDICT,
         }
@@ -257,6 +262,8 @@ class FCOS(FCOSModule):
             norm_reg_targets=f.NORM_REG_TARGETS,
             strides=tuple(f.FPN_STRIDES),
             with_ctr=use_centerness,
+            use_dcn_in_tower=f.USE_DCN_IN_TOWER,
+            use_dcn_v2=f.USE_DCN_V2,
         )
         super().__init__(backbone, head, f.IN_FEATURES, cfg.MODEL.PIXEL_MEAN,
                          cfg.MODEL.PIXEL_STD, dtype)

@@ -31,7 +31,7 @@ from ...ops.topk import pair_top_k
 from ...structures import boxes as box_ops
 from ..anchors import AnchorGeneratorSpec
 from ..backbones.fpn import build_backbone
-from ..layers import Conv2d, init_detector_weights, prior_bias
+from ..layers import Conv2d, DFConv2d, init_detector_weights, prior_bias
 from ..matchers import iou_matcher
 from .fcos import fcos_assign, sizes_of_interest
 from .reppoints import rep_points_assign_with_idx
@@ -39,10 +39,12 @@ from .reppoints import rep_points_assign_with_idx
 
 class RetinaNetHead(nn.Module):
     """Shared 4-conv cls/bbox subnets without norms, ``num_anchors`` anchors a
-    cell."""
+    cell; ``use_dcn`` makes each subnet conv a modulated ``DFConv2d``
+    (DeformableConvRetinaNet)."""
 
     def __init__(self, in_channels: int, num_classes: int, num_anchors: int,
-                 num_convs: int = 4, prior_prob: float = 0.01):
+                 num_convs: int = 4, prior_prob: float = 0.01,
+                 use_dcn: bool = False):
         super().__init__()
         c = in_channels
         self.num_classes = num_classes
@@ -51,7 +53,9 @@ class RetinaNetHead(nn.Module):
         self.prior_prob = prior_prob
         for prefix in ("cls", "bbox"):
             for i in range(num_convs):
-                self.add_module(f"{prefix}_subnet{i}", Conv2d(c, c, 3, padding=1))
+                self.add_module(f"{prefix}_subnet{i}",
+                                DFConv2d(c, c, modulated=True) if use_dcn
+                                else Conv2d(c, c, 3, padding=1))
         self.cls_score = Conv2d(c, num_anchors * num_classes, 3, padding=1)
         self.bbox_pred = Conv2d(c, num_anchors * 4, 3, padding=1)
 
@@ -148,11 +152,6 @@ class RetinaNet(RetinaNetModule):
 
     def __init__(self, cfg, use_dcn: bool = False, assign_mode: str = "iou",
                  with_anchor: bool = False):
-        if use_dcn:
-            raise NotImplementedError(
-                "DeformableConvRetinaNet is not ported: its head towers are "
-                "modulated deformable convolutions, which come with the "
-                "RepPoints family (ROADMAP.md, deformable convolution)")
         if assign_mode not in ("iou", "fcos", "nearest"):
             raise ValueError(assign_mode)
         for key in ("PACK_HEAD_LEVELS", "INT8_PREDICT"):
@@ -173,6 +172,7 @@ class RetinaNet(RetinaNetModule):
             num_anchors=num_anchors,
             num_convs=r.NUM_CONVS,
             prior_prob=r.PRIOR_PROB,
+            use_dcn=use_dcn,
         )
         super().__init__(backbone, head, in_features, cfg.MODEL.PIXEL_MEAN,
                          cfg.MODEL.PIXEL_STD, dtype)
@@ -358,8 +358,8 @@ class RetinaNet(RetinaNetModule):
 
 
 class DeformableConvRetinaNet(RetinaNet):
-    """RetinaNet with modulated deformable convs in the head towers: not
-    ported, the constructor raises."""
+    """RetinaNet with modulated deformable convs (``DFConv2d``) in the head's
+    subnets."""
 
     def __init__(self, cfg):
         super().__init__(cfg, use_dcn=True)

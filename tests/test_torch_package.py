@@ -22,11 +22,12 @@ ROOT = Path(__file__).resolve().parents[1]
 CONFIG = ROOT / "configs/fcos/fcos_R_50_FPN_1x.yaml"
 RETINA_CONFIG = ROOT / "configs/retina/retinanet_R_50_FPN_1x.yaml"
 RCNN_CONFIG = ROOT / "configs/faster/faster_rcnn_R_50_FPN_1x.yaml"
+REPPOINTS_CONFIG = ROOT / "configs/rep-points/rep_points_detector_R_50_FPN_1x.yaml"
 
 
 def test_port_imports_no_jax():
     """Importing the port (its train step and probe tools included) and
-    building the flagship model, RetinaNet and Faster R-CNN leaves jax, flax
+    building the flagship model, RetinaNet, Faster R-CNN and RepPoints leaves jax, flax
     and the JAX package out of sys.modules (a fresh interpreter)."""
     code = f"""
 import sys
@@ -41,16 +42,17 @@ from slenderobjdet_torch.tools import bw_probe, dma_streams_probe, fused_kernel_
 from slenderobjdet_torch.models import anchors, matchers
 from slenderobjdet_torch.models.meta_arch import hybrids, rcnn, reppoints, retinanet
 from slenderobjdet_torch.models import sampling
-from slenderobjdet_torch.ops import roi_align
+from slenderobjdet_torch.ops import deform_conv, roi_align
 names = []
-for config in ({str(CONFIG)!r}, {str(RETINA_CONFIG)!r}, {str(RCNN_CONFIG)!r}):
+for config in ({str(CONFIG)!r}, {str(RETINA_CONFIG)!r}, {str(RCNN_CONFIG)!r},
+               {str(REPPOINTS_CONFIG)!r}):
     cfg = get_cfg()
     cfg.merge_from_file(config)
     cfg.MODEL.RESNETS.DEPTH = 18
     model = build_model(cfg, device="cpu")
     make_train_step(model, build_optimizer(cfg, model), cfg)
     names.append(type(model).__name__)
-assert names == ["FCOS", "RetinaNet", "ProposalVisibleRCNN"], names
+assert names == ["FCOS", "RetinaNet", "ProposalVisibleRCNN", "RepPointsDetector"], names
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'slenderobjdet_tpu')]
 print(bad)
@@ -78,10 +80,10 @@ def _flagship(**overrides):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("MODEL.FCOS.USE_DCN_IN_TOWER", True),
+    ("MODEL.RESNETS.NORM", "BN"),
     ("TPU.PACK_HEAD_LEVELS", True),
     ("TPU.INT8_PREDICT", True),
-    ("MODEL.RESNETS.DEFORM_ON_PER_STAGE", [False, True, False, False]),
+    ("MODEL.RESNETS.NORM", "SyncBN"),
     ("MODEL.RESNETS.NORM", "GN"),
 ])
 def test_unported_options_raise(key, value):
@@ -90,7 +92,7 @@ def test_unported_options_raise(key, value):
 
 
 def test_unknown_meta_architecture_lists_available():
-    cfg = _flagship(**{"MODEL.META_ARCHITECTURE": "RepPointsDetector"})
+    cfg = _flagship(**{"MODEL.META_ARCHITECTURE": "AblationMetaArch"})
     with pytest.raises(KeyError, match="FCOSV2.*RetinaNet"):
         build_model(cfg, device="cpu")
 
@@ -470,3 +472,80 @@ def test_rpn_level_nms_matches_plain_on_gpu():
     with pytest.raises(ValueError, match="shared memory"):
         nms.cuda_batched_nms(torch.zeros(1, 8924, 4, device=dev), torch.zeros(1, 8924, device=dev),
                              torch.zeros(1, 8924, dtype=torch.int32, device=dev), 0.7, 1000)
+
+
+@pytest.mark.gpu
+def test_deform_op_bf16_matches_fp32_on_gpu():
+    """The deformable conv on the card: bf16 forward and its feature, offset
+    and weight gradients against the same op in float32 on the same inputs,
+    within 3e-2 of the float32 result's max abs value; offsets fractional,
+    some samples outside the map."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from slenderobjdet_torch.ops import deform_conv as dc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(9)
+    x = torch.tensor(rs.randn(2, 20, 28, 64), dtype=torch.float32, device=dev)
+    off = torch.tensor(dc.kernel_base_offsets(3) + rs.randn(2, 20, 28, 9, 2) * 2.0,
+                       dtype=torch.float32, device=dev)
+    w = torch.tensor(rs.randn(9, 64, 32) * 0.05, dtype=torch.float32, device=dev)
+    g = torch.tensor(rs.randn(2, 20, 28, 32), dtype=torch.float32, device=dev)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        xs = x.to(dt).detach().requires_grad_(True)
+        offs = off.clone().requires_grad_(True)
+        ws = w.clone().requires_grad_(True)
+        y = dc.deform_conv2d_batched(xs, offs, ws, row_chunk=4096)
+        (y.float() * g).sum().backward()
+        out[dt] = [t.float() for t in (y, xs.grad, offs.grad, ws.grad)]
+    for name, a, b in zip(("out", "feat", "offsets", "weight"), out[torch.bfloat16],
+                          out[torch.float32]):
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= 3e-2, (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("modulated", [False, True])
+def test_dfconv2d_at_zero_offsets_matches_cudnn_on_gpu(modulated):
+    """A zero ``offset_conv`` samples the kernel grid: v1 equals the cuDNN 3x3
+    conv with the same weights, v2 half of it, within 1e-4 in float32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from slenderobjdet_torch.models.layers import DFConv2d
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    layer = DFConv2d(64, 48, modulated=modulated).to(dev)
+    with torch.no_grad():
+        layer.weight.normal_(0.0, 0.05)
+    x = torch.randn(2, 64, 24, 36, device=dev).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        got = layer(x)
+        w = layer.weight.permute(2, 1, 0).reshape(48, 64, 3, 3)
+        want = torch.nn.functional.conv2d(x, w, layer.bias, padding=1)
+    scale = 0.5 if modulated else 1.0
+    err = float((got - want * scale).abs().max() / want.abs().max())
+    assert err <= 1e-4, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["RepPointsDetector", "RepPointsCenterness", "RepPointsV2",
+                                  "FCOSRepPoints", "ReppointsRetinaNet",
+                                  "DeformableConvRetinaNet"])
+def test_reppoints_family_builds_on_the_card(arch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = torch_get_cfg()
+    cfg.merge_from_file(str(REPPOINTS_CONFIG))
+    cfg.MODEL.META_ARCHITECTURE = arch
+    cfg.MODEL.RESNETS.DEPTH = 18
+    model = build_model(cfg)
+    assert type(model).__name__ == arch
+    assert all(p.device.type == "cuda" for p in model.parameters())
+    batch = {"image": np.zeros((1, 64, 96, 3), np.uint8), "scale": np.ones(1, np.float32),
+             "orig_size": np.array([[64, 96]], np.float32)}
+    out = model.predict(batch)
+    assert out["boxes"].shape == (1, 100, 4) and bool(torch.isfinite(out["boxes"]).all())

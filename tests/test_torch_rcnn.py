@@ -508,7 +508,11 @@ def test_rcnn_predict_matches_jax(rcnn_pair, arch):
 
 # ---------------------------------------------------------------- registry
 def test_registry_holds_the_fourteen_names():
-    assert sorted(META_ARCHS) == sorted(FOURTEEN + ["DeformableConvRetinaNet"])
+    """The fourteen names of the earlier chassis and the six of deformable
+    convolution and the point-set family."""
+    assert sorted(META_ARCHS) == sorted(FOURTEEN + [
+        "DeformableConvRetinaNet", "RepPointsDetector", "RepPointsCenterness", "RepPointsV2",
+        "FCOSRepPoints", "ReppointsRetinaNet"])
 
 
 @pytest.mark.parametrize("arch", ["ProposalVisibleRCNN", "GeneralizedRCNN",

@@ -648,12 +648,15 @@ def test_fcos_with_anchor_matches_jax():
 
 # ---------------------------------------------------------------- registry
 def test_registry_holds_the_eleven_names():
-    """The eleven names of the FCOS and RetinaNet chassis and the DCN one
-    that raises; the rest are Faster R-CNN's (tests/test_torch_rcnn.py)."""
+    """The eleven names of the FCOS and RetinaNet chassis and the DCN one;
+    the rest are Faster R-CNN's (tests/test_torch_rcnn.py) and the point-set
+    family's (tests/test_torch_reppoints.py)."""
     chassis = ELEVEN + ["DeformableConvRetinaNet"]
     assert set(chassis) <= set(META_ARCHS) and len(set(chassis)) == 12
-    assert set(META_ARCHS) - set(chassis) == {"ProposalVisibleRCNN", "GeneralizedRCNN",
-                                              "ProposalVisibleRCNNWithAnchor"}
+    assert set(META_ARCHS) - set(chassis) == {
+        "ProposalVisibleRCNN", "GeneralizedRCNN", "ProposalVisibleRCNNWithAnchor",
+        "RepPointsDetector", "RepPointsCenterness", "RepPointsV2", "FCOSRepPoints",
+        "ReppointsRetinaNet"}
 
 
 @pytest.mark.parametrize("arch", ELEVEN)
@@ -688,18 +691,18 @@ def test_retina_yamls_build_on_the_cpu(yaml_name, arch):
     cfg.merge_from_file(str(RETINA / yaml_name))
     assert cfg.MODEL.META_ARCHITECTURE == arch
     cfg.MODEL.RESNETS.DEPTH = 18
-    if arch == "DeformableConvRetinaNet":
-        with pytest.raises(NotImplementedError, match="deformable conv"):
-            torch_build_model(cfg, device="cpu")
-        return
     model = torch_build_model(cfg, device="cpu")
     assert type(model).__name__ == arch and model.dtype == torch.bfloat16
+    if arch == "DeformableConvRetinaNet":
+        from slenderobjdet_torch.models.layers import DFConv2d
+
+        assert isinstance(model.head.cls_subnet0, DFConv2d) and model.head.cls_subnet0.modulated
     assert [n for n, _ in model.backbone.named_children() if n.startswith("top_")] == [
         "top_p6", "top_p7"]
 
 
 def test_build_model_lists_what_is_available():
-    cfg = tiny_cfg(torch_get_cfg, "RepPointsDetector")
+    cfg = tiny_cfg(torch_get_cfg, "AblationMetaArch")
     with pytest.raises(KeyError, match="NearestRetinaNet") as err:
         torch_build_model(cfg, device="cpu")
     assert all(name in str(err.value) for name in ELEVEN)

@@ -356,7 +356,8 @@ def test_retinanet_main_evaluates_on_the_cpu(synth, arch):
 # ------------------------------------------------------- options and windows
 @pytest.mark.parametrize("overrides,match", [
     ({"TEST.AUG.ENABLED": True}, "TEST.AUG.ENABLED"),
-    ({"MODEL.META_ARCHITECTURE": "DeformableConvRetinaNet"}, "deformable conv"),
+    ({"MODEL.META_ARCHITECTURE": "RepPointsDetector",
+      "MODEL.REPPOINTS.TRANSFORM_METHOD": "moment"}, "moment_transfer"),
     ({"NEED_MASKS": True}, "NEED_MASKS"),
 ])
 def test_unported_trainer_options_raise(synth, overrides, match):
