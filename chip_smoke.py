@@ -688,10 +688,10 @@ def build_models(dev, yaml: str = FCOS_YAML, cls_bias: float = 0.0):
 
 
 def classifier(model):
-    """The head's last classification conv: FCOS's, RetinaNet's or the
-    point-set head's."""
+    """The head's last classification conv: FCOS's (and FCOSAnchor's),
+    RetinaNet's, the point-set head's or the ablation head's."""
     head = model.head
-    for name in ("cls_logits", "cls_score", "logits_out"):
+    for name in ("cls_logits", "cls_score", "logits_out", "cls_out"):
         if hasattr(head, name):
             return getattr(head, name)
     raise AttributeError(f"{type(head).__name__} has no classifier")
@@ -748,6 +748,8 @@ def check_heads(label, parts, req, dev, model, plain, ref32):
         images = torch.as_tensor(req["image"], device=dev)
         heads = [m(images) for m in (model, plain, ref32)]
     for part, f_l, p_l, r_l in zip(parts, *heads):
+        if not r_l:       # a part this head does not have (the ablation's centerness)
+            continue
         e_f = max(ratio(f, r) for f, r in zip(f_l, r_l))
         e_p = max(ratio(p, r) for p, r in zip(p_l, r_l))
         log(f"head {label} {part} vs fp32: fused bf16 err ratio {e_f:.3e}, unfused "
@@ -2669,6 +2671,438 @@ def phase_reppoints_variants(kernels, dev, smi):
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------- the ablation chassis
+ABLATION_DIR = "configs/ablation_studies"
+ABLATION_HW = LOADER_SHAPES[0]       # the loader's landscape bucket, 896 x 1408
+# (label, yaml): the repo's three ablation configs, one head each
+ABLATION_YAMLS = (("anchor_empty", f"{ABLATION_DIR}/anchor_empty.yaml"),
+                  ("lrtb_unsup", f"{ABLATION_DIR}/lrtb_unsup.yaml"),
+                  ("pointset_sup", f"{ABLATION_DIR}/pointset_sup.yaml"))
+ABLATION_ADAPTIONS = ("Empty", "Unsupervised Offset", "Split Unsup Offset", "Supervised Offset")
+ABLATION_YAML_OF = {"LRTBHead": "lrtb_unsup", "LRTBTopkHead": "lrtb_unsup",
+                    "PointSetHead": "pointset_sup", "AnchorHead": "anchor_empty"}
+FCOS_TOPK_YAML = "configs/fcos/fcos_topk_R_50_FPN_1x.yaml"
+FCOS_ANCHOR_YAML = "configs/fcos_anchor/fcos_anchor_R_50_FPN_1x.yaml"
+ABLATION_STEP_LAUNCHES = {"fused_stem": 1, "fused_bottleneck": 13}
+ABLATION_PREDICT_LAUNCHES = {"fused_stem": 1, "fused_bottleneck": 13, "nms": 1}
+# the RepPoints phases' setting: the same focal loss over 420,112 points x 80
+# classes and smooth-L1 over point-set boxes, the classifier shaped
+ABLATION_TRAIN_LR = REPPOINTS_TRAIN_LR
+DEFORM_P3_FP32 = (8, 112, 176, 9, 256)   # B, H, W, K, C: one adapted conv's gather at P3
+
+
+def ablation_cells():
+    """(label, yaml, overrides) of the 12 head x adaption cells,
+    LRTBTopkHead, FCOSTopK and FCOSAnchor."""
+    yamls = dict(ABLATION_YAMLS)
+    cells = [(f"{head} x {adaption}", yamls[ABLATION_YAML_OF[head]],
+              {"MODEL.META_ARCH.NAME": head, "MODEL.META_ARCH.FEAT_ADAPTION": adaption})
+             for head in ("LRTBHead", "PointSetHead", "AnchorHead")
+             for adaption in ABLATION_ADAPTIONS]
+    cells.append(("LRTBTopkHead x Empty", yamls["lrtb_unsup"],
+                  {"MODEL.META_ARCH.NAME": "LRTBTopkHead", "MODEL.META_ARCH.FEAT_ADAPTION": "Empty"}))
+    return cells + [("FCOSTopK", FCOS_TOPK_YAML, {}), ("FCOSAnchor", FCOS_ANCHOR_YAML, {})]
+
+
+def ablation_cfg(yaml, overrides, fused=True, dtype="bfloat16", lr=None):
+    cfg = train_cfg(fused, dtype, yaml=yaml)
+    cfg.defrost()
+    cfg.merge_from_list([x for kv in overrides.items() for x in kv])
+    if lr is not None:
+        cfg.SOLVER.BASE_LR = lr
+    cfg.freeze()
+    return cfg
+
+
+def phase_ablation_build(dev, smi, built):
+    """Each cell of ``ablation_cells`` built on the card at full width (R-50,
+    256-wide heads, 80 classes, bf16, the fused flags on) from a seeded
+    generator; the parameter counts are printed. The models are left in
+    ``built`` for ``ablation_grid``."""
+    from slenderobjdet_torch.models import build_model
+
+    for i, (label, yaml, overrides) in enumerate(ablation_cells()):
+        t0 = time.perf_counter()
+        model = build_model(ablation_cfg(yaml, overrides, lr=ABLATION_TRAIN_LR), device=dev,
+                            generator=torch.Generator().manual_seed(60 + i))
+        n = sum(p.numel() for p in model.parameters())
+        if any(p.device.type != "cuda" for p in model.parameters()):
+            raise AssertionError(f"{label}: a parameter is not on the card")
+        log(f"ablation build {label} ({type(model).__name__}, {yaml}): {n:,} parameters, "
+            f"{time.perf_counter() - t0:.1f} s")
+        built[label] = model
+
+
+def comparable_ablation(gen, images, *models):
+    """Make the detections of two roundings of one ablation detector
+    comparable, as ``comparable_reppoints`` does: every box is the same bits
+    in both and an exact function of its location, and the NMS is given
+    nothing to decide.
+    - ``loc_init_out`` and ``loc_refine_out`` have zero filters; LRTB's
+      biases are 1 with each level's scales at log(0.3 stride) (ltrb of 0.3
+      stride); PointSet's init bias is the kernel grid x 0.3 + 0.35 (the
+      refine adds 0); AnchorHead's refine bias is (0, 0, -12, -12) an anchor
+      (the anchor shrunk to a point at its centre) and every anchor shape but
+      one gets a class bias of -30, so a cell holds one candidate a class;
+    - ``cls_out``'s filters are one shared random filter, scaled so that the
+      logits of ``images`` spread by 0.3, plus a per-class one a fiftieth its
+      size, and class c's bias is -3 - 0.25 c."""
+    import math
+
+    from slenderobjdet_torch.ops.deform_conv import kernel_base_offsets
+
+    head, name = models[0].head, models[0].head_name
+    A, C = head.num_anchors, head.num_classes
+    w = head.cls_out.weight
+    shared = torch.randn(w.shape[1:], generator=gen)
+    per_class = torch.randn(w.shape, generator=gen) / 50
+    class_bias = torch.full((A, C), -30.0)
+    class_bias[A // 2] = -3.0 - 0.25 * torch.arange(C)
+    with torch.no_grad():
+        for m in models:
+            h = m.head
+            h.loc_init_out.weight.zero_()
+            h.loc_refine_out.weight.zero_()
+            if name.startswith("LRTB"):
+                h.loc_init_out.bias.fill_(1.0)
+                h.loc_refine_out.bias.fill_(1.0)
+                for i, stride in enumerate(m.strides):
+                    getattr(h, f"scale_init{i}").scale.fill_(math.log(0.3 * stride))
+                    getattr(h, f"scale_refine{i}").scale.fill_(math.log(0.3 * stride))
+            elif name == "PointSetHead":
+                grid = torch.from_numpy(kernel_base_offsets(3)[:, ::-1].copy()).flatten()
+                h.loc_init_out.bias.copy_(grid * 0.3 + 0.35)
+                h.loc_refine_out.bias.zero_()
+            else:
+                h.loc_init_out.bias.zero_()
+                h.loc_refine_out.bias.copy_(torch.tensor([0.0, 0.0, -12.0, -12.0]).repeat(A))
+            h.cls_out.weight.copy_(shared + per_class)
+            h.cls_out.bias.zero_()
+        logits = torch.cat([lg.flatten() for lg in models[0](images)[0]])
+        for m in models:
+            m.head.cls_out.weight.mul_(0.3 / float(logits.float().std()))
+            m.head.cls_out.bias.copy_(class_bias.flatten())
+
+
+def ablation_parts(model, images, hw):
+    """Device ms of each part of a predict call: trunk (normalise, backbone,
+    FPN), towers, init branch and offsets, deform sampling, the adapted
+    convs' matmuls (``Empty``: the plain 3x3 convs), 1x1 outputs, and the
+    postprocess; and the bytes the sampling writes."""
+    from slenderobjdet_torch.models.meta_arch.ablation import MetaDeformConv
+
+    head = model.head
+    deform = isinstance(head.cls_conv, MetaDeformConv)
+    with torch.inference_mode():
+        feats = model.features(images)
+        towers = [head.towers(f) for f in feats]
+        inits = [head.init_loc(lf, i) for i, (_, lf) in enumerate(towers)]
+        offs = [head.offsets(lf, li, i) for i, ((_, lf), li) in enumerate(zip(towers, inits))]
+
+        def sample_all():
+            return [(head.cls_conv.sample(cf, o[0]), head.loc_refine_conv.sample(lf, o[1]))
+                    for (cf, lf), o in zip(towers, offs)]
+
+        samples = sample_all() if deform else None
+
+        def adapt_all():
+            if not deform:
+                return [head.adapt(cf, lf, o) for (cf, lf), o in zip(towers, offs)]
+            return [(head.cls_conv.apply_samples(sc, cf.dtype),
+                     head.loc_refine_conv.apply_samples(sl, lf.dtype))
+                    for (sc, sl), (cf, lf) in zip(samples, towers)]
+
+        adapted = adapt_all()
+        outs = [head.outputs(cf, lf, li, i) for i, ((cf, lf), li) in enumerate(zip(adapted, inits))]
+        flat = ([lg.flatten(1, 3).reshape(lg.shape[0], -1, head.num_classes) for lg, _, _ in outs],
+                [c.flatten(1) for _, c, _ in outs if c is not None],
+                [li.reshape(li.shape[0], -1, head.loc_dim) for li in inits],
+                [rf.reshape(rf.shape[0], -1, head.loc_dim) for _, _, rf in outs])
+        B = images.shape[0]
+        scale = torch.ones(B, device=images.device)
+        orig = torch.tensor([hw] * B, dtype=torch.float32, device=images.device)
+        x = ((images.float() - model.pixel_mean) / model.pixel_std).to(model.dtype)
+        x = x.permute(0, 3, 1, 2)
+        parts = {
+            "trunk": cuda_ms(lambda: model.backbone(x), 5),
+            "towers": cuda_ms(lambda: [head.towers(f) for f in feats], 5),
+            "init + offsets": cuda_ms(lambda: [head.offsets(lf, head.init_loc(lf, i), i)
+                                               for i, (_, lf) in enumerate(towers)], 5),
+            "deform sampling": cuda_ms(sample_all, 3) if deform else 0.0,
+            "deform matmuls" if deform else "adapted 3x3 convs": cuda_ms(adapt_all, 5),
+            "1x1 outputs": cuda_ms(lambda: [head.outputs(cf, lf, li, i) for i, ((cf, lf), li)
+                                            in enumerate(zip(adapted, inits))], 5),
+            "postprocess": cuda_ms(lambda: model.postprocess(flat, hw, scale, orig), 5),
+        }
+        gathered = 0 if not deform else sum(t.numel() * t.element_size()
+                                            for pair in samples for t in pair)
+    return parts, gathered
+
+
+def deform_fp32_check(smi, dev):
+    """The adapted conv's deform op alone at P3 (DEFORM_P3_FP32), in fp32 as
+    the ablation head runs it: the sampling against ``F.grid_sample`` of the
+    same samples (within FP32_TOL), then the sampling forward, forward +
+    backward, the matmul and ``F.grid_sample`` timed beside their bounds."""
+    import torch.nn.functional as F
+
+    from slenderobjdet_torch.ops import deform_conv as dc
+
+    B, H, W, K, C = DEFORM_P3_FP32
+    gen = torch.Generator(device=dev).manual_seed(34)
+    feat = torch.randn(B, H, W, C, device=dev, generator=gen)
+    off = (torch.as_tensor(dc.kernel_base_offsets(3), device=dev)
+           + torch.randn(B, H, W, K, 2, device=dev, generator=gen) * 1.5)
+    ys = torch.arange(H, device=dev)[None, :, None, None] + off[..., 0]
+    xs = torch.arange(W, device=dev)[None, None, :, None] + off[..., 1]
+    grid = torch.stack([xs / (W - 1) * 2 - 1, ys / (H - 1) * 2 - 1], -1).reshape(B, H, W * K, 2)
+    del ys, xs
+
+    def grid_sample():
+        return F.grid_sample(feat.permute(0, 3, 1, 2), grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    with torch.no_grad():
+        samples = dc.deform_sample_batched(feat, off)
+        lib_err = ratio(grid_sample().permute(0, 2, 3, 1).reshape(B, H, W, K, C), samples)
+    if lib_err > FP32_TOL:
+        raise AssertionError(f"fp32 deform sampling vs F.grid_sample: {lib_err}")
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: dc.deform_sample_batched(feat, off), 3)
+        lib_ms = cuda_ms(grid_sample, 3)
+        weight = torch.randn(K, C, C, device=dev, generator=gen) * 0.01
+        mm_ms = cuda_ms(lambda: dc.deform_apply(samples, weight), 3)
+    f = feat.detach().requires_grad_(True)
+    o = off.detach().requires_grad_(True)
+    g = torch.randn_like(samples)
+
+    def forward_backward():
+        torch.autograd.grad(dc.deform_sample_batched(f, o), (f, o), grad_outputs=g)
+
+    both_ms = cuda_ms(forward_backward, 2)
+    n = B * H * W * K
+    s_bound, s_by = bound_ms(nbytes(feat, off, samples), n * C * 8, PEAK_FP32_FLOPS)
+    b_bound, b_by = bound_ms(2 * nbytes(feat, off) + nbytes(feat, off, g), n * C * 16,
+                             PEAK_FP32_FLOPS)
+    mm_flops = 2 * B * H * W * K * C * C
+    m_bound, m_by = bound_ms(nbytes(samples, weight) + B * H * W * C * 4, mm_flops,
+                             PEAK_FP32_FLOPS)
+    log(f"time deform op fp32 ({smi}), one adapted conv at P3, B={B} {H}x{W} K={K} C={C}: "
+        f"sampling forward {fwd_ms:.3f} ms (bound {s_bound:.3f} ms by {s_by}, "
+        f"{s_bound / fwd_ms:.3f} of it; writes {nbytes(samples) / 1e9:.3f} GB); F.grid_sample "
+        f"of the same samples {lib_ms:.3f} ms (agreeing to {lib_err:.2e}); forward + backward "
+        f"{both_ms:.3f} ms (bound {b_bound:.3f} ms by {b_by}); the matmul (B*H*W, {K * C}) @ "
+        f"({K * C}, {C}) in fp32 {mm_ms:.3f} ms ({mm_flops / mm_ms / 1e9:.1f} TFLOP/s; bound "
+        f"{m_bound:.3f} ms by {m_by})")
+    del feat, off, grid, samples, f, o, g, weight
+    torch.cuda.empty_cache()
+
+
+def phase_ablation(kernels, dev, smi):
+    """The ablation chassis's predict path at 896 x 1408 on the repo's three
+    yamls (ABLATION_YAMLS), each fused and unfused in bf16 and in fp32 from
+    the same seeded weights: head outputs against fp32; the NMS kernel against
+    ``batched_nms`` on the head's own candidates (the classifier's bias moved
+    so that the coarsest level's 99.5th percentile score sits on the
+    threshold), identical; 3 requests of 8 images with exactly 1 stem, 13
+    bottleneck and 1 NMS launch each; fused against unfused detections by
+    (class, box) on fixed boxes (``comparable_ablation``,
+    ``match_on_shared_proposals``); device ms of each part; predict img/s at
+    B=8 and 32. Then the fp32 deform op alone (``deform_fp32_check``)."""
+    from slenderobjdet_torch.ops import _build
+
+    for i, (label, yaml) in enumerate(ABLATION_YAMLS):
+        model, plain, ref32 = build_models(dev, yaml, RETINANET_CLS_BIAS)
+        reqs = requests(3, 8, seed=35 + i, hw=ABLATION_HW)
+        parts = ("logits", "centerness", "init loc", "refine loc")
+        check_heads(f"ablation {label}", parts, reqs[0], dev, model, plain, ref32)
+        del ref32
+        torch.cuda.empty_cache()
+
+        with torch.inference_mode():
+            images = torch.as_tensor(reqs[0]["image"], device=dev)
+            top = model(images)[0][-1].flatten().float()
+            shift = RETINANET_CLS_BIAS - float(torch.kthvalue(top, int(0.995 * top.numel())).values)
+            for m in (model, plain):
+                m.head.cls_out.bias.add_(shift)
+            outputs = model(images)
+            boxes, scores, classes, valid = model.candidates(outputs, ABLATION_HW)
+        want_n = sum(min(model.topk_candidates, lg.shape[1] * lg.shape[2]) for lg in outputs[0])
+        if boxes.shape[1] != want_n:
+            raise AssertionError(f"ablation {label}: {boxes.shape[1]} candidates, not {want_n}")
+        nms_check(kernels, smi, f"ablation_{label}", f"B8_N{want_n}", boxes, scores, valid,
+                  model.nms_thresh, model.max_dets, classes=classes)
+        del outputs, boxes, scores, classes, valid, top
+
+        comparable_ablation(torch.Generator().manual_seed(36 + i), images, model, plain)
+        per_call, outs = [], []
+        for r in reqs + requests(1, 32, seed=38 + i, hw=ABLATION_HW):
+            _build.reset_launch_counts()
+            outs.append(model.predict(r))
+            torch.cuda.synchronize()
+            per_call.append({k: v for k, v in _build.launch_counts().items() if v})
+        log(f"ablation {label} predict launches a call (3 of B=8, 1 of B=32) at "
+            f"{ABLATION_HW[0]}x{ABLATION_HW[1]}: {per_call}")
+        if any(c != ABLATION_PREDICT_LAUNCHES for c in per_call):
+            raise AssertionError(f"ablation {label} predict launched {per_call}, expected "
+                                 f"{ABLATION_PREDICT_LAUNCHES}")
+        for k in PREDICT_KERNELS:
+            kernels[k].setdefault("launches_by_path", {})[f"ablation_{label}_predict"] = sum(
+                c[k] for c in per_call)
+        for out, b in zip(outs, (8, 8, 8, 32)):
+            check_outputs(out, b)
+        outs = outs[:3]
+        n_valid = sum(int(o["valid"].sum()) for o in outs)
+        if n_valid <= 0:
+            raise AssertionError(f"ablation {label}: no valid detections")
+
+        matched = swapped = total = 0
+        diffs, gaps = [], []
+        for r, out in zip(reqs, outs):
+            with torch.inference_mode():
+                ref = plain.predict(r)
+                ref_cands = plain.candidates(plain(torch.as_tensor(r["image"], device=dev)),
+                                             ABLATION_HW)
+            check_outputs(ref, 8)
+            m_, e, t, d, g = match_on_shared_proposals(out, ref, ref_cands, 8,
+                                                       model.score_thresh)
+            matched, swapped, total = matched + m_, swapped + e, total + t
+            diffs, gaps = diffs + d, gaps + g
+            del ref_cands
+        share = (matched + swapped) / max(total, 1)
+        log(f"ablation {label} fused vs unfused: {n_valid} valid; {matched}/{total} slots "
+            f"matched by (class, box) with score diff <= {SCORE_TOL}, {swapped} more swapped "
+            f"at the other's cut (above it by at most {max(gaps, default=0.0):.3e}): "
+            f"{share:.4f}; score diff median {np.median(diffs):.3e}, max {np.max(diffs):.3e}")
+        if share < MATCH_MIN:
+            raise AssertionError(f"ablation {label} fused vs unfused: {share:.4f} matched")
+        del outs
+        torch.cuda.empty_cache()
+
+        parts, gathered = ablation_parts(model, images, ABLATION_HW)
+        whole = cuda_ms(lambda: model.predict(reqs[0]), 3)
+        log(f"time ablation {label} predict parts ({smi}), B=8 {ABLATION_HW[0]}x"
+            f"{ABLATION_HW[1]} fused, device ms: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                                               parts.items())
+            + f"; whole predict {whole:.3f}; the fp32 gathers write {gathered / 1e9:.3f} GB")
+        kernels["nms"].setdefault(f"ablation_{label}_predict_parts_ms", {}).update(
+            parts, whole=whole)
+        del images
+        torch.cuda.empty_cache()
+        phase_throughput(model, plain, family=f"ablation {label}", hw=ABLATION_HW)
+        del model, plain
+        torch.cuda.empty_cache()
+    deform_fp32_check(smi, dev)
+
+
+def shape_ablation_classifier(model, images):
+    """``shape_reppoints_classifier`` for the ablation head's ``cls_out``."""
+    with torch.no_grad():
+        layer = model.head.cls_out
+        bias = layer.bias.clone()
+        layer.bias.zero_()
+        logits = torch.cat([lg.flatten() for lg in model(images)[0]])
+        layer.weight.div_(float(logits.float().std()))
+        layer.bias.copy_(bias)
+
+
+def phase_ablation_train(kernels, dev, smi):
+    """``pointset_sup`` (PointSetHead x Supervised Offset) trained at full
+    width: 11 steps on one batch of 16 images at 896 x 1408 with 100 padded
+    gt, then 4 more a model, flags on and off in turns, each fused step
+    launching exactly 1 stem and 13 bottleneck kernels; WARMUP_ITERS 0,
+    BASE_LR ABLATION_TRAIN_LR and the classifier shaped; finite losses
+    ending below step 0's; img/s and peak memory."""
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.solver import build_optimizer
+
+    yaml = dict(ABLATION_YAMLS)["pointset_sup"]
+    gen = torch.Generator().manual_seed(39)
+    batch_size = train_cfg(True, yaml=yaml).SOLVER.IMS_PER_BATCH
+    batch = train_batch(batch_size, seed=40, hw=ABLATION_HW)
+    steps, weights = {}, None
+    for key in ("fused", "unfused"):
+        cfg = ablation_cfg(yaml, {}, fused=key == "fused", lr=ABLATION_TRAIN_LR)
+        m = build_model(cfg, device=dev, generator=gen)
+        if weights is None:
+            randomize_frozen_bn(m, gen)
+            shape_ablation_classifier(m, torch.as_tensor(batch["image"][:2], device=dev))
+            weights = {k: v.clone() for k, v in m.state_dict().items()}
+        else:
+            m.load_state_dict(weights)
+        steps[key] = make_train_step(m, build_optimizer(cfg, m), cfg)
+    del weights
+    rates = {}
+    peaks = train_turns("ablation pointset_sup", steps, batch,
+                        ("loss_cls", "loss_loc_init", "loss_loc_refine", "num_pos"), rates,
+                        launches={"fused": ABLATION_STEP_LAUNCHES, "unfused": {}})
+    for k in ("fused_stem", "fused_bottleneck"):
+        kernels[k].setdefault("launches_by_path", {})["ablation_train_step"] = \
+            ABLATION_STEP_LAUNCHES[k]
+    log(f"time ablation pointset_sup train ({smi}): B={batch_size} {ABLATION_HW[0]}x"
+        f"{ABLATION_HW[1]}, 100 padded gt: fused {rates['fused']:.2f} img/s, peak "
+        f"{peaks['fused']:.2f} GiB; unfused {rates['unfused']:.2f} img/s, peak "
+        f"{peaks['unfused']:.2f} GiB")
+
+
+def phase_ablation_trainer(kernels, dev, smi):
+    """``train_net_torch.main`` on ``pointset_sup.yaml`` (``family_trainer``):
+    train with a save, ``--resume`` bit-equal, evaluate; 1 NMS a test
+    batch."""
+    family_trainer(kernels, smi, "ablation", dict(ABLATION_YAMLS)["pointset_sup"], 41,
+                   ABLATION_STEP_LAUNCHES, predict_nms=1, loss_key="loss_loc_refine")
+
+
+def phase_ablation_grid(kernels, dev, smi, built):
+    """Every model ``ablation_build`` left that ``ablation`` did not drive
+    (the other 9 grid cells, LRTBTopkHead, FCOSTopK, FCOSAnchor): one
+    predict of B=2 at 896 x 1408 with finite outputs and exactly 1 stem, 13
+    bottleneck and 1 NMS launch; one train step of B=2 with 100 padded gt,
+    exactly 1 stem and 13 bottleneck launches, and finite losses."""
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.ops import _build
+    from slenderobjdet_torch.solver import build_optimizer
+
+    driven = {"AnchorHead x Empty", "LRTBHead x Unsupervised Offset",
+              "PointSetHead x Supervised Offset"}
+    req = requests(1, 2, seed=42, hw=ABLATION_HW)[0]
+    batch = train_batch(2, seed=43, hw=ABLATION_HW)
+    cfgs = {label: ablation_cfg(yaml, over, lr=ABLATION_TRAIN_LR)
+            for label, yaml, over in ablation_cells()}
+    labels = [label for label in cfgs if label not in driven]
+    if sorted(built) != sorted(cfgs):
+        raise AssertionError(f"ablation_build left {sorted(built)}")
+    for label in labels:
+        t0 = time.perf_counter()
+        model = built.pop(label)
+        _build.reset_launch_counts()
+        out = model.predict(req)
+        torch.cuda.synchronize()
+        predicted = {k: v for k, v in _build.launch_counts().items() if v}
+        check_outputs(out, 2)
+        step = make_train_step(model, build_optimizer(cfgs[label], model), cfgs[label])
+        _build.reset_launch_counts()
+        metrics = {k: float(v) for k, v in step(batch).items()}
+        torch.cuda.synchronize()
+        stepped = {k: v for k, v in _build.launch_counts().items() if v}
+        log(f"ablation grid {label}: predict B=2 launched {predicted}, "
+            f"{int(out['valid'].sum())} valid; train step B=2 launched {stepped}, losses "
+            + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+            + f"; {time.perf_counter() - t0:.1f} s")
+        if predicted != ABLATION_PREDICT_LAUNCHES or stepped != ABLATION_STEP_LAUNCHES:
+            raise AssertionError(f"{label}: predict launched {predicted}, step {stepped}")
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"{label}: non-finite train metrics {metrics}")
+        for k in PREDICT_KERNELS:
+            by_path = kernels[k].setdefault("launches_by_path", {})
+            by_path["ablation_grid"] = by_path.get("ablation_grid", 0) + predicted.get(k, 0) \
+                + stepped.get(k, 0)
+        del model, step, out
+        torch.cuda.empty_cache()
+    built.clear()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -2770,6 +3204,18 @@ def main() -> int:
     run("reppoints_trainer", phase_reppoints_trainer, kernels, dev, smi)
     torch.cuda.empty_cache()
     run("reppoints_variants", phase_reppoints_variants, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    built = {}
+    run("ablation_build", phase_ablation_build, dev, smi, built)
+    run("ablation", phase_ablation, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("ablation_train", phase_ablation_train, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("ablation_trainer", phase_ablation_trainer, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    if built:
+        run("ablation_grid", phase_ablation_grid, kernels, dev, smi, built)
+    built.clear()
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

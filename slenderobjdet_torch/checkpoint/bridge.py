@@ -19,9 +19,17 @@ torch ``state_dict``:
   norm module: the ResNet's own (the stem's) ``stem_norm``; in a residual
   block ``norm1``, ``norm2``, ``norm3`` (bottleneck blocks only) and
   ``shortcut_norm`` in the order Flax numbered them;
-- ``head/scale{i}/scale`` -> a scalar parameter;
+- ``head/scale{i}/scale`` (the ablation head's ``scale_init{i}`` and
+  ``scale_refine{i}``) -> a scalar parameter;
 - a Flax ``nn.GroupNorm`` named ``<tower>_gn{i}`` (the RepPoints head's
-  ``cls_gn{i}`` / ``reg_gn{i}``): ``scale`` -> ``weight``;
+  ``cls_gn{i}`` / ``reg_gn{i}``, the ablation head's ``cls_gn{i}`` /
+  ``loc_gn{i}``): ``scale`` -> ``weight``; FCOSAnchor's ``GroupNorm32``
+  ``cls_gn{i}`` / ``bbox_gn{i}`` hold it under ``GroupNorm_0``;
+- the ablation head's ``cls_conv`` and ``loc_refine_conv`` sit beside the
+  tower convs ``cls_conv{i}``: with ``FEAT_ADAPTION`` ``Empty`` each holds a
+  conv named ``conv`` (``cls_conv.conv.weight``), otherwise a raw deformable
+  ``weight`` and ``bias``; no rule matches on a name prefix, so the two
+  never take each other's leaves;
 - a deformable conv's raw ``weight`` (K, Cin, Cout) and ``bias``
   (``DeformConvLayer``, ``DFConv2d``) keep their path and layout; the
   ``offset_conv`` under a ``DFConv2d`` is a conv like any other;
@@ -80,7 +88,8 @@ def _torch_name(collection: str, path, basic_blocks) -> str:
         raise KeyError(f"unknown variable collection {collection!r}")
     if mods and mods[-1] == "GroupNorm_0":
         return ".".join(mods[:-1] + [{"scale": "weight", "bias": "bias"}[leaf]])
-    if re.fullmatch(r"scale\d+", mods[-1] if mods else "") and leaf == "scale":
+    if re.fullmatch(r"scale(_init|_refine)?\d+", mods[-1] if mods else "") \
+            and leaf == "scale":
         return ".".join(mods + ["scale"])
     if re.fullmatch(r"\w+_gn\d+", mods[-1] if mods else "") and leaf == "scale":
         return ".".join(mods + ["weight"])

@@ -36,7 +36,9 @@ class TrainStep:
     ``loss_box_reg``, ``num_pos``; R-CNN: ``loss_rpn_cls``, ``loss_rpn_loc``,
     ``loss_cls``, ``loss_box_reg``, ``num_fg``; RepPoints: ``loss_cls``,
     ``loss_localization_init``, ``loss_localization_refine``, ``num_pos``,
-    ``loss_normalizer``).
+    ``loss_normalizer``; the ablation chassis: ``loss_cls``,
+    ``loss_loc_init``, ``loss_loc_refine``, ``num_pos`` and, for LRTB,
+    ``centerness_loss``; FCOSAnchor: FCOS's and ``shape_loss``).
     ``count`` is the number of updates made so far; it starts at 0, so the
     first update uses ``schedule(0)`` as optax does."""
 

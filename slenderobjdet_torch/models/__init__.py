@@ -8,7 +8,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .meta_arch.fcos import FCOS
+from .meta_arch.ablation import AblationMetaArch
+from .meta_arch.fcos import FCOS, FCOSTopK
+from .meta_arch.fcos_anchor import FCOSAnchor
 from .meta_arch.hybrids import (FCOSNCRetinaNet, FCOSRepPoints, FCOSRetinaNet,
                                 PointRetinaNet, RepPointsCenterness,
                                 ReppointsRetinaNet, RepPointsV2)
@@ -39,14 +41,18 @@ def _rcnn_with_anchor(cfg) -> ProposalVisibleRCNN:
 # name -> constructor taking cfg. FCOSV2 is the reference's refactor of FCOS
 # with the same topk-then-NMS inference and GroupNet's head is FCOS's line for
 # line, so the three names share one class, as in the JAX package; so do
-# GeneralizedRCNN and ProposalVisibleRCNN. Not ported yet: AblationMetaArch
-# (ROADMAP.md queue 1, item 8), FCOSTopK, FCOSV3 and FCOSAnchor,
-# ProposalNetwork(WithMasks), RotatedRetinaNet and CornerNet.
+# GeneralizedRCNN and ProposalVisibleRCNN. AblationMetaArch picks its head
+# (LRTBHead, LRTBTopkHead, PointSetHead, AnchorHead) by
+# MODEL.META_ARCH.NAME. Not ported yet: FCOSV3 and ProposalNetwork(WithMasks)
+# (ROADMAP.md queue 1, item 6), RotatedRetinaNet (item 10) and CornerNet
+# (item 9).
 META_ARCHS = {
     "FCOS": FCOS,
     "FCOSV2": FCOS,
     "GroupNet": FCOS,
     "FCOSWithAnchor": _fcos_with_anchor,
+    "FCOSTopK": FCOSTopK,
+    "FCOSAnchor": FCOSAnchor,
     "FCOSRetinaNet": FCOSRetinaNet,
     "FCOSNCRetinaNet": FCOSNCRetinaNet,
     "RetinaNet": RetinaNet,
@@ -63,6 +69,7 @@ META_ARCHS = {
     "RepPointsV2": RepPointsV2,
     "FCOSRepPoints": FCOSRepPoints,
     "ReppointsRetinaNet": ReppointsRetinaNet,
+    "AblationMetaArch": AblationMetaArch,
 }
 
 

@@ -1,15 +1,17 @@
 """FCOS (counterpart of ``slenderobjdet_tpu/models/meta_arch/fcos.py``:
 ``FCOSHead``, ``FCOSModule``, ``fcos_assign_single`` batched as
 ``fcos_assign``, ``compute_centerness_targets``, ``FCOS.loss``,
-``FCOS.predict`` and ``_fcos_level_candidates``; ``use_centerness=False`` is
-the no-centerness ablation ``FCOSNCRetinaNet`` and ``with_anchor`` the
-diagnosis variant ``FCOSWithAnchor``).
+``FCOS.predict``, ``_fcos_level_candidates`` and ``FCOSTopK``;
+``use_centerness=False`` is the no-centerness ablation ``FCOSNCRetinaNet``
+and ``with_anchor`` the diagnosis variant ``FCOSWithAnchor``).
 
 Training is fixed-shape as in the JAX package: padded gt boxes with a
 validity mask, every location assigned to the smallest-area gt box that
 contains it within its level's size range, focal classification loss, IoU
 loss weighted by the centerness target and centerness BCE, each normalised
-by a sum over the whole batch.
+by a sum over the whole batch. With ``topk_per_gt`` (``FCOSTopK``) only the
+k highest-centerness positives of each gt feed the regression loss
+(``topk_per_gt_gate``).
 
 Inference is fixed-shape too: per-level threshold and pair top-k of
 ``PRE_NMS_TOP_N`` candidates, ltrb decoding, then class-aware greedy NMS
@@ -175,6 +177,24 @@ def compute_centerness_targets(reg_targets: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.clamp(c, min=0.0))
 
 
+def topk_per_gt_gate(ctr_targets, pos, gt_inds, num_gt: int, k: int):
+    """The regression positives (B, L) bool of the top-k-per-gt gate: a
+    positive location passes when its centerness target is at least the k-th
+    largest among its gt's positives.
+
+    ctr_targets (B, L), pos (B, L) bool, gt_inds (B, L) the matched gt index.
+    As in the JAX package, a gt with fewer than k positives has a k-th value
+    of -inf, which the ``isfinite`` guard turns into +inf, so no location of
+    that gt passes. Only the k-th value is read, so the order ``torch.topk``
+    gives tied values does not matter."""
+    per_gt = (gt_inds[..., None] == torch.arange(num_gt, device=gt_inds.device)) \
+        & pos[..., None]                                          # (B, L, G)
+    scores = torch.where(per_gt, ctr_targets[..., None], -torch.inf)
+    kth = torch.topk(scores.transpose(1, 2), k, dim=-1).values[..., -1]   # (B, G)
+    kth = torch.where(torch.isfinite(kth), kth, torch.inf)
+    return ((scores >= kth[:, None, :]) & per_gt).any(dim=-1)
+
+
 class FCOSModule(nn.Module):
     """Backbone + FPN + FCOS head over uint8 NHWC images; the image is
     normalised in float32 and then cast to the compute dtype."""
@@ -229,8 +249,8 @@ class FCOS(FCOSModule):
     """Config-driven FCOS detector: the network plus the fixed-shape
     predict path."""
 
-    # FCOSTopK's per-gt top-k regression positives and FCOSV3's mask-based
-    # centre sampling (JAX package subclasses) are not ported
+    # the regression positives a gt (FCOSTopK sets 5); FCOSV3's mask-based
+    # centre sampling is not ported
     topk_per_gt = None
     mask_center_sampling = False
 
@@ -294,9 +314,9 @@ class FCOS(FCOSModule):
         or tensors. Returns the total loss and {"cls_loss", "reg_loss",
         "centerness_loss" (with the centerness branch), "num_pos"}; every
         normaliser is a sum over the whole batch."""
-        if self.topk_per_gt or self.mask_center_sampling:
+        if self.mask_center_sampling:
             raise NotImplementedError(
-                "topk_per_gt / mask_center_sampling are not ported")
+                "mask_center_sampling (FCOSV3's center_mask input) is not ported")
         dev = self.pixel_mean.device
         images = torch.as_tensor(batch["image"], device=dev)
         locations_np, counts = fcos_locations(tuple(images.shape[1:3]),
@@ -309,9 +329,9 @@ class FCOS(FCOSModule):
         reg = torch.cat(reg_l, dim=1)                # (B, L, 4)
         ctr = None if ctr_l is None else torch.cat(ctr_l, dim=1)   # (B, L)
 
-        labels, reg_targets, _ = fcos_assign(
-            locations, soi,
-            torch.as_tensor(batch["gt_boxes"], dtype=torch.float32, device=dev),
+        gt_boxes = torch.as_tensor(batch["gt_boxes"], dtype=torch.float32, device=dev)
+        labels, reg_targets, gt_inds = fcos_assign(
+            locations, soi, gt_boxes,
             torch.as_tensor(batch["gt_classes"], device=dev),
             torch.as_tensor(batch["gt_valid"], dtype=torch.bool, device=dev),
             self.num_classes)
@@ -338,16 +358,21 @@ class FCOS(FCOSModule):
         ctr_targets = compute_centerness_targets(safe_targets)
         ctr_targets = torch.where(pos, ctr_targets, 0.0)
 
+        reg_pos = pos
+        if self.topk_per_gt:
+            reg_pos = topk_per_gt_gate(ctr_targets, pos, gt_inds, gt_boxes.shape[1],
+                                       self.topk_per_gt)
+
         reg_losses = iou_loss_ltrb(reg, safe_targets, self.iou_loss_type)
         if not self.use_centerness:
             # unweighted IoU loss over num_pos
-            reg_loss = torch.where(pos, reg_losses, 0.0).sum() / num_pos
+            reg_loss = torch.where(reg_pos, reg_losses, 0.0).sum() / num_pos
             return cls_loss + reg_loss, {"cls_loss": cls_loss,
                                          "reg_loss": reg_loss,
                                          "num_pos": num_pos}
-        sum_ctr = torch.clamp(torch.where(pos, ctr_targets, 0.0).sum(),
+        sum_ctr = torch.clamp(torch.where(reg_pos, ctr_targets, 0.0).sum(),
                               min=1e-6)
-        reg_loss = torch.where(pos, reg_losses * ctr_targets,
+        reg_loss = torch.where(reg_pos, reg_losses * ctr_targets,
                                0.0).sum() / sum_ctr
         ctr_loss = torch.where(pos, optax_sigmoid_ce(ctr, ctr_targets),
                                0.0).sum() / num_pos
@@ -406,3 +431,11 @@ class FCOS(FCOSModule):
             pts = torch.gather(locs, 1, keep[..., None].expand(-1, -1, 2)) / scale
             out["anchors"] = torch.cat([pts, pts], dim=-1)
         return out
+
+
+class FCOSTopK(FCOS):
+    """FCOS whose regression loss takes only the 5 highest-centerness
+    positives of each gt; the classification and centerness losses keep
+    every positive."""
+
+    topk_per_gt = 5

@@ -30,23 +30,10 @@ from ...ops.losses import optax_sigmoid_ce, sigmoid_focal_loss
 from ...structures import boxes as box_ops
 from ..layers import Conv2d
 from ..matchers import iou_matcher
+from .ablation import compute_slender_centerness_targets  # noqa: F401
 from .fcos import FCOS, compute_centerness_targets
 from .reppoints import RepPointsDetector, RepPointsHead
 from .retinanet import RetinaNet
-
-
-def compute_slender_centerness_targets(reg_targets: torch.Tensor) -> torch.Tensor:
-    """centerness ** (0.5 * min(w / h, h / w)) of (..., 4) ltrb -> (...)
-    (a copy of the JAX package's ``meta_arch/ablation.py`` function)."""
-    lr = reg_targets[..., 0::2]
-    tb = reg_targets[..., 1::2]
-    eps = 1e-12
-    w = reg_targets[..., 0] + reg_targets[..., 2]
-    h = reg_targets[..., 1] + reg_targets[..., 3]
-    ratio = torch.minimum(w / torch.clamp(h, min=eps), h / torch.clamp(w, min=eps))
-    c = (lr.amin(-1) / torch.clamp(lr.amax(-1), min=eps)) * (
-        tb.amin(-1) / torch.clamp(tb.amax(-1), min=eps))
-    return torch.pow(torch.clamp(c, min=0.0), 0.5 * ratio)
 
 
 class FCOSRetinaNet(FCOS):

@@ -53,7 +53,8 @@ from ..layers import (Conv2d, DeformConvLayer, GroupNorm32,
                       init_detector_weights, prior_bias)
 from ..matchers import iou_matcher
 
-__all__ = ["DeformConvLayer", "RepPointsHead", "RepPointsModule", "points2bbox",
+__all__ = ["DeformConvLayer", "RepPointsHead", "RepPointsModule", "nms_detections",
+           "point_grid", "points2bbox",
            "rep_points_assign", "inside_assign", "rep_points_assign_with_idx",
            "RepPointsDetector"]
 
@@ -142,8 +143,9 @@ class RepPointsHead(nn.Module):
 
 
 class RepPointsModule(nn.Module):
-    """Backbone + FPN + point-set head over uint8 NHWC images; the image is
-    normalised in float32 and then cast to the compute dtype."""
+    """Backbone + FPN + a head over uint8 NHWC images (the point-set head;
+    the ablation chassis and FCOSAnchor reuse it); the image is normalised
+    in float32 and then cast to the compute dtype."""
 
     def __init__(self, backbone: nn.Module, head: nn.Module,
                  in_features: Sequence[str], pixel_mean: Sequence[float],
@@ -166,6 +168,35 @@ class RepPointsModule(nn.Module):
 
     def forward(self, images: torch.Tensor):
         return self.head(self.features(images))
+
+
+def point_grid(image_hw, strides):
+    """Point centres (L, 2) xy at (ix, iy) * stride (no half-stride shift),
+    the level counts and each point's level (log2 of its stride), numpy."""
+    centers, counts, lvls = [], [], []
+    for (h, w), s in zip(feature_map_shapes(image_hw, strides), strides):
+        xg, yg = np.meshgrid(np.arange(w, dtype=np.float32) * s,
+                             np.arange(h, dtype=np.float32) * s)
+        centers.append(np.stack([xg.reshape(-1), yg.reshape(-1)], 1))
+        counts.append(h * w)
+        lvls.append(np.full(h * w, int(np.log2(s)), np.int32))
+    return np.concatenate(centers), counts, np.concatenate(lvls)
+
+
+def nms_detections(boxes, scores, classes, valid, nms_thresh: float, max_dets: int, scale,
+                   orig_size) -> Dict[str, torch.Tensor]:
+    """One class-aware NMS over every level's candidates (on CUDA tensors the
+    hand-written kernel), then the kept boxes rescaled by ``scale`` (B,) and
+    clipped to ``orig_size`` (B, 2): boxes (B, D, 4), scores (B, D), classes
+    (B, D) int32 and valid (B, D) bool."""
+    keep_idx, keep_valid = cuda_batched_nms(boxes, scores, classes, nms_thresh, max_dets,
+                                            valid=valid)
+    keep = keep_idx.long()
+    orig = orig_size.float()
+    kb = torch.gather(boxes, 1, keep[..., None].expand(-1, -1, 4))
+    kb = box_ops.clip(kb / scale.float()[:, None, None], orig[:, 0:1], orig[:, 1:2])
+    return {"boxes": kb, "scores": torch.gather(scores, 1, keep),
+            "classes": torch.gather(classes, 1, keep), "valid": keep_valid}
 
 
 def points2bbox(deltas, centers, point_stride, method="minmax",
@@ -344,16 +375,7 @@ class RepPointsDetector(RepPointsModule):
 
     # ----------------------------------------------------------- geometry
     def _centers(self, image_hw):
-        """Point centres (L, 2) xy at (ix, iy) * stride, the level counts and
-        each point's level (log2 of its stride), numpy."""
-        centers, counts, lvls = [], [], []
-        for (h, w), s in zip(feature_map_shapes(image_hw, self.strides), self.strides):
-            xg, yg = np.meshgrid(np.arange(w, dtype=np.float32) * s,
-                                 np.arange(h, dtype=np.float32) * s)
-            centers.append(np.stack([xg.reshape(-1), yg.reshape(-1)], 1))
-            counts.append(h * w)
-            lvls.append(np.full(h * w, int(np.log2(s)), np.int32))
-        return np.concatenate(centers), counts, np.concatenate(lvls)
+        return point_grid(image_hw, self.strides)
 
     def _decode_boxes(self, deltas_l, centers, counts):
         """Per-level (B, L_l, 4) boxes of per-level (B, L_l, 2P) offsets."""
@@ -507,12 +529,5 @@ class RepPointsDetector(RepPointsModule):
     def postprocess(self, logits_l, refine_l, image_hw, scale,
                     orig_size) -> Dict[str, torch.Tensor]:
         """Candidates, NMS and rescaling from the head's per-level outputs."""
-        boxes, scores, classes, valid = self.candidates(logits_l, refine_l, image_hw)
-        keep_idx, keep_valid = cuda_batched_nms(
-            boxes, scores, classes, self.nms_thresh, self.max_dets, valid=valid)
-        keep = keep_idx.long()
-        orig = orig_size.float()
-        kb = torch.gather(boxes, 1, keep[..., None].expand(-1, -1, 4))
-        kb = box_ops.clip(kb / scale.float()[:, None, None], orig[:, 0:1], orig[:, 1:2])
-        return {"boxes": kb, "scores": torch.gather(scores, 1, keep),
-                "classes": torch.gather(classes, 1, keep), "valid": keep_valid}
+        return nms_detections(*self.candidates(logits_l, refine_l, image_hw),
+                              self.nms_thresh, self.max_dets, scale, orig_size)

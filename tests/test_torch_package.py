@@ -92,7 +92,7 @@ def test_unported_options_raise(key, value):
 
 
 def test_unknown_meta_architecture_lists_available():
-    cfg = _flagship(**{"MODEL.META_ARCHITECTURE": "AblationMetaArch"})
+    cfg = _flagship(**{"MODEL.META_ARCHITECTURE": "CornerNet"})
     with pytest.raises(KeyError, match="FCOSV2.*RetinaNet"):
         build_model(cfg, device="cpu")
 

@@ -508,11 +508,12 @@ def test_rcnn_predict_matches_jax(rcnn_pair, arch):
 
 # ---------------------------------------------------------------- registry
 def test_registry_holds_the_fourteen_names():
-    """The fourteen names of the earlier chassis and the six of deformable
-    convolution and the point-set family."""
+    """The fourteen names of the earlier chassis, the six of deformable
+    convolution and the point-set family, and the ablation chassis with its
+    two FCOS diagnosis detectors."""
     assert sorted(META_ARCHS) == sorted(FOURTEEN + [
         "DeformableConvRetinaNet", "RepPointsDetector", "RepPointsCenterness", "RepPointsV2",
-        "FCOSRepPoints", "ReppointsRetinaNet"])
+        "FCOSRepPoints", "ReppointsRetinaNet", "AblationMetaArch", "FCOSTopK", "FCOSAnchor"])
 
 
 @pytest.mark.parametrize("arch", ["ProposalVisibleRCNN", "GeneralizedRCNN",

@@ -649,14 +649,16 @@ def test_fcos_with_anchor_matches_jax():
 # ---------------------------------------------------------------- registry
 def test_registry_holds_the_eleven_names():
     """The eleven names of the FCOS and RetinaNet chassis and the DCN one;
-    the rest are Faster R-CNN's (tests/test_torch_rcnn.py) and the point-set
-    family's (tests/test_torch_reppoints.py)."""
+    the rest are Faster R-CNN's (tests/test_torch_rcnn.py), the point-set
+    family's (tests/test_torch_reppoints_variants.py) and the ablation
+    chassis's and its two FCOS diagnosis detectors' (tests/test_torch_ablation.py,
+    tests/test_torch_fcos_anchor.py)."""
     chassis = ELEVEN + ["DeformableConvRetinaNet"]
     assert set(chassis) <= set(META_ARCHS) and len(set(chassis)) == 12
     assert set(META_ARCHS) - set(chassis) == {
         "ProposalVisibleRCNN", "GeneralizedRCNN", "ProposalVisibleRCNNWithAnchor",
         "RepPointsDetector", "RepPointsCenterness", "RepPointsV2", "FCOSRepPoints",
-        "ReppointsRetinaNet"}
+        "ReppointsRetinaNet", "FCOSTopK", "FCOSAnchor", "AblationMetaArch"}
 
 
 @pytest.mark.parametrize("arch", ELEVEN)
@@ -702,7 +704,7 @@ def test_retina_yamls_build_on_the_cpu(yaml_name, arch):
 
 
 def test_build_model_lists_what_is_available():
-    cfg = tiny_cfg(torch_get_cfg, "AblationMetaArch")
+    cfg = tiny_cfg(torch_get_cfg, "RotatedRetinaNet")
     with pytest.raises(KeyError, match="NearestRetinaNet") as err:
         torch_build_model(cfg, device="cpu")
     assert all(name in str(err.value) for name in ELEVEN)

@@ -379,7 +379,8 @@ def test_two_optimizer_steps_match_optax(overrides):
 
 def test_adagrad_and_unported_variants_raise():
     """ADAGRAD and ``use_centerness=False`` are ported and build; an unknown
-    optimizer and the variants that are still missing raise."""
+    optimizer and the variant that is still missing (FCOSV3's mask-based
+    centre sampling) raise."""
     model = torch_build_model(port_cfg(), device="cpu")
     opt = tsolver.build_optimizer(port_cfg(**{"SOLVER.OPTIM": "ADAGRAD"}), model)
     assert isinstance(opt, tsolver.Adagrad)
@@ -387,8 +388,8 @@ def test_adagrad_and_unported_variants_raise():
     with pytest.raises(ValueError, match="LAMB"):
         tsolver.build_optimizer(port_cfg(**{"SOLVER.OPTIM": "LAMB"}), model)
     assert not hasattr(tfcos.FCOS(port_cfg(), use_centerness=False).head, "centerness")
-    model.topk_per_gt = 5
-    with pytest.raises(NotImplementedError):
+    model.mask_center_sampling = True
+    with pytest.raises(NotImplementedError, match="mask_center_sampling"):
         model.loss(dryrun_batch())
 
 
