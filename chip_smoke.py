@@ -6,6 +6,7 @@
                                  # so; prints no result line and exits 3
     python3 chip_smoke.py rcnn   # the Faster R-CNN phases
     python3 chip_smoke.py reppoints   # the RepPoints and DCN phases
+    python3 chip_smoke.py ddp    # the data-parallel phase
 
 Builds the port's CUDA kernels from ``slenderobjdet_torch/ops/csrc`` (at
 first use, into ``build/torch_kernels/``), then, each phase failing the run
@@ -152,6 +153,23 @@ if it fails:
 18. The six other point-set and DCN names (REPPOINTS_VARIANTS) built at
    full width: one predict and one train step at B=2, exact launch counts
    (3 bottleneck wrappers with res3-res5 deformable), finite outputs.
+19-23. The ablation chassis (``ablation_*`` phases; see ``phase_ablation``).
+24. Data parallel (``ddp``), through ``slenderobjdet_torch.parallel.launch``:
+   ``train_net_torch.main`` on the FCOS YAML (DDP_ITERS iterations, flags
+   on, bf16, the synthetic set, threshold 0) in a spawned process under
+   NCCL at world size 1 must end bit-equal to the same run here without a
+   group, each step launching 1 stem and 13 bottleneck kernels and each
+   test batch 1 NMS; then two gloo ranks sharing the card: one fp32 step
+   (flags off) of 8 + 8 rows, with 1 valid box an image in one half and 30
+   in the other, within DDP_FP32_RTOL of the single process's B=16 step,
+   bit-equal across the ranks and reporting the joined batch's positives, DDP_BF16_STEPS bf16 steps with
+   finite losses, 1 + 13 launches a step on each rank and parameters
+   bit-equal across the ranks, a gloo all-reduce of the fp32 gradients'
+   size timed alone, and ``--eval-only`` of the NCCL run's checkpoint:
+   rank 0's AP within DDP_AP_TOL of the one-process evaluation's and every
+   one of its detections identical to that run's, rank 1 ``{}``, 1 + 13 + 1 launches a test
+   batch on each rank. Prints step times, the all-reduce's share and the
+   peak memory a rank ("two ranks sharing one card": not a scaling figure).
 
 Every kernel's time stands beside its bound, the least time the card could
 take: the larger of its bytes (inputs read once, outputs written once) over
@@ -3103,6 +3121,325 @@ def phase_ablation_grid(kernels, dev, smi, built):
     built.clear()
 
 
+# ---------------------------------------------------------- data parallel
+DDP_ITERS = 4               # the NCCL run's iterations (one save, at the last)
+DDP_FP32_RTOL = 1e-4        # two ranks' fp32 step vs the joined batch's, of a value
+DDP_UPDATE_RTOL = 1e-3      # and of the update (a GN-fed bias sits near 0)
+DDP_BF16_STEPS = 5
+DDP_AP_TOL = 0.1            # 2-rank evaluation's bbox AP vs the 1-process one
+DDP_TIMEOUT_S = 300         # each collective of a spawned group
+DDP_JOIN_S = 900            # each spawn, whole
+
+
+def ddp_setup(name, tmp):
+    """What every process of the ddp phase needs first: TF32 off, cuDNN's
+    deterministic algorithms (so that two runs of one step agree bit for
+    bit), and the synthetic datasets registered (a spawned process starts
+    with empty catalogs). Returns the number of test images."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    synthetic_dataset(name, tmp)
+    return len(synthetic_dataset(name + "_test", tmp)["images"])
+
+
+def ddp_trainer_args(name, out, *flags):
+    args = trainer_args(name, out, *flags, max_iter=DDP_ITERS, checkpoint_period=DDP_ITERS)
+    # random weights score every location under 0.05: no threshold, so that
+    # the evaluations have 100 detections an image to compare
+    args.opts += ["MODEL.FCOS.INFERENCE_TH", "0.0"]
+    return args
+
+
+def ddp_main(args, name, tmp):
+    """``train_net_torch.main`` in this process, watched: its steps'
+    launches, losses and clock, its launch counts, peak memory and results
+    (host values only, so that a spawned rank can return them)."""
+    import train_net_torch
+    from slenderobjdet_torch.ops import _build
+    from slenderobjdet_torch.parallel import process_count
+
+    ddp_setup(name, tmp)
+    with watched_trainer() as watch:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        results = train_net_torch.main(args)
+        torch.cuda.synchronize()
+        steps = [{"step": r["step"], "launches": r["launches"], "loss": float(r["loss"]),
+                  "image": r["image"], "t0": r["t0"], "t1": r["t1"]} for r in watch.steps]
+    import torch.distributed as dist
+
+    return {"steps": steps, "counts": _build.launch_counts(), "results": results,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "world": process_count(),
+            "backend": dist.get_backend() if dist.is_initialized() else None}
+
+
+def ddp_joined_batch():
+    """The fp32 step's joined batch of 16 at the loader's first shape: one
+    valid box in each image of the first half, 30 in each of the second, so
+    that the two ranks' positives differ many times over and a rank that
+    divided by its own half's count would miss the joined step by far."""
+    batch = train_batch(16, seed=31, hw=LOADER_SHAPES[0])
+    gt_pad = batch["gt_valid"].shape[1]
+    batch["gt_valid"] = np.arange(gt_pad)[None, :] < np.repeat([1, 30], 8)[:, None]
+    return batch
+
+
+def ddp_gloo_rank(ref_path, eval_args, name, tmp):
+    """One of two gloo ranks on the one card: (1) one fp32 step, flags off,
+    on this rank's 8 rows of the joined 16, held against the single
+    process's step (``ref_path``); (2) DDP_BF16_STEPS bf16 steps, flags on,
+    their launches, losses and clock; (3) a 129 MB fp32 all-reduce, timed;
+    (4) ``--eval-only`` of the NCCL run's checkpoint."""
+    import torch.distributed as dist
+
+    import train_net_torch
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.ops import _build
+    from slenderobjdet_torch.parallel import process_index, state_digest
+    from slenderobjdet_torch.solver import build_optimizer
+
+    ddp_setup(name, tmp)
+    rank = process_index()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"rank": rank, "backend": dist.get_backend(), "device": str(dev)}
+
+    # (1) fp32, flags off: the joined batch's step
+    cfg = train_cfg(False, "float32")
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    init = {k: v.detach().clone() for k, v in model.named_parameters()}
+    step = make_train_step(model, build_optimizer(cfg, model), cfg)
+    metrics = step({k: v[8 * rank: 8 * rank + 8] for k, v in ddp_joined_batch().items()})
+    out["fp32_num_pos"] = float(metrics["num_pos"])
+    want = torch.load(ref_path, map_location=dev, weights_only=True)
+    worst, worst_plain = (0.0, ""), (0.0, "")
+    for n, p in model.named_parameters():
+        w = want[n].double()
+        diff = float((p.detach().double() - w).abs().max())
+        allowed = (DDP_FP32_RTOL * float(w.abs().max())
+                   + DDP_UPDATE_RTOL * float((w - init[n].double()).abs().max()))
+        if diff > 0:
+            worst = max(worst, (diff / allowed if allowed > 0 else float("inf"), n))
+        worst_plain = max(worst_plain, (diff / (float(w.abs().max()) + 1e-30), n))
+    out["fp32_excess"], out["fp32_plain_ratio"] = worst, worst_plain
+    out["fp32_digest"] = state_digest(model)
+    del model, step, want, init
+    torch.cuda.empty_cache()
+
+    # (2) bf16, flags on: DDP_BF16_STEPS steps of 8 rows a rank
+    cfg = train_cfg(True)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    step = make_train_step(model, build_optimizer(cfg, model), cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(DDP_BF16_STEPS):
+        batch = train_batch(16, seed=40 + i, hw=LOADER_SHAPES[i % 2])
+        batch = {k: v[8 * rank: 8 * rank + 8] for k, v in batch.items()}
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        loss = float(metrics["total_loss"])      # waits for the card
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
+                      "launches": {k: v for k, v in _build.launch_counts().items() if v}})
+    out["bf16_steps"] = steps
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["bf16_digest"] = state_digest(model)
+    n_grad = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    del model, step
+    torch.cuda.empty_cache()
+
+    # (3) the gradients' all-reduce alone, as DDP's buckets add up to it
+    grads = torch.ones(n_grad, dtype=torch.float32, device=dev)
+    for _ in range(2):
+        dist.all_reduce(grads)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        dist.all_reduce(grads)
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    out["allreduce_mb"] = grads.numel() * 4 / 1e6
+    del grads
+
+    # (4) --eval-only of the NCCL run's checkpoint on both ranks
+    _build.reset_launch_counts()
+    out["eval"] = train_net_torch.main(eval_args)
+    torch.cuda.synchronize()
+    out["eval_counts"] = _build.launch_counts()
+    return out
+
+
+def phase_ddp(kernels, dev, smi):
+    """Data-parallel training through ``parallel.launch`` on the one card:
+    NCCL at world size 1 against the same run without a group, two gloo
+    ranks sharing the card against the single process's step on the joined
+    batch, and evaluation on two ranks."""
+    import datetime
+    import os
+    import tempfile
+
+    import train_net_torch
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.parallel import launch
+    from slenderobjdet_torch.solver import build_optimizer
+
+    name = "chip_smoke_ddp"
+    group_timeout = datetime.timedelta(seconds=DDP_TIMEOUT_S)
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as tmp:
+            n_test = ddp_setup(name, tmp)
+            n_test_batches = n_test // 8
+            plain_out, nccl_out = os.path.join(tmp, "no_group"), os.path.join(tmp, "nccl")
+
+            # ---- the same 4 iterations without a group, then NCCL at world size 1
+            t0 = time.perf_counter()
+            plain = ddp_main(ddp_trainer_args(name, plain_out), name, tmp)
+            plain_wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            nccl, = launch(ddp_main, 1, args=(ddp_trainer_args(name, nccl_out), name, tmp),
+                           force_group=True, timeout=group_timeout, join_timeout=DDP_JOIN_S)
+            nccl_wall = time.perf_counter() - t0
+            if (nccl["world"], nccl["backend"]) != (1, "nccl"):
+                raise AssertionError(f"the forced group: {nccl['world']} {nccl['backend']}")
+            for run, label in ((plain, "no group"), (nccl, "NCCL world size 1")):
+                if [r["step"] for r in run["steps"]] != list(range(DDP_ITERS)):
+                    raise AssertionError(f"{label}: steps {[r['step'] for r in run['steps']]}")
+                for r in run["steps"]:
+                    if r["launches"] != {"fused_stem": 1, "fused_bottleneck": 13} \
+                            or not np.isfinite(r["loss"]):
+                        raise AssertionError(f"{label} step {r['step']}: {r}")
+                want = {"nms": n_test_batches, "fused_stem": DDP_ITERS + n_test_batches,
+                        "fused_bottleneck": 13 * (DDP_ITERS + n_test_batches)}
+                if {k: run["counts"][k] for k in want} != want:
+                    raise AssertionError(f"{label} launched {run['counts']}, expected {want}")
+            for k in PREDICT_KERNELS:
+                kernels[k].setdefault("launches_by_path", {})["ddp_nccl"] = nccl["counts"][k]
+            ckpt = f"model_{DDP_ITERS:07d}.pth"
+            a = torch.load(os.path.join(plain_out, ckpt), map_location="cpu", weights_only=True)
+            b = torch.load(os.path.join(nccl_out, ckpt), map_location="cpu", weights_only=True)
+            largest = max((float((a["model"][k].double() - b["model"][k].double()).abs().max()), k)
+                          for k in a["model"])
+            log(f"ddp NCCL world size 1: state after {DDP_ITERS} iterations "
+                f"{'bit-equal' if states_equal(a, b) else 'NOT bit-equal'} to the run without a "
+                f"group (largest model difference {largest[0]:.3e} at {largest[1]}); every step "
+                f"1 stem + 13 bottleneck, {n_test_batches} test batches 1 NMS each; losses "
+                f"{[round(r['loss'], 4) for r in nccl['steps']]}")
+            if not states_equal(a, b):
+                raise AssertionError(f"NCCL world size 1 differs: {largest}")
+            del a, b
+
+            def step_ms(run):      # steps 2..: watched_trainer synchronises before step 2
+                s = run["steps"]
+                return (s[-1]["t1"] - s[2]["t0"]) / (len(s) - 2) * 1e3
+            plain_ms, nccl_ms = step_ms(plain), step_ms(nccl)
+            log(f"time ddp ({smi}): train_net_torch.main steps 2-{DDP_ITERS - 1}, B=16, bf16, "
+                f"flags on: no group {plain_ms:.1f} ms/step, NCCL world size 1 "
+                f"{nccl_ms:.1f} ms/step ({nccl_ms / plain_ms:.3f} x); peak memory "
+                f"{plain['peak_gib']:.2f} / {nccl['peak_gib']:.2f} GiB; whole main "
+                f"{plain_wall:.1f} s in this process, {nccl_wall:.1f} s spawned")
+
+            one_bbox = plain["results"][name + "_test"]["bbox"]
+            with open(os.path.join(plain_out, "coco_instances_results.json")) as f:
+                one_dets = json.load(f)
+
+            # ---- the single process's fp32 step on the joined batch of 16
+            cfg = train_cfg(False, "float32")
+            model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+            step = make_train_step(model, build_optimizer(cfg, model), cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fp32_num_pos = float(step(ddp_joined_batch())["num_pos"])
+            torch.cuda.synchronize()
+            fp32_ms = (time.perf_counter() - t0) * 1e3
+            ref_path = os.path.join(tmp, "fp32_joined_step.pt")
+            torch.save({k: v.detach().cpu() for k, v in model.named_parameters()}, ref_path)
+            del model, step
+            torch.cuda.empty_cache()
+
+            # ---- two gloo ranks on the one card: the step, 5 bf16 steps, evaluation
+            eval_args = ddp_trainer_args(name, nccl_out, "--resume", "--eval-only")
+            t0 = time.perf_counter()
+            ranks = launch(ddp_gloo_rank, 2, args=(ref_path, eval_args, name, tmp),
+                           backend="gloo", timeout=group_timeout, join_timeout=DDP_JOIN_S)
+            gloo_wall = time.perf_counter() - t0
+            r0, r1 = ranks
+            if [r["backend"] for r in ranks] != ["gloo", "gloo"]:
+                raise AssertionError(f"backends {[r['backend'] for r in ranks]}")
+            log(f"ddp two gloo ranks on {r0['device']} and {r1['device']}: fp32 flags off, one "
+                f"step of 8 + 8 rows (1 and 30 valid boxes an image) against the single "
+                f"process's B=16 step (its {fp32_ms:.1f} ms, the first); positives of the "
+                f"joined batch {fp32_num_pos:.0f}, as the ranks report them "
+                f"{r0['fp32_num_pos']:.0f} / {r1['fp32_num_pos']:.0f}; worst over tensors of |diff| / ({DDP_FP32_RTOL} x max|value| "
+                f"+ {DDP_UPDATE_RTOL} x max|update|) {r0['fp32_excess'][0]:.3f} at "
+                f"{r0['fp32_excess'][1]}, plain max|diff| / max|value| "
+                f"{r0['fp32_plain_ratio'][0]:.3e} at {r0['fp32_plain_ratio'][1]}; ranks "
+                f"{'bit-equal' if r0['fp32_digest'] == r1['fp32_digest'] else 'DIFFER'}")
+            if not (r0["fp32_digest"] == r1["fp32_digest"] and r0["fp32_excess"][0] <= 1
+                    and r0["fp32_num_pos"] == r1["fp32_num_pos"] == fp32_num_pos):
+                raise AssertionError(f"fp32 two-rank step: {r0['fp32_excess']}, positives "
+                                     f"{r0['fp32_num_pos']} / {r1['fp32_num_pos']} against "
+                                     f"{fp32_num_pos}")
+            for r in ranks:
+                for i, s in enumerate(r["bf16_steps"]):
+                    if s["launches"] != {"fused_stem": 1, "fused_bottleneck": 13} \
+                            or not np.isfinite(s["loss"]):
+                        raise AssertionError(f"rank {r['rank']} bf16 step {i}: {s}")
+            if r0["bf16_digest"] != r1["bf16_digest"]:
+                raise AssertionError("bf16 parameters differ across the ranks")
+            for k in PREDICT_KERNELS:
+                kernels[k]["launches_by_path"]["ddp_gloo_rank0"] = (
+                    sum(s["launches"].get(k, 0) for s in r0["bf16_steps"])
+                    + r0["eval_counts"][k])
+            rank_ms = [float(np.mean([s["ms"] for s in r["bf16_steps"][2:]])) for r in ranks]
+            share = [r["allreduce_ms"] / ms for r, ms in zip(ranks, rank_ms)]
+            log(f"time ddp two ranks sharing one card ({smi}; not a scaling figure): bf16, "
+                f"flags on, 8 rows a rank, global B=16, steps 2-{DDP_BF16_STEPS - 1}: rank 0 "
+                f"{rank_ms[0]:.1f} ms/step, rank 1 {rank_ms[1]:.1f}; one process at B=16 "
+                f"{plain_ms:.1f}; every step 1 stem + 13 bottleneck on each rank; losses rank 0 "
+                f"{[round(s['loss'], 4) for s in r0['bf16_steps']]}, parameters bit-equal "
+                f"across the ranks; gloo all-reduce of the {r0['allreduce_mb']:.1f} MB of fp32 "
+                f"gradients alone {r0['allreduce_ms']:.1f} / {r1['allreduce_ms']:.1f} ms "
+                f"({share[0]:.3f} / {share[1]:.3f} of a rank's step); peak memory a rank "
+                f"{r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB; the spawn {gloo_wall:.1f} s")
+
+            # ---- evaluation on the two ranks
+            if r1["eval"] != {}:
+                raise AssertionError(f"rank 1 returned {r1['eval']}")
+            res = r0["eval"][name + "_test"]
+            with open(os.path.join(nccl_out, "coco_instances_results.json")) as f:
+                two_dets = json.load(f)
+            n_same = len({json.dumps(d, sort_keys=True) for d in one_dets}
+                         & {json.dumps(d, sort_keys=True) for d in two_dets})
+            for r in ranks:
+                want = {"nms": n_test_batches // 2, "fused_stem": n_test_batches // 2,
+                        "fused_bottleneck": 13 * n_test_batches // 2}
+                if {k: r["eval_counts"][k] for k in want} != want:
+                    raise AssertionError(f"rank {r['rank']} evaluation launched "
+                                         f"{r['eval_counts']}, expected {want}")
+            log(f"ddp evaluation on two ranks of the NCCL run's checkpoint: rank 0 bbox AP "
+                f"{res['bbox']['AP']:.4f} against one process's {one_bbox['AP']:.4f}; "
+                f"{len(two_dets)} detections against {len(one_dets)}, {n_same} identical; rank 1 "
+                f"returned {{}}; each rank's {n_test_batches // 2} test batches launched 1 stem, "
+                f"13 bottleneck and 1 NMS each; eval img/s rank 0 "
+                f"{1 / res['_timing']['s_per_img'] if res['_timing']['s_per_img'] else 0:.2f}")
+            if not (abs(res["bbox"]["AP"] - one_bbox["AP"]) <= DDP_AP_TOL
+                    and n_same == len(two_dets) == len(one_dets) == 100 * n_test):
+                raise AssertionError(f"two-rank evaluation: AP {res['bbox']['AP']} vs "
+                                     f"{one_bbox['AP']}, {len(two_dets)} vs {len(one_dets)}, "
+                                     f"{n_same} identical")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -3216,6 +3553,8 @@ def main() -> int:
     if built:
         run("ablation_grid", phase_ablation_grid, kernels, dev, smi, built)
     built.clear()
+    torch.cuda.empty_cache()
+    run("ddp", phase_ddp, kernels, dev, smi)
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

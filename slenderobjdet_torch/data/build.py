@@ -16,10 +16,11 @@ Counterpart of `slender_det/data/build.py:40-88`:
 Batches are dicts of stacked numpy arrays + host-side lists (image ids).
 
 A copy of ``slenderobjdet_tpu/data/build.py`` that yields the same batches
-for the same config, dataset and seed (``tests/test_torch_data.py``). One
-difference: the shard layout is never read from a process topology. A
-loader is one shard of one; ``num_shards`` > 1 raises until data-parallel
-training is ported, and the sharded generators come with it.
+for the same config, dataset, seed and shard layout
+(``tests/test_torch_data.py``, ``tests/test_torch_ddp.py``). The layout
+defaults to the ``torch.distributed`` process group: each rank loads its
+rows of every global batch and its strided subset of the test set. One shard
+of one is the unsharded stream.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from ..parallel import multihost
 from .catalog import DatasetCatalog
 from .mapper import DatasetMapper
 
@@ -155,18 +157,29 @@ def get_detection_dataset_dicts(names) -> List[dict]:
 
 
 def _resolve_shard(shard_id: Optional[int], num_shards: Optional[int]):
-    """One shard of one. The layout is the caller's to name (the reference's
-    per-rank DataLoader, `slender_det/engine/defaults.py:66`, takes it from
-    the process group), and more than one shard is not ported: the globally
-    formed batches and the strided test subsets come with data-parallel
-    training."""
+    """Default the shard layout to the process group: under data-parallel
+    training each rank loads only its slice of every global batch (the
+    counterpart of the reference's per-rank DataLoader,
+    `slender_det/engine/defaults.py:66`)."""
     if num_shards is None:
-        return 0, 1
-    if num_shards != 1 or (shard_id or 0) != 0:
-        raise NotImplementedError(
-            f"shard {shard_id} of {num_shards}: sharded loaders are not "
-            "ported; they come with data-parallel training (DDP)")
-    return 0, 1
+        num_shards = multihost.process_count()
+        shard_id = multihost.process_index()
+    return shard_id or 0, num_shards
+
+
+def _global_batch_indices(dataset_dicts, sampler, batch_size: int):
+    """Yield lists of (global_seq, dataset_idx) forming GLOBAL batches,
+    bucketed by image orientation from dataset metadata (width/height are
+    known before mapping), so every process agrees on batch membership and
+    padded shape without exchanging data."""
+    buckets: Dict[bool, List] = {True: [], False: []}
+    for seq, idx in enumerate(sampler):
+        d = dataset_dicts[idx]
+        is_landscape = d.get("width", 1) >= d.get("height", 0)
+        buckets[is_landscape].append((seq, idx))
+        if len(buckets[is_landscape]) == batch_size:
+            yield buckets[is_landscape]
+            buckets[is_landscape] = []
 
 
 def build_detection_train_loader(cfg, mapper: Optional[DatasetMapper] = None,
@@ -174,7 +187,13 @@ def build_detection_train_loader(cfg, mapper: Optional[DatasetMapper] = None,
                                  shard_id: Optional[int] = None,
                                  num_shards: Optional[int] = None):
     """Infinite iterator of fixed-shape batches, bucketed by orientation.
-    One shard of one: `_resolve_shard` raises for any other layout."""
+
+    With num_shards > 1 (defaults to the process group's size), batches are
+    formed GLOBALLY — one shared index stream, orientation-bucketed by
+    dataset metadata — and this loader maps+yields only rows
+    [shard_id*local_bs, (shard_id+1)*local_bs) of each global batch, with
+    augmentation rngs keyed by the global sequence number so example
+    content is independent of the shard layout."""
     dataset_dicts = get_detection_dataset_dicts(cfg.DATASETS.TRAIN)
     if cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS:
         dataset_dicts = [d for d in dataset_dicts if d.get("annotations")]
@@ -212,7 +231,34 @@ def build_detection_train_loader(cfg, mapper: Optional[DatasetMapper] = None,
         raise ValueError(f"Unknown sampler {sampler_name!r}")
 
     num_workers = cfg.DATALOADER.NUM_WORKERS
-    _resolve_shard(shard_id, num_shards)
+    shard_id, num_shards = _resolve_shard(shard_id, num_shards)
+
+    if num_shards > 1:
+        assert batch_size % num_shards == 0, (
+            f"IMS_PER_BATCH={batch_size} not divisible by "
+            f"{num_shards} processes")
+        local_bs = batch_size // num_shards
+
+        def sharded_gen():
+            from concurrent.futures import ThreadPoolExecutor
+
+            def map_one(seq_idx):
+                seq, idx = seq_idx
+                rng = np.random.default_rng((seed + 1, seq))
+                return mapper(dataset_dicts[idx], rng=rng)
+
+            pool = (ThreadPoolExecutor(max_workers=num_workers)
+                    if num_workers > 1 else None)
+            for gbatch in _global_batch_indices(dataset_dicts, sampler,
+                                                batch_size):
+                part = gbatch[shard_id * local_bs:(shard_id + 1) * local_bs]
+                if pool is not None:
+                    examples = list(pool.map(map_one, part))
+                else:
+                    examples = [map_one(p) for p in part]
+                yield _stack_batch(examples)
+
+        return _Prefetcher(sharded_gen())
 
     def gen():
         if num_workers > 1:
@@ -238,9 +284,15 @@ def build_detection_test_loader(cfg, dataset_name: str, batch_size: int = 1,
                                 num_shards: Optional[int] = None):
     """Finite iterator over the test set; groups consecutive same-bucket
     images, padding the final partial batch with repeats + a validity list.
-    One shard of one: `_resolve_shard` raises for any other layout."""
+
+    Multi-process: each process evaluates the disjoint strided subset
+    dataset_dicts[shard_id::num_shards] on its own device; the evaluator
+    gathers predictions across processes at evaluate() time (reference
+    `comm.gather`, coco_evaluation.py:81-87)."""
     dataset_dicts = get_detection_dataset_dicts(dataset_name)
-    _resolve_shard(shard_id, num_shards)
+    shard_id, num_shards = _resolve_shard(shard_id, num_shards)
+    if num_shards > 1:
+        dataset_dicts = dataset_dicts[shard_id::num_shards]
     mapper = mapper or DatasetMapper(cfg, is_train=False)
     num_workers = cfg.DATALOADER.NUM_WORKERS
 

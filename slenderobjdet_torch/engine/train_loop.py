@@ -16,17 +16,53 @@ where it stopped.
 
 ``step_generator`` is the per-step source of training randomness (the R-CNN
 subsampling), the counterpart of ``fold_in(PRNGKey(SEED + 7919), i)``: a
-function of the seed and the iteration only, so that a resumed run draws
-what an uninterrupted one draws.
+function of the seed, the iteration and the rank only, so that a resumed run
+draws what an uninterrupted one draws and no two ranks draw alike.
+
+Data parallelism: in a process group the step runs the loss through
+``DistributedDataParallel`` around a module whose ``forward`` is the model's
+``loss`` (DDP prepares its gradient reducer in its own ``forward``, so
+calling ``model.loss`` past it would skip the average). DDP averages the
+gradients bucket by bucket while the backward runs, so ``clip_gradients``
+and the update see the global gradient on every rank. The losses divide by
+global counts (``parallel.multihost.global_normalizer``), which makes that
+average the gradient of the JAX loss on the joined batch.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
 
 from ..solver.build import clip_gradients, lr_schedule
+
+
+class _Loss(nn.Module):
+    """The module DDP wraps: its ``forward`` is the model's ``loss``."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch):
+        return self.model.loss(batch)
+
+
+def data_parallel_loss(model):
+    """``model.loss``, or in a process group, DDP around it. Every trainable
+    parameter reaches every family's loss, so no unused-parameter search
+    runs; buffers are not broadcast, since the one that changes (RepPoints'
+    EMA normaliser) is computed from global counts and is equal on every
+    rank already."""
+    if not dist.is_available() or not dist.is_initialized():
+        return model.loss
+    from torch.nn.parallel import DistributedDataParallel
+
+    return DistributedDataParallel(_Loss(model), broadcast_buffers=False)
 
 
 class TrainStep:
@@ -49,10 +85,11 @@ class TrainStep:
         self.schedule = lr_schedule(cfg)
         self.params = [p for g in optimizer.param_groups for p in g["params"]]
         self.count = 0
+        self.loss = data_parallel_loss(model)
 
     def __call__(self, batch: Dict) -> Dict[str, torch.Tensor]:
         self.optimizer.zero_grad(set_to_none=True)
-        total, metrics = self.model.loss(batch)
+        total, metrics = self.loss(batch)
         total.backward()
         clip_gradients(self.cfg, self.params)
         lr = self.schedule(self.count)
@@ -69,11 +106,14 @@ class TrainStep:
         return out
 
 
-def step_generator(seed: int, iteration: int, device) -> torch.Generator:
+def step_generator(seed: int, iteration: int, device, rank: int = 0) -> torch.Generator:
     """The generator of iteration ``iteration`` on ``device``, seeded from
-    ``seed + 7919`` and the iteration."""
-    return torch.Generator(device=device).manual_seed(
-        ((max(seed, 0) + 7919) << 32) + iteration)
+    ``seed + 7919`` and the iteration; a rank other than 0 folds itself in
+    (rank 0 draws what a single process draws)."""
+    value = ((max(seed, 0) + 7919) << 32) + iteration
+    if rank:
+        value = int(np.random.SeedSequence([value, rank]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(value)
 
 
 def make_train_step(model, optimizer: torch.optim.Optimizer,

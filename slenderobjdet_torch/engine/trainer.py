@@ -8,11 +8,16 @@ periodic checkpointing, and eval. The hot loop keeps the card's work
 asynchronous: metrics are fetched only on logging iterations, so steps are
 enqueued behind the host data loader without a wait in between.
 
-One process and one device: the JAX package's mesh has no counterpart here
-(data-parallel training is not ported yet). Not ported either, each raising
-NotImplementedError where it is asked for: test-time augmentation
-(``TEST.AUG.ENABLED``), the rotated-box evaluator, and ``TEST.PRECISE_BN``
-on a model with trainable BatchNorm.
+One process a device. Under a process group (``parallel/launch.py``) every
+rank builds the model on its current device, loads its rows of each global
+batch and steps through DDP (``engine/train_loop.py``); rank 0 alone writes
+``config.yaml``, ``metrics.json`` and the checkpoints, every rank resumes
+from the same file, and ``test`` evaluates each rank's strided share of the
+test set and returns the results on rank 0 (``{}`` elsewhere), as the JAX
+trainer does across processes. Not ported, each raising NotImplementedError
+where it is asked for: test-time augmentation (``TEST.AUG.ENABLED``), the
+rotated-box evaluator, and ``TEST.PRECISE_BN`` on a model with trainable
+BatchNorm.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from ..data import build_detection_test_loader, build_detection_train_loader
 from ..data.catalog import MetadataCatalog
 from ..evaluation import COCOEvaluator, inference_on_dataset
 from ..models import build_model
+from ..parallel.multihost import (is_main_process, mean_over_processes, process_count,
+                                  process_index, sync_processes)
 from ..solver import build_optimizer
 from .events import CommonMetricPrinter, EventStorage, JSONWriter
 from .train_loop import make_train_step, step_generator
@@ -44,18 +51,20 @@ def default_setup(cfg, args=None):
         format="%(asctime)s %(name)s %(levelname)s: %(message)s",
     )
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-    with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
-        f.write(cfg.dump())
-    logger.info("torch %s, %d CUDA device(s)", torch.__version__,
-                torch.cuda.device_count())
+    if is_main_process():   # rank 0's config dump (reference defaults.py)
+        with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
+            f.write(cfg.dump())
+    logger.info("torch %s, process %d/%d, %d CUDA device(s)", torch.__version__,
+                process_index(), process_count(), torch.cuda.device_count())
     if cfg.SEED >= 0:
         np.random.seed(cfg.SEED)
 
 
 class BaseTrainer:
     def __init__(self, cfg, device=None):
-        """``device`` None means the card, and a RuntimeError where there is
-        none (``build_model``); the CPU is taken only when asked for."""
+        """``device`` None means the card (the current device, which
+        ``launch`` sets a rank), and a RuntimeError where there is none
+        (``build_model``); the CPU is taken only when asked for."""
         self.cfg = cfg
         seed = cfg.SEED if cfg.SEED >= 0 else 0
         self.model = build_model(
@@ -71,7 +80,7 @@ class BaseTrainer:
         self.writers = [
             CommonMetricPrinter(self.max_iter),
             JSONWriter(os.path.join(cfg.OUTPUT_DIR, "metrics.json")),
-        ]
+        ] if is_main_process() else []
 
     def state(self) -> Dict:
         """What a checkpoint holds: model, optimizer and the update count."""
@@ -82,6 +91,7 @@ class BaseTrainer:
         }
 
     def resume_or_load(self, resume: bool = False):
+        sync_processes()    # no rank reads last_checkpoint before rank 0 wrote it
         self.start_iter = self.checkpointer.resume_or_load(
             self.cfg.MODEL.WEIGHTS, self.model, self.optimizer, resume
         )
@@ -113,7 +123,7 @@ class BaseTrainer:
                 if k not in ("image_id", "batch_valid")
             }
             # the step's draws (R-CNN subsampling)
-            batch["generator"] = step_generator(cfg.SEED, i, device)
+            batch["generator"] = step_generator(cfg.SEED, i, device, process_index())
             data_time = time.perf_counter() - data_t0
 
             metrics = self.train_step(batch)
@@ -124,13 +134,16 @@ class BaseTrainer:
                 profiler.stop()
                 trace_dir = os.path.join(cfg.OUTPUT_DIR, "profile")
                 os.makedirs(trace_dir, exist_ok=True)
-                profiler.export_chrome_trace(
-                    os.path.join(trace_dir, "trace.json"))
+                rank = process_index()      # one trace a rank
+                profiler.export_chrome_trace(os.path.join(
+                    trace_dir, f"trace_rank{rank}.json" if rank else "trace.json"))
                 profiler = None
                 logger.info("torch.profiler trace written to %s", trace_dir)
 
             if (i + 1) % 20 == 0 or i == self.start_iter:
-                fetched = {k: float(v) for k, v in metrics.items()}
+                # one all-reduce on logging iterations only: the global
+                # batch's losses (each rank's loss is its share of them)
+                fetched = mean_over_processes(metrics)
                 self.storage.put_scalars(data_time=data_time, **fetched)
                 for w in self.writers:
                     w.write(self.storage)
@@ -140,9 +153,13 @@ class BaseTrainer:
                 # non-blocking: the host fetch + write run in a thread
                 # (which still stalls this loop at the saving iteration,
                 # see DetectionCheckpointer.save); has_checkpoint/load join
-                # the in-flight save
-                self.checkpointer.save(f"model_{i + 1:07d}", self.state(),
-                                       blocking=(i + 1) == self.max_iter)
+                # the in-flight save. Rank 0 only (JAX trainer.py:165-173);
+                # the others wait for the last, blocking one
+                if is_main_process():
+                    self.checkpointer.save(f"model_{i + 1:07d}", self.state(),
+                                           blocking=(i + 1) == self.max_iter)
+                if (i + 1) == self.max_iter:
+                    sync_processes()
             if cfg.TEST.EVAL_PERIOD > 0 and (i + 1) % cfg.TEST.EVAL_PERIOD == 0:
                 self.test()
             data_t0 = time.perf_counter()
@@ -186,4 +203,4 @@ class BaseTrainer:
             results = inference_on_dataset(predict_fn, loader, evaluator)
             logger.info("eval %s: %s", dataset_name, results.get("bbox"))
             all_results[dataset_name] = results
-        return all_results
+        return all_results if is_main_process() else {}

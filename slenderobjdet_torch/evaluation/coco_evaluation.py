@@ -12,9 +12,9 @@ arrays (boxes/scores/classes/valid), already fetched to the host by
 `inference_on_dataset`, and strips padding by mask.
 
 A copy of ``slenderobjdet_tpu/evaluation/coco_evaluation.py``, held equal to
-it on fixed predictions by ``tests/test_torch_eval.py``. One process only:
-the gather of predictions across processes comes with data-parallel
-training. The per-category table is printed by a formatter of its own
+it on fixed predictions by ``tests/test_torch_eval.py``. Across processes
+the predictions are gathered on rank 0, which alone computes and writes the
+metrics. The per-category table is printed by a formatter of its own
 (no ``tabulate``).
 """
 
@@ -28,6 +28,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..data.catalog import MetadataCatalog
+from ..parallel.multihost import all_gather_objects, is_main_process, process_count
 from .ar_recall import evaluate_predictions_ar
 from .coco_api import COCO
 from .slender_cocoeval import SlenderCOCOeval
@@ -115,8 +116,14 @@ class COCOEvaluator:
     def _gather_predictions(self) -> bool:
         """Cross-process prediction gather (reference `comm.gather`,
         `slender_det/evaluation/coco_evaluation.py:81-87`). Returns True on
-        the process that should compute metrics. The port runs in one
-        process, which holds every prediction already."""
+        the process that should compute metrics (rank 0), False elsewhere:
+        the other ranks contribute their predictions and return empty
+        results."""
+        if process_count() > 1:
+            gathered = all_gather_objects(self._predictions)
+            if not is_main_process():
+                return False
+            self._predictions = [p for preds in gathered for p in preds]
         return True
 
     def evaluate(self) -> "OrderedDict[str, Dict[str, float]]":
@@ -290,6 +297,10 @@ class COCOEvaluatorWithAnchors(COCOEvaluator):
             })
 
     def evaluate(self):
+        if process_count() > 1:
+            gathered = all_gather_objects(self._proposals)
+            self._proposals = (
+                [p for ps in gathered for p in ps] if is_main_process() else [])
         results = super().evaluate()
         if self._output_dir and self._proposals:
             import pickle

@@ -14,6 +14,8 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from ..parallel.multihost import process_index
+
 logger = logging.getLogger(__name__)
 
 
@@ -35,7 +37,9 @@ def inference_on_dataset(
     warmup: int = 5,
 ) -> Dict:
     """predict_fn: batch -> detections (tensors on the card). Returns evaluator
-    results; logs pure-compute s/img like the reference."""
+    results (rank 0's metrics; other ranks' evaluators return none) and
+    this rank's own ``_timing``; logs pure-compute s/img like the
+    reference."""
     evaluator.reset()
 
     total_compute_time = 0.0
@@ -61,7 +65,8 @@ def inference_on_dataset(
 
     if total_images > 0:
         logger.info(
-            "Total inference pure compute time: %.4fs (%.4f s/img on %d images)",
+            "Rank %d: total inference pure compute time: %.4fs (%.4f s/img on %d "
+            "images)", process_index(),
             total_compute_time,
             total_compute_time / total_images,
             total_images,

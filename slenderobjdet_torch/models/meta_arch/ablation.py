@@ -38,6 +38,8 @@ from torch import nn
 from ...ops.deform_conv import deform_apply, deform_sample_batched, kernel_base_offsets
 from ...ops.losses import iou_loss_ltrb, optax_sigmoid_ce, sigmoid_focal_loss, smooth_l1_loss
 from ...ops.topk import pair_top_k
+from ...parallel.multihost import (global_normalizer, global_sum, process_count,
+                                   process_share)
 from ...structures import boxes as box_ops
 from ..anchors import AnchorGeneratorSpec, fcos_locations
 from ..backbones.fpn import build_backbone
@@ -384,9 +386,9 @@ class AblationMetaArch(RepPointsModule):
                 gt_boxes, gt_classes, gt_valid, self.num_classes)
 
         pos = labels < self.num_classes
-        num_pos = torch.clamp(pos.sum().float(), min=1.0)
+        num_pos, pos_share = global_normalizer(pos.sum().float(), 1.0)
         cls_loss = sigmoid_focal_loss(logits, self._onehot(labels), self.focal_alpha,
-                                      self.focal_gamma).sum() / num_pos
+                                      self.focal_gamma).sum() / pos_share
 
         # a safe target on non-positive rows BEFORE the losses
         safe_targets = torch.where(pos[..., None], reg_targets, 1.0)
@@ -396,14 +398,14 @@ class AblationMetaArch(RepPointsModule):
         reg_pos = pos
         if self.head_name == "LRTBTopkHead":
             reg_pos = topk_per_gt_gate(ctr_targets, pos, gt_inds, gt_boxes.shape[1], 5)
-        sum_ctr = torch.clamp(torch.where(reg_pos, ctr_targets, 0.0).sum(), min=1e-6)
+        _, ctr_share = global_normalizer(torch.where(reg_pos, ctr_targets, 0.0).sum(), 1e-6)
 
         def reg_loss(pred):
             per = iou_loss_ltrb(pred, safe_targets, self.iou_loss_type)
-            return torch.where(reg_pos, per * ctr_targets, 0.0).sum() / sum_ctr
+            return torch.where(reg_pos, per * ctr_targets, 0.0).sum() / ctr_share
 
         loss_init, loss_refine = reg_loss(loc_init), reg_loss(loc_refine)
-        ctr_loss = torch.where(pos, optax_sigmoid_ce(ctr, ctr_targets), 0.0).sum() / num_pos
+        ctr_loss = torch.where(pos, optax_sigmoid_ce(ctr, ctr_targets), 0.0).sum() / pos_share
         return self._total(cls_loss, loss_init, loss_refine, ctr_loss), {
             "loss_cls": cls_loss, "centerness_loss": ctr_loss, "loss_loc_init": loss_init,
             "loss_loc_refine": loss_refine, "num_pos": num_pos}
@@ -451,7 +453,10 @@ class AblationMetaArch(RepPointsModule):
 
         valid = gt_cls >= 0
         fg = valid & (gt_cls < self.num_classes)
-        normalizer = torch.clamp(fg.sum().float() / fg.shape[0], min=1.0)
+        # the global batch's foreground a image, clamped (one all-reduce)
+        num_fg, num_init = global_sum(torch.stack([fg.sum(), init_obj.sum()]))
+        normalizer = process_share(
+            torch.clamp(num_fg.float() / (fg.shape[0] * process_count()), min=1.0))
         cls_all = sigmoid_focal_loss(logits, self._onehot(gt_cls), self.focal_alpha,
                                      self.focal_gamma)
         cls_loss = torch.where(valid[..., None], cls_all, 0.0).sum() / normalizer
@@ -464,11 +469,11 @@ class AblationMetaArch(RepPointsModule):
             return torch.where(mask[..., None], per, 0.0).sum()
 
         loss_init = (box_loss(init_boxes, init_gt, init_obj)
-                     / torch.clamp(init_obj.sum().float(), min=1.0))
+                     / process_share(torch.clamp(num_init.float(), min=1.0)))
         loss_refine = box_loss(refine_boxes, refine_gt, fg) / normalizer
         return self._total(cls_loss, loss_init, loss_refine), {
             "loss_cls": cls_loss, "loss_loc_init": loss_init, "loss_loc_refine": loss_refine,
-            "num_pos": fg.sum()}
+            "num_pos": num_fg}
 
     def _anchor_loss(self, batch, image_hw, outputs):
         cls_l, _, init_l, refine_l = outputs
@@ -486,10 +491,10 @@ class AblationMetaArch(RepPointsModule):
 
         valid = gt_labels >= 0
         fg = valid & (gt_labels < self.num_classes)
-        num_fg = torch.clamp(fg.sum().float(), min=1.0)
+        num_fg, fg_share = global_normalizer(fg.sum().float(), 1.0)
         cls_all = sigmoid_focal_loss(logits, self._onehot(gt_labels), self.focal_alpha,
                                      self.focal_gamma)
-        cls_loss = torch.where(valid[..., None], cls_all, 0.0).sum() / num_fg
+        cls_loss = torch.where(valid[..., None], cls_all, 0.0).sum() / fg_share
 
         safe = torch.where(fg[..., None], matched, anchors[None] + 1.0)
         target = box_ops.get_deltas(anchors[None].expand_as(safe), safe,
@@ -497,7 +502,7 @@ class AblationMetaArch(RepPointsModule):
 
         def delta_loss(pred):
             per = smooth_l1_loss(pred, target, 0.11)
-            return torch.where(fg[..., None], per, 0.0).sum() / num_fg
+            return torch.where(fg[..., None], per, 0.0).sum() / fg_share
 
         loss_init, loss_refine = delta_loss(init_d), delta_loss(refine_d)
         return self._total(cls_loss, loss_init, loss_refine), {

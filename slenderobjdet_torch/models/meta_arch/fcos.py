@@ -32,6 +32,7 @@ from torch import nn
 from ...ops.losses import iou_loss_ltrb, optax_sigmoid_ce, sigmoid_focal_loss
 from ...ops.nms import cuda_batched_nms
 from ...ops.topk import pair_top_k
+from ...parallel.multihost import global_normalizer
 from ...structures import boxes as box_ops
 from ..anchors import fcos_locations
 from ..backbones.fpn import build_backbone
@@ -313,7 +314,8 @@ class FCOS(FCOSModule):
         "gt_classes": (B, G) int, "gt_valid": (B, G) bool} as numpy arrays
         or tensors. Returns the total loss and {"cls_loss", "reg_loss",
         "centerness_loss" (with the centerness branch), "num_pos"}; every
-        normaliser is a sum over the whole batch."""
+        normaliser is a count over the global batch, summed over the
+        processes (``parallel.multihost.global_normalizer``)."""
         if self.mask_center_sampling:
             raise NotImplementedError(
                 "mask_center_sampling (FCOSV3's center_mask input) is not ported")
@@ -342,13 +344,13 @@ class FCOS(FCOSModule):
             reg_targets = reg_targets / stride_per_loc[None, :, None]
 
         pos = labels < self.num_classes              # (B, L)
-        num_pos = torch.clamp(pos.sum().float(), min=1.0)
+        num_pos, pos_share = global_normalizer(pos.sum().float(), 1.0)
 
         # focal classification loss over all locations; background rows of
         # the one-hot are zero
         onehot = F.one_hot(labels, self.num_classes + 1)[..., :-1].float()
         cls_loss = sigmoid_focal_loss(logits, onehot, self.focal_alpha,
-                                      self.focal_gamma).sum() / num_pos
+                                      self.focal_gamma).sum() / pos_share
 
         # Centerness-weighted IoU loss on positives. Non-positive rows carry
         # garbage targets (possibly negative ltrb, the log of a negative in
@@ -366,16 +368,16 @@ class FCOS(FCOSModule):
         reg_losses = iou_loss_ltrb(reg, safe_targets, self.iou_loss_type)
         if not self.use_centerness:
             # unweighted IoU loss over num_pos
-            reg_loss = torch.where(reg_pos, reg_losses, 0.0).sum() / num_pos
+            reg_loss = torch.where(reg_pos, reg_losses, 0.0).sum() / pos_share
             return cls_loss + reg_loss, {"cls_loss": cls_loss,
                                          "reg_loss": reg_loss,
                                          "num_pos": num_pos}
-        sum_ctr = torch.clamp(torch.where(reg_pos, ctr_targets, 0.0).sum(),
-                              min=1e-6)
+        _, ctr_share = global_normalizer(
+            torch.where(reg_pos, ctr_targets, 0.0).sum(), 1e-6)
         reg_loss = torch.where(reg_pos, reg_losses * ctr_targets,
-                               0.0).sum() / sum_ctr
+                               0.0).sum() / ctr_share
         ctr_loss = torch.where(pos, optax_sigmoid_ce(ctr, ctr_targets),
-                               0.0).sum() / num_pos
+                               0.0).sum() / pos_share
         total = cls_loss + reg_loss + ctr_loss
         return total, {"cls_loss": cls_loss, "reg_loss": reg_loss,
                        "centerness_loss": ctr_loss, "num_pos": num_pos}

@@ -26,6 +26,7 @@ from torch import nn
 
 from ...ops.losses import optax_sigmoid_ce, sigmoid_focal_loss
 from ...ops.topk import pair_top_k
+from ...parallel.multihost import global_normalizer, global_quotient
 from ..anchors import AnchorGeneratorSpec, fcos_locations
 from ..backbones.fpn import build_backbone
 from ..layers import Conv2d, GroupNorm32, Scale, init_detector_weights, prior_bias
@@ -183,12 +184,12 @@ class FCOSAnchor(RepPointsModule):
         pos_a = pos.repeat_interleave(A, dim=1)          # (B, L*A)
         labels_a = labels.repeat_interleave(A, dim=1)
         targets_a = reg_targets.repeat_interleave(A, dim=1)
-        num_pos = torch.clamp(pos.sum().float(), min=1.0)
-        num_pos_a = torch.clamp(pos_a.sum().float(), min=1.0)
+        num_pos, pos_share = global_normalizer(pos.sum().float(), 1.0)
+        _, pos_a_share = global_normalizer(pos_a.sum().float(), 1.0)
 
         onehot = (labels_a[..., None] == torch.arange(self.num_classes, device=dev)).float()
         cls_loss = sigmoid_focal_loss(logits, onehot, self.focal_alpha,
-                                      self.focal_gamma).sum() / num_pos_a
+                                      self.focal_gamma).sum() / pos_a_share
 
         # a safe target on non-positive rows BEFORE the losses
         safe_t = torch.where(pos_a[..., None], targets_a, 1.0)
@@ -199,11 +200,12 @@ class FCOSAnchor(RepPointsModule):
             torch.where(pos[..., None], reg_targets, 1.0)), 0.0)
         weights = torch.where(pos_a, ctr_targets.repeat_interleave(A, dim=1)
                               * _row_softmax(shape_logits, pos_a, A), 0.0)
-        sum_w = torch.clamp(weights.sum(), min=1e-6)
-        reg_loss = torch.where(pos_a, losses * weights, 0.0).sum() / sum_w
-        ctr_loss = torch.where(pos, optax_sigmoid_ce(ctr, ctr_targets), 0.0).sum() / num_pos
+        # the weights' sum carries the shape logits' gradient, as in JAX
+        reg_loss = global_quotient(torch.where(pos_a, losses * weights, 0.0).sum(),
+                                   weights.sum(), 1e-6)
+        ctr_loss = torch.where(pos, optax_sigmoid_ce(ctr, ctr_targets), 0.0).sum() / pos_share
         shape_loss = torch.where(pos_a, optax_sigmoid_ce(shape_logits, norm_losses),
-                                 0.0).sum() / num_pos_a
+                                 0.0).sum() / pos_a_share
         total = cls_loss + reg_loss + ctr_loss + shape_loss
         return total, {"cls_loss": cls_loss, "reg_loss": reg_loss,
                        "centerness_loss": ctr_loss, "shape_loss": shape_loss,

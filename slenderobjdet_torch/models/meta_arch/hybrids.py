@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ...ops.losses import optax_sigmoid_ce, sigmoid_focal_loss
+from ...parallel.multihost import global_normalizer, global_sum, process_share
 from ...structures import boxes as box_ops
 from ..layers import Conv2d
 from ..matchers import iou_matcher
@@ -100,8 +101,8 @@ class RepPointsCenterness(RepPointsDetector):
         ctr_fn = (compute_slender_centerness_targets if self.slender_centerness
                   else compute_centerness_targets)
         tgt = torch.where(fg, ctr_fn(safe), 0.0)
-        num_pos = torch.clamp(fg.sum().float(), min=1.0)
-        ctr_loss = torch.where(fg, optax_sigmoid_ce(ctr, tgt), 0.0).sum() / num_pos
+        _, pos_share = global_normalizer(fg.sum().float(), 1.0)
+        ctr_loss = torch.where(fg, optax_sigmoid_ce(ctr, tgt), 0.0).sum() / pos_share
         metrics = dict(metrics, centerness_loss=ctr_loss)
         return total + ctr_loss, metrics
 
@@ -197,16 +198,18 @@ class RepPointsV2(RepPointsDetector):
         init_obj, init_gt_boxes = self._init_targets(t)
         gt_cls, refine_gt_boxes = self._refine_targets(t)
         fg = gt_cls < self.num_classes
-        num_pos_refine = torch.clamp(fg.sum().float(), min=1.0)
-        num_pos_init = torch.clamp(init_obj.sum().float(), min=1.0)
+        # the global batch's counts, one all-reduce for both
+        num_fg, num_init = global_sum(torch.stack([fg.sum(), init_obj.sum()]))
+        refine_share = process_share(torch.clamp(num_fg.float(), min=1.0))
+        init_share = process_share(torch.clamp(num_init.float(), min=1.0))
 
         cls_all = sigmoid_focal_loss(t["logits"], self._onehot(gt_cls),
                                      self.focal_alpha, self.focal_gamma)
-        loss_cls = cls_all.sum() / num_pos_refine * self.loss_cls_weight
+        loss_cls = cls_all.sum() / refine_share * self.loss_cls_weight
         loss_init = (self._box_loss(t, t["init_boxes"], init_gt_boxes, init_obj)
-                     / num_pos_init * self.loss_init_weight)
+                     / init_share * self.loss_init_weight)
         loss_refine = (self._box_loss(t, t["refine_boxes"], refine_gt_boxes, fg)
-                       / num_pos_refine * self.loss_refine_weight)
+                       / refine_share * self.loss_refine_weight)
         total = loss_cls + loss_init + loss_refine
         return total, {"loss_cls": loss_cls, "loss_pts_init": loss_init,
-                       "loss_pts_refine": loss_refine, "num_pos": fg.sum()}
+                       "loss_pts_refine": loss_refine, "num_pos": num_fg}

@@ -46,6 +46,7 @@ from ...ops.deform_conv import deform_sample_batched
 from ...ops.losses import sigmoid_focal_loss, smooth_l1_loss
 from ...ops.nms import cuda_batched_nms
 from ...ops.topk import pair_top_k
+from ...parallel.multihost import global_sum, process_count, process_share
 from ...structures import boxes as box_ops
 from ..anchors import feature_map_shapes
 from ..backbones.fpn import build_backbone
@@ -475,21 +476,25 @@ class RepPointsDetector(RepPointsModule):
 
         valid = gt_cls >= 0
         fg = valid & (gt_cls < self.num_classes)
-        num_fg_per_img = fg.sum().float() / fg.shape[0]
+        # counts over the global batch (one all-reduce), so that the buffer
+        # is equal on every process
+        num_fg, num_init = global_sum(torch.stack([fg.sum(), init_obj.sum()]))
+        num_fg_per_img = num_fg.float() / (fg.shape[0] * process_count())
         # the EMA, updated before use
         m = self.loss_normalizer_momentum
         new_normalizer = m * self.loss_normalizer + (1.0 - m) * num_fg_per_img
-        normalizer = torch.clamp(new_normalizer, min=1.0)
+        normalizer = process_share(torch.clamp(new_normalizer, min=1.0))
 
         cls_all = sigmoid_focal_loss(t["logits"], self._onehot(gt_cls),
                                      self.focal_alpha, self.focal_gamma)
         loss_cls = torch.where(valid[..., None], cls_all, 0.0).sum() / normalizer
+        init_share = process_share(torch.clamp(num_init.float(), min=1.0))
         loss_init = (self._box_loss(t, t["init_boxes"], init_gt_boxes, init_obj)
-                     / torch.clamp(init_obj.sum().float(), min=1.0) * 0.5)
+                     / init_share * 0.5)
         loss_refine = self._box_loss(t, t["refine_boxes"], refine_gt_boxes, fg) / normalizer
         total = loss_cls + loss_init + loss_refine
         return total, {"loss_cls": loss_cls, "loss_localization_init": loss_init,
-                       "loss_localization_refine": loss_refine, "num_pos": fg.sum(),
+                       "loss_localization_refine": loss_refine, "num_pos": num_fg,
                        "loss_normalizer": new_normalizer.detach()}
 
     # ---------------------------------------------------------- inference

@@ -28,6 +28,7 @@ from torch import nn
 from ...ops.losses import sigmoid_focal_loss, smooth_l1_loss
 from ...ops.nms import cuda_batched_nms
 from ...ops.topk import pair_top_k
+from ...parallel.multihost import global_normalizer
 from ...structures import boxes as box_ops
 from ..anchors import AnchorGeneratorSpec
 from ..backbones.fpn import build_backbone
@@ -253,7 +254,8 @@ class RetinaNet(RetinaNetModule):
         """batch: {"image": uint8 (B, H, W, 3), "gt_boxes": (B, G, 4) XYXY,
         "gt_classes": (B, G) int, "gt_valid": (B, G) bool} as numpy arrays
         or tensors. Returns the total loss and {"loss_cls", "loss_box_reg",
-        "num_pos"}; both losses are over the batch's foreground count."""
+        "num_pos"}; both losses are over the global batch's foreground
+        count."""
         dev = self.pixel_mean.device
         images = torch.as_tensor(batch["image"], device=dev)
         anchors_np, counts = self._anchors(images.shape[1:3])
@@ -271,14 +273,14 @@ class RetinaNet(RetinaNetModule):
 
         valid = gt_labels >= 0                       # not ignored
         fg = valid & (gt_labels < self.num_classes)
-        num_fg = torch.clamp(fg.sum().float(), min=1.0)
+        num_fg, fg_share = global_normalizer(fg.sum().float(), 1.0)
 
         # ignored (-1) and background (C) rows of the one-hot are zero
         classes = torch.arange(self.num_classes, device=dev)
         onehot = (gt_labels[..., None] == classes).float()
         cls_all = sigmoid_focal_loss(logits, onehot, self.focal_alpha,
                                      self.focal_gamma)
-        cls_loss = torch.where(valid[..., None], cls_all, 0.0).sum() / num_fg
+        cls_loss = torch.where(valid[..., None], cls_all, 0.0).sum() / fg_share
 
         # smooth-L1 on the anchor deltas. Rows that are not foreground get a
         # safe target BEFORE the loss: a where after it does not stop a NaN
@@ -289,7 +291,7 @@ class RetinaNet(RetinaNetModule):
             anchors[None].expand_as(safe_boxes), safe_boxes,
             weights=self.box_reg_weights)
         reg_all = smooth_l1_loss(regs, target_deltas, self.smooth_l1_beta)
-        reg_loss = torch.where(fg[..., None], reg_all, 0.0).sum() / num_fg
+        reg_loss = torch.where(fg[..., None], reg_all, 0.0).sum() / fg_share
 
         return cls_loss + reg_loss, {"loss_cls": cls_loss,
                                      "loss_box_reg": reg_loss,

@@ -118,6 +118,8 @@ class RPN:
         sel_pos, sel_neg = torch.stack(sel_pos), torch.stack(sel_neg)
         matched_boxes = torch.stack(matched)
 
+        # static (B the local batch): under data parallelism the mean of the
+        # processes' losses is already the global sum over 256 x global B
         normalizer = float(self.batch_size_per_image * B)
         obj_loss = torch.where(sel_pos | sel_neg,
                                optax_sigmoid_ce(logits, sel_pos.float()),

@@ -28,6 +28,7 @@ from ...ops.losses import smooth_l1_loss
 from ...ops.nms import cuda_batched_nms
 from ...ops.roi_align import multilevel_roi_align_fused
 from ...ops.topk import top_k_by_index
+from ...parallel.multihost import global_sum, process_share
 from ...structures import boxes as box_ops
 from ..layers import Linear
 from ..matchers import iou_matcher
@@ -187,12 +188,14 @@ class StandardROIHeads:
         scores, deltas = module(self.pool(feats, rois))  # (B,S,C+1), (B,S,4C)
 
         fg = (classes < self.num_classes) & row_valid
-        num_valid = torch.clamp(row_valid.sum().float(), min=1.0)
+        # the global batch's sampled rows and foreground, one all-reduce
+        num_valid, num_fg = global_sum(torch.stack([row_valid.sum(), fg.sum()]))
+        valid_share = process_share(torch.clamp(num_valid.float(), min=1.0))
 
         # softmax CE, the mean over the sampled rows (d2's cross_entropy)
         logp = F.log_softmax(scores, dim=-1)
         ce = -torch.gather(logp, -1, classes.long()[..., None])[..., 0]
-        cls_loss = torch.where(row_valid, ce, 0.0).sum() / num_valid
+        cls_loss = torch.where(row_valid, ce, 0.0).sum() / valid_share
 
         # the gt class's deltas; rows that are not foreground get a safe
         # target before the loss (a where after it leaks a NaN gradient)
@@ -206,8 +209,8 @@ class StandardROIHeads:
             sel_deltas = torch.gather(
                 d, -2, cls_idx[..., None, None].expand(*cls_idx.shape, 1, 4))[..., 0, :]
         reg = smooth_l1_loss(sel_deltas, tgt_deltas, self.smooth_l1_beta)
-        reg_loss = torch.where(fg[..., None], reg, 0.0).sum() / num_valid
-        return {"loss_cls": cls_loss, "loss_box_reg": reg_loss, "num_fg": fg.sum()}
+        reg_loss = torch.where(fg[..., None], reg, 0.0).sum() / valid_share
+        return {"loss_cls": cls_loss, "loss_box_reg": reg_loss, "num_fg": num_fg}
 
     # ------------------------------------------------------------ inference
     def candidates(self, module: ROIBoxModule, feats, proposals, prop_valid):

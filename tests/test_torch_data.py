@@ -137,9 +137,11 @@ def test_test_loader_yields_the_jax_loaders_batches(dataset, workers):
 
 
 def test_loaders_are_one_shard_of_one_until_data_parallel(dataset):
-    """With no arguments, and with the one-shard layout named, the loaders
-    yield the same batches; any other layout raises and names DDP."""
-    _, tcfg = cfg_pair(**{"SOLVER.IMS_PER_BATCH": 4, "DATALOADER.NUM_WORKERS": 2})
+    """With no arguments and no process group, and with the one-shard
+    layout named, the loaders yield the same batches; a layout that does
+    not divide the global batch raises, as the JAX loader's assert does.
+    (Sharded layouts: ``tests/test_torch_ddp.py``.)"""
+    jcfg, tcfg = cfg_pair(**{"SOLVER.IMS_PER_BATCH": 4, "DATALOADER.NUM_WORKERS": 2})
     plain = iter(tbuild.build_detection_train_loader(tcfg, seed=1))
     named = iter(tbuild.build_detection_train_loader(tcfg, seed=1, shard_id=0, num_shards=1))
     for _ in range(3):
@@ -149,11 +151,10 @@ def test_loaders_are_one_shard_of_one_until_data_parallel(dataset):
                          tbuild.build_detection_test_loader(tcfg, NAME, 2)):
         assert_batches_equal(got, want)
     assert tbuild._resolve_shard(None, None) == (0, 1)
-    for build in (lambda: tbuild.build_detection_train_loader(tcfg, shard_id=1, num_shards=2),
-                  lambda: tbuild.build_detection_test_loader(tcfg, NAME, 2, shard_id=1,
-                                                             num_shards=3)):
-        with pytest.raises(NotImplementedError, match="DDP"):
-            build()
+    for build in (jbuild.build_detection_train_loader, tbuild.build_detection_train_loader):
+        cfg = jcfg if build is jbuild.build_detection_train_loader else tcfg
+        with pytest.raises(AssertionError, match="not divisible by 3"):
+            build(cfg, shard_id=1, num_shards=3)
 
 
 def test_unknown_sampler_raises(dataset):
