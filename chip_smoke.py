@@ -7,6 +7,7 @@
     python3 chip_smoke.py rcnn   # the Faster R-CNN phases
     python3 chip_smoke.py reppoints   # the RepPoints and DCN phases
     python3 chip_smoke.py ddp    # the data-parallel phase
+    python3 chip_smoke.py proposal syncbn   # the proposal networks and SyncBN
 
 Builds the port's CUDA kernels from ``slenderobjdet_torch/ops/csrc`` (at
 first use, into ``build/torch_kernels/``), then, each phase failing the run
@@ -170,6 +171,30 @@ if it fails:
    one of its detections identical to that run's, rank 1 ``{}``, 1 + 13 + 1 launches a test
    batch on each rank. Prints step times, the all-reduce's share and the
    peak memory a rank ("two ranks sharing one card": not a scaling figure).
+
+25-28. The proposal networks (``proposal_*`` phases), the flagship yaml with
+   ``MODEL.META_ARCHITECTURE ProposalNetwork``, ``MODEL.RPN.IN_FEATURES``
+   P3-P7 and each of the three generators (``RepPointsGenerator``, its head's
+   trainable BatchNorms shared by five levels; ``PointsProposalGenerator``;
+   ``ProposalNetworkWithMasks``): ``proposal_build`` at full width, seeded,
+   with parameter counts; ``proposal``: head outputs in bf16 against fp32,
+   the NMS kernel against ``batched_nms`` on each generator's own 3,385
+   candidates an image (B=8, class-agnostic, its thr, 100 slots), exactly
+   1 stem + 13 bottleneck + 1 NMS a predict call at B=8 and 32, device ms of
+   trunk, head and postprocess, predict img/s; ``proposal_train``: 11 RPG
+   steps at B=16 with 100 padded gt (loss falling, running statistics
+   moving), one step of each other generator, and a SyncBN trunk's step and
+   predict with 0 stem and 0 bottleneck launches; ``proposal_trainer``:
+   ``main`` (train, ``--resume`` bit-equal with the BatchNorm statistics,
+   ``--eval-only``), then ``TEST.PRECISE_BN`` through the trainer's ``test``
+   and the next checkpoint.
+29. SyncBN (``syncbn``): the RPG with a SyncBN trunk under NCCL at world
+   size 1 bit-equal to no group; two gloo ranks sharing the card, 8 rows
+   each of a joined 16, one fp32 step against the single process's
+   (DDP_FP32_RTOL / DDP_UPDATE_RTOL plus SYNCBN_NOISE_FACTOR x each tensor's
+   own difference under a reordering of the joined batch), bit-equal across
+   the ranks; the
+   all-reduces' ms and share of a step.
 
 Every kernel's time stands beside its bound, the least time the card could
 take: the larger of its bytes (inputs read once, outputs written once) over
@@ -1173,10 +1198,11 @@ def states_equal(a, b) -> bool:
     return a == b
 
 
-def trainer_args(name, out, *flags, max_iter=8, checkpoint_period=4, yaml=FCOS_YAML):
+def trainer_args(name, out, *flags, max_iter=8, checkpoint_period=4, yaml=FCOS_YAML,
+                 overrides=None):
     """The config of ``yaml``, nothing cut, with the synthetic dataset (its
     test set is ``name + "_test"``), 8 iterations, a checkpoint every 4, and
-    phase_train's fused bf16 model."""
+    phase_train's fused bf16 model; ``overrides`` come last."""
     from pathlib import Path
 
     import train_net_torch
@@ -1185,7 +1211,7 @@ def trainer_args(name, out, *flags, max_iter=8, checkpoint_period=4, yaml=FCOS_Y
             "INPUT.MIN_SIZE_TRAIN": (800,), "SOLVER.MAX_ITER": max_iter,
             "SOLVER.CHECKPOINT_PERIOD": checkpoint_period, "SEED": 0, "OUTPUT_DIR": out,
             "MODEL.RESNETS.FUSED_STEM": True, "MODEL.RESNETS.FUSED_BLOCKS": True,
-            "TPU.COMPUTE_DTYPE": "bfloat16"}
+            "TPU.COMPUTE_DTYPE": "bfloat16", **(overrides or {})}
     config = Path(__file__).resolve().parent / yaml
     return train_net_torch.default_argument_parser().parse_args(
         ["--config-file", str(config), *flags] + [str(x) for kv in opts.items() for x in kv])
@@ -1711,7 +1737,7 @@ def phase_retinanet_trainer(kernels, dev, smi):
 
 
 def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
-                   loss_key="loss_box_reg"):
+                   loss_key="loss_box_reg", overrides=None):
     """``train_net_torch.main`` on ``yaml`` over the synthetic dataset: 4
     iterations with a checkpoint at 2 and the evaluation, then ``--resume``
     to 8 from exactly the saved state, then ``--eval-only``. Every step must
@@ -1735,7 +1761,7 @@ def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
         out = os.path.join(tmp, "output")
 
         def args(*flags, **kw):
-            return trainer_args(name, out, *flags, yaml=yaml, **kw)
+            return trainer_args(name, out, *flags, yaml=yaml, overrides=overrides, **kw)
 
         def check_steps(first, last):
             if [r["step"] for r in watch.steps] != list(range(first, last)):
@@ -1877,13 +1903,15 @@ def nms_check(kernels, smi, family, key, boxes, scores, valid, thr, max_out, cou
     """The NMS kernel on a model's own candidates against the plain
     ``batched_nms``: the RPN's level-aware route (``counts``: one launch over
     rows of (image, level), then the merge of the rows' kept lists) or a
-    class-aware call (``classes``: Faster R-CNN's box head, RepPoints). Identical, or it fails; then
+    class-aware call (``classes``: Faster R-CNN's box head, RepPoints) or,
+    with neither, a class-agnostic one (the proposal networks; the plain
+    ``batched_nms`` with one class). Identical, or it fails; then
     the kernel alone, the whole call and the plain version are timed, beside
     the bound: the bytes of the inputs and outputs, and the reference's work,
     each kept box against every candidate it could suppress (its row's, or
     its image's) at NMS_OPS_PER_PAIR operations in fp32."""
-    from slenderobjdet_torch.ops.nms import (batched_nms, cuda_batched_nms, launch_nms,
-                                             level_batched_nms, level_rows)
+    from slenderobjdet_torch.ops.nms import (batched_nms, cuda_batched_nms, cuda_nms,
+                                             launch_nms, level_batched_nms, level_rows)
 
     B, N = scores.shape
     if counts is not None:
@@ -1897,7 +1925,7 @@ def nms_check(kernels, smi, family, key, boxes, scores, valid, thr, max_out, cou
 
         def kernel(rounds=None):
             return launch_nms(rb, rs, None, rv, thr, max_out, rounds=rounds, row_offset=offset)
-    else:
+    elif classes is not None:
         idxs = classes
         row_n = torch.full((B,), N, device=boxes.device)
 
@@ -1906,6 +1934,15 @@ def nms_check(kernels, smi, family, key, boxes, scores, valid, thr, max_out, cou
 
         def kernel(rounds=None):
             return launch_nms(boxes, scores, classes, valid, thr, max_out, rounds=rounds)
+    else:                       # class-agnostic: the proposal networks
+        idxs = torch.zeros((B, N), dtype=torch.int32, device=boxes.device)
+        row_n = torch.full((B,), N, device=boxes.device)
+
+        def call():
+            return cuda_nms(boxes, scores, thr, max_out, valid=valid)
+
+        def kernel(rounds=None):
+            return launch_nms(boxes, scores, None, valid, thr, max_out, rounds=rounds)
 
     got = call()
     want = batched_nms(boxes, scores, idxs, thr, max_out, valid=valid)
@@ -1924,9 +1961,10 @@ def nms_check(kernels, smi, family, key, boxes, scores, valid, thr, max_out, cou
     b_ms, b_by = bound_ms(nbytes(boxes, scores, valid, classes, *out),
                           work * NMS_OPS_PER_PAIR, PEAK_FP32_FLOPS)
     per_image = rounds.view(B, -1)
-    share = float(valid.float().mean())
+    share = float(valid.float().mean()) if valid is not None else 1.0
     log(f"nms {family} {key} ({smi}): kernel == plain at B={B} N={N} thr {thr} max_out {max_out} "
-        f"({'levels ' + str(list(counts)) if counts else 'classes'}), {share:.3f} valid, kept an "
+        f"({'levels ' + str(list(counts)) if counts else 'classes' if classes is not None else 'class-agnostic'}), "
+        f"{share:.3f} valid, kept an "
         f"image {min(kept)}-{max(kept)}; block-wide rounds a row {int(rounds.min())}-"
         f"{int(rounds.max())} (an image: the largest row {per_image.max(1).values.tolist()}, "
         f"sum of its rows {per_image.sum(1).tolist()}); kernel alone {ms:.4f} ms, whole call "
@@ -3440,6 +3478,495 @@ def phase_ddp(kernels, dev, smi):
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
 
 
+# ------------------------------------------------------ the proposal networks
+PROPOSAL_HW = LOADER_SHAPES[0]       # the loader's landscape bucket, 896 x 1408
+PROPOSAL_GENERATORS = ("RepPointsGenerator", "PointsProposalGenerator",
+                       "ProposalNetworkWithMasks")
+# per level min(1000, H*W) at 896 x 1408: 1000 + 1000 + 1000 + 308 + 77
+PROPOSAL_CANDIDATES = 3385
+PROPOSAL_PREDICT_LAUNCHES = {"fused_stem": 1, "fused_bottleneck": 13, "nms": 1}
+PROPOSAL_STEP_LAUNCHES = {"fused_stem": 1, "fused_bottleneck": 13}
+PROPOSAL_TRAIN_LR = 1e-3    # a test setting, WARMUP_ITERS 0: the loss falls over 11 steps
+PROPOSAL_P3_SPREAD = 1.5    # PPG: the std of raw offset x stride at P3, drawn
+SYNCBN_FP32_RTOL = DDP_FP32_RTOL      # two ranks' fp32 step vs the joined batch's
+SYNCBN_UPDATE_RTOL = DDP_UPDATE_RTOL
+# the two-rank fp32 step trains the head, the FPN and the stem's norm: the
+# trunk's BatchNorms still normalise by the joined batch and update their
+# running statistics, but a trained BatchNorm trunk's float32 gradients are
+# ill-conditioned on random weights (the CPU port's float32 and float64
+# gradients of res5 differ by up to 9%; with it trained, res5_2.norm3.bias
+# missed this criterion 47.9-fold on an NVIDIA H100 80GB HBM3 at 700 W)
+SYNCBN_FREEZE_AT = 5
+# and even so a BatchNorm's bias gradient (a residual of terms that the next
+# BatchNorm's mean removes) moved 2.5-4.4% of its update between the halves
+# and the joined batch on that card: each tensor is also allowed
+# SYNCBN_NOISE_FACTOR x its own difference between the joined batch's step
+# and the same step on the batch's rows reordered (halves swapped), which
+# measures that tensor's float32 conditioning in this run
+SYNCBN_NOISE_FACTOR = 4.0
+# a bias a BatchNorm follows: its gradient is 0 up to rounding
+SYNCBN_EXACT_ZERO = tuple(f"head.{t}_conv{i}.bias" for t in ("objectness", "deltas")
+                          for i in range(3))
+
+
+def proposal_overrides(generator, norm=None):
+    """The flagship yaml's overrides for a proposal network: any generator
+    other than the two point-based ones builds ProposalNetworkWithMasks."""
+    over = {"MODEL.META_ARCHITECTURE": "ProposalNetwork",
+            "MODEL.PROPOSAL_GENERATOR.NAME": ("RPN" if generator == "ProposalNetworkWithMasks"
+                                              else generator),
+            "MODEL.RPN.IN_FEATURES": ["p3", "p4", "p5", "p6", "p7"]}
+    if norm is not None:
+        over["MODEL.RESNETS.NORM"] = norm
+    return over
+
+
+def proposal_cfg(generator, fused=True, dtype="bfloat16", norm=None, lr=None,
+                 freeze_at=None):
+    cfg = train_cfg(fused, dtype)
+    cfg.defrost()
+    if freeze_at is not None:
+        cfg.MODEL.BACKBONE.FREEZE_AT = freeze_at
+    for k, v in proposal_overrides(generator, norm).items():
+        node = cfg
+        *path, leaf = k.split(".")
+        for p in path:
+            node = getattr(node, p)
+        setattr(node, leaf, v)
+    if lr is not None:
+        cfg.SOLVER.BASE_LR = lr
+    cfg.freeze()
+    return cfg
+
+
+def shape_ppg_offsets(model, images):
+    """Draw the PPG's zero-initialised offsets conv so that raw x stride
+    spreads by PROPOSAL_P3_SPREAD at P3: its boxes then span pixels (drawn
+    at 0 every box is a point, and MIN_SIZE 0 scores every one 0)."""
+    with torch.no_grad():
+        w = model.head.offsets.weight
+        w.copy_(torch.randn(w.shape, generator=torch.Generator().manual_seed(34)).to(w.device))
+        raw = model(images)[1][0].float()
+        stride = PROPOSAL_HW[1] / raw.shape[2]
+        w.mul_(PROPOSAL_P3_SPREAD / stride / float(raw.std()))
+
+
+def build_proposal_models(dev, smi, built):
+    """Each generator at full width (R-50 FrozenBN, FPN 256, P3-P7), bf16 with
+    the fused flags, seeded, FrozenBN drawn away from identity, and the same
+    weights unfused in bf16 and in fp32; into ``built``."""
+    from slenderobjdet_torch.models import build_model
+
+    images = torch.as_tensor(requests(1, 2, seed=35, hw=PROPOSAL_HW)[0]["image"], device=dev)
+    for i, generator in enumerate(PROPOSAL_GENERATORS):
+        gen = torch.Generator().manual_seed(50 + i)
+        t0 = time.perf_counter()
+        model = build_model(proposal_cfg(generator), device=dev, generator=gen)
+        randomize_frozen_bn(model, gen)
+        if generator == "PointsProposalGenerator":
+            shape_ppg_offsets(model, images)
+        models = [model]
+        for dtype in ("bfloat16", "float32"):
+            m = build_model(proposal_cfg(generator, False, dtype), device=dev)
+            m.load_state_dict(model.state_dict())
+            models.append(m)
+        n = sum(p.numel() for p in model.parameters())
+        n_head = sum(p.numel() for p in model.head.parameters())
+        bns = sum(1 for m in model.modules() if type(m).__name__ == "BatchNorm")
+        log(f"proposal build {generator} ({type(model).__name__}; {smi}): {n} parameters, "
+            f"{n_head} in the head, {bns} trainable BatchNorms; strides {model.strides}; "
+            f"three copies in {time.perf_counter() - t0:.1f} s")
+        built[generator] = models
+
+
+def proposal_parts(model, images, image_hw):
+    """Device ms of a predict call's trunk + FPN, head and postprocess."""
+    x = ((images.float() - model.pixel_mean) / model.pixel_std).to(model.dtype)
+    x = x.permute(0, 3, 1, 2)
+    feats = model.features(images)
+    outputs = model.head(feats)
+    scale = torch.ones(images.shape[0], device=images.device)
+    orig = torch.tensor([image_hw] * images.shape[0], dtype=torch.float32,
+                        device=images.device)
+    return {"trunk + FPN": cuda_ms(lambda: model.backbone(x), 5),
+            "head": cuda_ms(lambda: model.head(feats), 5),
+            "postprocess": cuda_ms(lambda: model.postprocess(*outputs, image_hw, scale, orig),
+                                   5)}
+
+
+def phase_proposal(kernels, dev, smi, built):
+    """Each generator at 896 x 1408: head outputs in bf16 against fp32; the
+    NMS kernel against ``batched_nms`` on its own 3,385 candidates an image
+    (B=8, thr and slots of the model); at B=8 and 32 exactly 1 stem + 13
+    bottleneck + 1 NMS launch a predict call; device ms of the parts and
+    predict img/s."""
+    from slenderobjdet_torch.ops import _build
+
+    parts_of = {"RepPointsGenerator": ("logits", "deltas"),
+                "PointsProposalGenerator": ("logits", "raw offsets"),
+                "ProposalNetworkWithMasks": ("logits", "ltrb")}
+    for generator, (model, plain, ref32) in built.items():
+        label = {"RepPointsGenerator": "rpg", "PointsProposalGenerator": "ppg",
+                 "ProposalNetworkWithMasks": "pnwm"}[generator]
+        reqs = requests(1, 8, seed=36, hw=PROPOSAL_HW) + requests(1, 32, seed=37,
+                                                                   hw=PROPOSAL_HW)
+        check_heads(label, parts_of[generator], reqs[0], dev, model, plain, ref32)
+        with torch.inference_mode():
+            images = torch.as_tensor(reqs[0]["image"], device=dev)
+            boxes, scores = model.candidates(*model(images), PROPOSAL_HW)
+        if boxes.shape[1] != PROPOSAL_CANDIDATES:
+            raise AssertionError(f"{generator}: {boxes.shape[1]} candidates an image")
+        nms_check(kernels, smi, f"proposal_{label}", f"B8_N{PROPOSAL_CANDIDATES}", boxes,
+                  scores, None, model.nms_thresh, model.max_dets)
+        per_call, rates = [], {}
+        for r in reqs:
+            b = r["image"].shape[0]
+            _build.reset_launch_counts()
+            out = model.predict(r)
+            torch.cuda.synchronize()
+            per_call.append({k: v for k, v in _build.launch_counts().items() if v})
+            shapes = {k: tuple(v.shape) for k, v in out.items()}
+            if shapes["boxes"] != (b, 100, 4) or not bool(torch.isfinite(out["boxes"]).all()) \
+                    or bool(out["classes"].any()) or not torch.equal(out["proposals"],
+                                                                    out["boxes"]):
+                raise AssertionError(f"{generator} predict B={b}: {shapes}")
+            ms = cuda_ms(lambda r=r: model.predict(r), 3)
+            rates[b] = b / ms * 1e3
+        if any(c != PROPOSAL_PREDICT_LAUNCHES for c in per_call):
+            raise AssertionError(f"{generator} predict launched {per_call}")
+        for k in PREDICT_KERNELS:
+            kernels[k].setdefault("launches_by_path", {})[f"proposal_{label}_predict"] = sum(
+                c[k] for c in per_call)
+        with torch.inference_mode():
+            parts = proposal_parts(model, images, PROPOSAL_HW)
+        kernels["nms"].setdefault("proposal_predict_parts_ms", {})[label] = parts
+        log(f"time proposal {generator} predict ({smi}), {PROPOSAL_HW[0]}x{PROPOSAL_HW[1]} "
+            f"fused bf16: launches a call at B=8 and 32 {per_call}; B=8 device ms "
+            + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+            + f"; predict {rates[8]:.2f} img/s at B=8, {rates[32]:.2f} at B=32 "
+            f"(whole call, the uint8 upload included)")
+        del images, boxes, scores, out
+        torch.cuda.empty_cache()
+
+
+def proposal_steps(model, cfg, batch, steps, label, smi):
+    """``steps`` train steps on one batch: totals, launches a step, img/s of
+    the steps after the second, peak memory."""
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.ops import _build
+    from slenderobjdet_torch.solver import build_optimizer
+
+    step = make_train_step(model, build_optimizer(cfg, model), cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    totals, launches, times = [], [], []
+    for i in range(steps):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in step(batch).items()}
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches.append({k: v for k, v in _build.launch_counts().items() if v})
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"{label} step {i}: non-finite {metrics}")
+        totals.append(metrics["total_loss"])
+    b = batch["image"].shape[0]
+    rate = b / float(np.mean(times[2:] or times))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"train {label} ({smi}) B={b} {PROPOSAL_HW[0]}x{PROPOSAL_HW[1]}: totals "
+        f"{[round(t, 4) for t in totals]}; last step {metrics}; launches a step "
+        f"{launches[-1]}; {rate:.2f} img/s, peak {peak:.2f} GiB")
+    return totals, launches, rate, peak
+
+
+def phase_proposal_train(kernels, dev, smi):
+    """RepPointsGenerator: 11 steps on one batch of 16 with 100 padded gt
+    (WARMUP_ITERS 0, BASE_LR PROPOSAL_TRAIN_LR), 1 stem + 13 bottleneck a
+    step, finite losses ending below step 0's, the head's running statistics
+    moved; one step of each other generator (B=8); one step and one predict
+    with MODEL.RESNETS.NORM SyncBN (no group): 0 stem and 0 bottleneck
+    launches, 1 NMS a predict."""
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.ops import _build
+
+    batch = train_batch(16, seed=38, hw=PROPOSAL_HW)
+    cfg = proposal_cfg("RepPointsGenerator", lr=PROPOSAL_TRAIN_LR)
+    gen = torch.Generator().manual_seed(39)
+    model = build_model(cfg, device=dev, generator=gen)
+    randomize_frozen_bn(model, gen)
+    before = model.head.objectness_norm0.running_var.clone()
+    totals, launches, rate, peak = proposal_steps(model, cfg, batch, TRAIN_STEPS + 1,
+                                                  "proposal RepPointsGenerator", smi)
+    moved = float((model.head.objectness_norm0.running_var - before).abs().max())
+    if any(c != PROPOSAL_STEP_LAUNCHES for c in launches) or not totals[-1] < totals[0] \
+            or not moved > 0:
+        raise AssertionError(f"RPG train: launches {launches}, totals {totals}, running "
+                             f"var moved {moved}")
+    for k in ("fused_stem", "fused_bottleneck"):
+        kernels[k].setdefault("launches_by_path", {})["proposal_rpg_train_step"] = \
+            PROPOSAL_STEP_LAUNCHES[k]
+    del model
+    torch.cuda.empty_cache()
+
+    half = {k: v[:8] for k, v in batch.items()}
+    for generator in PROPOSAL_GENERATORS[1:]:
+        cfg = proposal_cfg(generator, lr=PROPOSAL_TRAIN_LR)
+        model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(40))
+        _, launches, _, _ = proposal_steps(model, cfg, half, 1, f"proposal {generator}", smi)
+        if launches[0] != PROPOSAL_STEP_LAUNCHES:
+            raise AssertionError(f"{generator} step launched {launches}")
+        del model
+        torch.cuda.empty_cache()
+
+    cfg = proposal_cfg("RepPointsGenerator", norm="SyncBN", lr=PROPOSAL_TRAIN_LR)
+    model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(41))
+    bns = sum(1 for m in model.modules() if type(m).__name__ == "BatchNorm")
+    _, launches, rate, peak = proposal_steps(model, cfg, half, 3,
+                                             "proposal RepPointsGenerator SyncBN trunk", smi)
+    _build.reset_launch_counts()
+    out = model.predict(requests(1, 8, seed=42, hw=PROPOSAL_HW)[0])
+    torch.cuda.synchronize()
+    predicted = {k: v for k, v in _build.launch_counts().items() if v}
+    log(f"proposal SyncBN trunk ({bns} trainable BatchNorms, no group): a step launched "
+        f"{launches[-1] or 'no kernel'} (the fused seams need FrozenBN, as in the JAX "
+        f"package), a predict of B=8 {predicted}; {rate:.2f} img/s at B=8, peak "
+        f"{peak:.2f} GiB")
+    if any(c for c in launches) or predicted != {"nms": 1} \
+            or not bool(torch.isfinite(out["boxes"]).all()):
+        raise AssertionError(f"SyncBN trunk: steps launched {launches}, predict {predicted}")
+
+
+def phase_proposal_trainer(kernels, dev, smi):
+    """``train_net_torch.main`` on the RepPointsGenerator (``family_trainer``:
+    train with saves, ``--resume`` bit-equal with the BatchNorm running
+    statistics, ``--eval-only`` with 1 NMS a test batch); then
+    ``TEST.PRECISE_BN`` (NUM_ITER 2) through the trainer's ``test``: the
+    statistics move, and the next checkpoint carries them bit for bit."""
+    import os
+    import tempfile
+
+    import train_net_torch
+    from slenderobjdet_torch.engine.trainer import BaseTrainer
+    from slenderobjdet_torch.ops import _build
+
+    overrides = {**proposal_overrides("RepPointsGenerator"), "SOLVER.BASE_LR": PROPOSAL_TRAIN_LR}
+    family_trainer(kernels, smi, "proposal_rpg", FCOS_YAML, 43, PROPOSAL_STEP_LAUNCHES,
+                   predict_nms=1, loss_key="localization_loss", overrides=overrides)
+
+    name = "chip_smoke_precise_bn"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_precise_bn_") as tmp:
+        synthetic_dataset(name, tmp, seed=44)
+        out = os.path.join(tmp, "output")
+        cfg = train_net_torch.setup(trainer_args(name, out, overrides={
+            **overrides, "DATASETS.TEST": "()", "TEST.PRECISE_BN.ENABLED": True,
+            "TEST.PRECISE_BN.NUM_ITER": 2}))
+        trainer = BaseTrainer(cfg)
+        before = {k: v.clone() for k, v in trainer.model.named_buffers() if "running_" in k}
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.test()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in _build.launch_counts().items() if v}
+        after = dict(trainer.model.named_buffers())
+        moved = sum(not torch.equal(v, after[k]) for k, v in before.items())
+        trainer.checkpointer.save("model_precise_bn", trainer.state())
+        saved = torch.load(os.path.join(out, "model_precise_bn.pth"), map_location="cpu",
+                           weights_only=True)["model"]
+        carried = all(torch.equal(saved[k], after[k].cpu()) for k in before)
+        finite = all(bool(torch.isfinite(after[k]).all()) for k in before)
+        log(f"proposal trainer TEST.PRECISE_BN ({smi}): 2 batches of 16 at "
+            f"{cfg.INPUT.MIN_SIZE_TRAIN} recomputed {moved} of {len(before)} running "
+            f"statistics in {wall:.2f} s, launching {counts}; the next checkpoint carries them "
+            f"{'bit for bit' if carried else 'NOT'}")
+        if not (moved == len(before) and carried and finite
+                and counts == {"fused_stem": 2, "fused_bottleneck": 26}):
+            raise AssertionError(f"precise BN: moved {moved}/{len(before)}, carried {carried}, "
+                                 f"finite {finite}, launches {counts}")
+
+
+def syncbn_rank(ref_path, noise_path, nccl_steps, digest_only):
+    """In a spawned process: with ``digest_only``, ``nccl_steps`` bf16 steps
+    of the RPG with a SyncBN trunk on the first 8 rows of the joined batch
+    and the state's digest (NCCL at world size 1 against the same steps
+    without a group); else one of two gloo ranks: one fp32 step on its 8 rows
+    of the joined 16 held against the single process's step at ``ref_path``,
+    then one instrumented step timing the all-reduces."""
+    import torch.distributed as dist
+
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.parallel import process_index, state_digest
+    from slenderobjdet_torch.solver import build_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    rank = process_index()
+    dtype = "bfloat16" if digest_only else "float32"
+    cfg = proposal_cfg("RepPointsGenerator", fused=digest_only, dtype=dtype, norm="SyncBN",
+                       lr=PROPOSAL_TRAIN_LR, freeze_at=None if digest_only else SYNCBN_FREEZE_AT)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(45))
+    init = {k: v.detach().clone() for k, v in model.named_parameters()}
+    step = make_train_step(model, build_optimizer(cfg, model), cfg)
+    joined = ddp_joined_batch()
+    if digest_only:
+        for _ in range(nccl_steps):
+            step({k: v[:8] for k, v in joined.items()})
+        torch.cuda.synchronize()
+        return {"digest": state_digest(model),
+                "backend": dist.get_backend() if dist.is_initialized() else None}
+    rows = {k: v[8 * rank: 8 * rank + 8] for k, v in joined.items()}
+    metrics = step(rows)
+    out = {"num_pos": float(metrics["num_pos"]), "loss": float(metrics["total_loss"]),
+           "backend": dist.get_backend()}
+    want = torch.load(ref_path, map_location="cpu", weights_only=True)
+    noise = torch.load(noise_path, map_location="cpu", weights_only=True)
+    excess = []
+    for n, p in model.named_parameters():
+        w = want[n].double()
+        diff = float((p.detach().cpu().double() - w).abs().max())
+        if n in SYNCBN_EXACT_ZERO:
+            excess.append((diff / 1e-9, n))
+            continue
+        allowed = (SYNCBN_FP32_RTOL * float(w.abs().max()) + SYNCBN_UPDATE_RTOL
+                   * float((w - init[n].cpu().double()).abs().max())
+                   + SYNCBN_NOISE_FACTOR * float((noise[n].double() - w).abs().max()))
+        if diff > 0:
+            excess.append((diff / allowed if allowed > 0 else float("inf"), n))
+    worst = max(excess, default=(0.0, ""))
+    out["excess"] = worst
+    out["worst5"] = sorted(excess, reverse=True)[:5]
+    stats = [(n, b) for n, b in model.named_buffers() if "running_" in n]
+    out["stats_ratio"] = max(float((b.cpu().double() - want[n].double()).abs().max())
+                             / (float(want[n].double().abs().max()) + 1e-30) for n, b in stats)
+    out["digest"] = state_digest(model)
+    # a second step, timed, then a third with every dist.all_reduce timed (the
+    # BatchNorms' forward and backward reductions and the loss's counts; DDP's
+    # own gradient buckets do not go through it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(rows)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    real, spent = dist.all_reduce, [0.0, 0]
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        spent[1] += 1
+        return r
+
+    dist.all_reduce = timed
+    try:
+        step(rows)
+    finally:
+        dist.all_reduce = real
+    out["allreduce_ms"], out["allreduce_calls"] = spent[0] * 1e3, spent[1]
+    return out
+
+
+def phase_syncbn(kernels, dev, smi):
+    """SyncBN through ``parallel.launch``: the RPG with a SyncBN trunk under
+    NCCL at world size 1 bit-equal to no group (3 bf16 steps); two gloo ranks
+    sharing the card, 8 rows each of a joined 16, one fp32 step against the
+    single process's step (the ddp phase's criterion plus SYNCBN_NOISE_FACTOR x each
+    tensor's difference under a reordering of the joined batch; the trunk's
+    convolutions frozen: SYNCBN_FREEZE_AT), parameters and running
+    statistics bit-equal across the ranks; the all-reduces' ms and share."""
+    import datetime
+    import os
+    import tempfile
+
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.parallel import launch, state_digest
+    from slenderobjdet_torch.solver import build_optimizer
+
+    timeout = datetime.timedelta(seconds=DDP_TIMEOUT_S)
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        plain = syncbn_rank(None, None, 3, True)
+        nccl, = launch(syncbn_rank, 1, args=(None, None, 3, True), force_group=True,
+                       timeout=timeout, join_timeout=DDP_JOIN_S)
+        log(f"syncbn NCCL world size 1 ({nccl['backend']}): 3 bf16 steps of the RPG with a "
+            f"SyncBN trunk {'bit-equal' if nccl['digest'] == plain['digest'] else 'DIFFER'} "
+            f"to the same steps without a group")
+        if nccl["backend"] != "nccl" or nccl["digest"] != plain["digest"]:
+            raise AssertionError(f"NCCL world size 1: {nccl}, no group {plain}")
+
+        cfg = proposal_cfg("RepPointsGenerator", fused=False, dtype="float32", norm="SyncBN",
+                           lr=PROPOSAL_TRAIN_LR, freeze_at=SYNCBN_FREEZE_AT)
+        joined = ddp_joined_batch()
+        swapped = {k: np.concatenate([v[8:], v[:8]]) for k, v in joined.items()}
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_syncbn_") as tmp:
+            paths = []
+            for label, batch in (("single", joined), ("swapped", swapped)):
+                model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(45))
+                step = make_train_step(model, build_optimizer(cfg, model), cfg)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = step(batch)
+                torch.cuda.synchronize()
+                if label == "single":
+                    metrics, single_ms = m, (time.perf_counter() - t0) * 1e3
+                paths.append(os.path.join(tmp, f"{label}.pt"))
+                torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                           paths[-1])
+                del model, step, m
+                torch.cuda.empty_cache()
+            a, b = (torch.load(path, weights_only=True) for path in paths)
+            init = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(45))
+            self_noise = max((float((b[n].double() - a[n].double()).abs().max())
+                              / (SYNCBN_FP32_RTOL * float(a[n].double().abs().max())
+                                 + SYNCBN_UPDATE_RTOL * float((a[n].double() - p.detach()
+                                                               .double()).abs().max())
+                                 + 1e-30), n)
+                             for n, p in init.named_parameters() if p.requires_grad
+                             and n not in SYNCBN_EXACT_ZERO)
+            del a, b, init
+            t0 = time.perf_counter()
+            ranks = launch(syncbn_rank, 2, args=(*paths, 0, False), backend="gloo",
+                           timeout=timeout, join_timeout=DDP_JOIN_S)
+            wall = time.perf_counter() - t0
+        r0, r1 = ranks
+        share = [r["allreduce_ms"] / r["step_ms"] for r in ranks]
+        log(f"syncbn two gloo ranks on one card ({smi}): fp32, one step of 8 + 8 rows (1 and "
+            f"30 valid boxes an image) against the single process's B=16 step "
+            f"(its {single_ms:.1f} ms, the first): positives {r0['num_pos']:.0f} / "
+            f"{r1['num_pos']:.0f} against {float(metrics['num_pos']):.0f}; mean loss "
+            f"{(r0['loss'] + r1['loss']) / 2:.6f} against {float(metrics['total_loss']):.6f}; "
+            f"worst |diff| / ({SYNCBN_FP32_RTOL} x max|value| + {SYNCBN_UPDATE_RTOL} x "
+            f"max|update| + {SYNCBN_NOISE_FACTOR} x the joined step's own reordering "
+            f"difference) {r0['excess'][0]:.3f} at {r0['excess'][1]} (the five worst "
+            f"{[(round(e, 3), n) for e, n in r0['worst5']]}; FREEZE_AT {SYNCBN_FREEZE_AT}; the "
+            f"reordered joined step alone misses the ddp phase's criterion "
+            f"{self_noise[0]:.3f}-fold at "
+            f"{self_noise[1]}); "
+            f"running statistics "
+            f"within {r0['stats_ratio']:.3e} of the largest; ranks "
+            f"{'bit-equal' if r0['digest'] == r1['digest'] else 'DIFFER'}; the spawn {wall:.1f} s")
+        log(f"time syncbn two ranks sharing one card ({smi}; not a scaling figure): a step "
+            f"{r0['step_ms']:.1f} / {r1['step_ms']:.1f} ms; {r0['allreduce_calls']} "
+            f"all-reduces a step (BatchNorm forward and backward, counts) "
+            f"{r0['allreduce_ms']:.1f} / {r1['allreduce_ms']:.1f} ms timed one by one, "
+            f"{share[0]:.3f} / {share[1]:.3f} of a step")
+        if not (r0["digest"] == r1["digest"] and r0["excess"][0] <= 1
+                and r0["num_pos"] == r1["num_pos"] == float(metrics["num_pos"])
+                and abs((r0["loss"] + r1["loss"]) / 2 - float(metrics["total_loss"]))
+                <= 1e-4 * abs(float(metrics["total_loss"]))
+                and r0["stats_ratio"] <= 1e-4):
+            raise AssertionError(f"syncbn two ranks: {r0}, {r1}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -3555,6 +4082,16 @@ def main() -> int:
     built.clear()
     torch.cuda.empty_cache()
     run("ddp", phase_ddp, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    if run("proposal_build", build_proposal_models, dev, smi, built):
+        run("proposal", phase_proposal, kernels, dev, smi, built)
+    built.clear()
+    torch.cuda.empty_cache()
+    run("proposal_train", phase_proposal_train, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("proposal_trainer", phase_proposal_trainer, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("syncbn", phase_syncbn, kernels, dev, smi)
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

@@ -6,7 +6,10 @@
 with ``head/cls_subnet{i}``, ``head/bbox_subnet{i}``, ``head/cls_score`` and
 the FPN's ``top_p6`` / ``top_p7`` on ``res5``; Faster R-CNN with
 ``rpn_head/{conv,objectness_logits,anchor_deltas}`` and
-``roi_box/head/fc{i}``, ``roi_box/outputs/{cls_score,bbox_pred}``) into a
+``roi_box/head/fc{i}``, ``roi_box/outputs/{cls_score,bbox_pred}``; the
+proposal networks' ``PPGHead`` ``conv`` / ``offsets`` / ``in_object_logits``,
+``PointsProposalHead`` ``tower{i}`` / ``gn{i}`` / ``objectness`` /
+``deltas`` and ``RepPointsInitHead``; FrozenBN, BN and GN trunks) into a
 torch ``state_dict``:
 
 - conv kernels HWIO -> OIHW (``transpose(3, 2, 0, 1)``), ``kernel`` ->
@@ -15,10 +18,17 @@ torch ``state_dict``:
   rows stay in the JAX package's (P, P, C) order, since the port pools
   channels last and flattens the same way;
 - ``<name>/GroupNorm_0/{scale,bias}`` -> ``<name>.{weight,bias}``;
-- FrozenBN ``buffers/.../FrozenBatchNorm_i/{scale,bias}`` -> the port's
-  norm module: the ResNet's own (the stem's) ``stem_norm``; in a residual
-  block ``norm1``, ``norm2``, ``norm3`` (bottleneck blocks only) and
+- a trunk's unnamed norms, FrozenBN ``buffers/.../FrozenBatchNorm_i/
+  {scale,bias}``, ``BatchNorm_i`` and ``GroupNorm32_i`` -> the port's norm
+  module: the ResNet's own (the stem's) ``stem_norm``; in a residual block
+  ``norm1``, ``norm2``, ``norm3`` (bottleneck blocks only) and
   ``shortcut_norm`` in the order Flax numbered them;
+- a trainable BatchNorm, named by position as above or by name (the RPG
+  head's ``objectness_norm{i}`` and ``deltas_norm{i}``, an FPN's
+  ``fpn_lateral{i}_norm``): ``params/{scale,bias}`` -> ``weight``,
+  ``bias``; ``buffers/{mean,var}`` (a buffers node holding both) ->
+  ``running_mean``, ``running_var``;
+- the RPG head's ``moment_transfer`` keeps its name;
 - ``head/scale{i}/scale`` (the ablation head's ``scale_init{i}`` and
   ``scale_refine{i}``) -> a scalar parameter;
 - a Flax ``nn.GroupNorm`` named ``<tower>_gn{i}`` (the RepPoints head's
@@ -64,39 +74,52 @@ def _leaves(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
-def _torch_name(collection: str, path, basic_blocks) -> str:
+_POSITIONAL_NORM = re.compile(r"(FrozenBatchNorm|BatchNorm|GroupNorm32)_(\d+)")
+_BN_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _place_norm(mods, path, basic_blocks):
+    """``mods`` with an unnamed norm (``FrozenBatchNorm_i``, ``BatchNorm_i``
+    or ``GroupNorm32_i``, numbered by Flax per class in creation order)
+    renamed to the port's module: in a residual block ``norm1``, ``norm2``,
+    ``norm3`` (bottleneck blocks only) and ``shortcut_norm``; the ResNet's
+    own (``_0`` outside a block) ``stem_norm``."""
+    m = _POSITIONAL_NORM.fullmatch(mods[-1]) if mods else None
+    if m is None:
+        return mods
+    idx = int(m.group(2))
+    parent = mods[-2] if len(mods) > 1 else ""
+    names = (_BASIC_NORMS if tuple(mods[:-1]) in basic_blocks else _BOTTLENECK_NORMS)
+    if _BLOCK.fullmatch(parent) and idx < len(names):
+        return mods[:-1] + [names[idx]]
+    if not _BLOCK.fullmatch(parent) and idx == 0:
+        return mods[:-1] + ["stem_norm"]
+    raise KeyError(f"unplaced norm {'/'.join(path)}")
+
+
+def _torch_name(collection: str, path, basic_blocks, bn_nodes) -> str:
     *mods, leaf = path
     if collection == "buffers" and not mods and leaf == "loss_normalizer":
         return leaf
+    is_bn = collection == "buffers" and tuple(mods) in bn_nodes
+    if mods and mods[-1] == "GroupNorm_0":          # GroupNorm32's inner nn.GroupNorm
+        mods, leaf = mods[:-1], {"scale": "weight", "bias": "bias"}[leaf]
+    mods = _place_norm(mods, path, basic_blocks)
     if collection == "buffers":
-        m = re.fullmatch(r"FrozenBatchNorm_(\d+)", mods[-1]) if mods else None
-        if m is not None:
-            idx = int(m.group(1))
-            parent = mods[-2] if len(mods) > 1 else ""
-            names = (_BASIC_NORMS if tuple(mods[:-1]) in basic_blocks
-                     else _BOTTLENECK_NORMS)
-            if _BLOCK.fullmatch(parent) and idx < len(names):
-                mods = mods[:-1] + [names[idx]]
-            elif not _BLOCK.fullmatch(parent) and idx == 0:
-                mods = mods[:-1] + ["stem_norm"]   # the ResNet's own norm
-            else:
-                raise KeyError(f"unplaced FrozenBN buffer {'/'.join(path)}")
-        if leaf not in ("scale", "bias"):
+        if is_bn and leaf in ("mean", "var"):
+            return ".".join(mods + [_BN_LEAVES[leaf]])
+        if leaf not in ("scale", "bias") or is_bn:
             raise KeyError(f"unknown buffer {'/'.join(path)}")
         return ".".join(mods + [leaf])
     if collection != "params":
         raise KeyError(f"unknown variable collection {collection!r}")
-    if mods and mods[-1] == "GroupNorm_0":
-        return ".".join(mods[:-1] + [{"scale": "weight", "bias": "bias"}[leaf]])
     if re.fullmatch(r"scale(_init|_refine)?\d+", mods[-1] if mods else "") \
             and leaf == "scale":
         return ".".join(mods + ["scale"])
-    if re.fullmatch(r"\w+_gn\d+", mods[-1] if mods else "") and leaf == "scale":
+    if leaf in ("kernel", "weight", "scale"):       # a norm's scale is its weight
         return ".".join(mods + ["weight"])
-    if leaf in ("kernel", "weight"):
-        return ".".join(mods + ["weight"])
-    if leaf == "bias":
-        return ".".join(mods + ["bias"])
+    if leaf in ("bias", "moment_transfer"):
+        return ".".join(mods + [leaf])
     raise KeyError(f"unknown parameter {'/'.join(path)}")
 
 
@@ -114,10 +137,15 @@ def _basic_blocks(params: Mapping) -> set:
 def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     """Flax ``{"params", "buffers"}`` tree -> port ``state_dict``."""
     basic = _basic_blocks(variables.get("params", {}))
+    # a BatchNorm's buffers node holds both mean and var
+    leaves = {p[:-1]: set() for p, _ in _leaves(variables.get("buffers", {}))}
+    for p, _ in _leaves(variables.get("buffers", {})):
+        leaves[p[:-1]].add(p[-1])
+    bn_nodes = {node for node, names in leaves.items() if {"mean", "var"} <= names}
     out: Dict[str, torch.Tensor] = {}
     for collection, tree in variables.items():
         for path, value in _leaves(tree):
-            name = _torch_name(collection, path, basic)
+            name = _torch_name(collection, path, basic, bn_nodes)
             a = np.asarray(value, dtype=np.float32)
             if a.ndim == 4 and name.endswith(".weight"):
                 a = a.transpose(3, 2, 0, 1)

@@ -4,11 +4,15 @@ loss in ``TPU.COMPUTE_DTYPE`` with float32 master parameters (the model's
 layers cast each weight to the compute dtype), backward, gradient clipping,
 the LR of the step's schedule and the optimizer update.
 
-FrozenBN only: no BatchNorm statistics are written back, and trainable BN
-raises at model build. A detector-level running statistic is: the RepPoints
-EMA loss normaliser, which ``loss`` reports as ``metrics["loss_normalizer"]``
-and the step copies into the model's ``loss_normalizer`` buffer after the
-update, as the JAX train step writes it into ``TrainState.buffers``.
+Running statistics: a trainable ``BatchNorm`` (``models/layers.py``)
+updates its running mean and variance in place during the loss's forward,
+from the batch statistics of the parameters before the update; the JAX step
+writes the same values, returned by the loss apply, into
+``TrainState.buffers`` after the update, so the two states agree after each
+step. A detector-level running statistic, the RepPoints EMA loss
+normaliser, is reported by ``loss`` as ``metrics["loss_normalizer"]`` and
+copied into the model's ``loss_normalizer`` buffer after the update, as the
+JAX train step writes it into ``TrainState.buffers``.
 
 The update count is state (the JAX package's ``TrainState.step``): a
 checkpoint saves it and a resumed run sets it, so the LR schedule goes on
@@ -55,9 +59,10 @@ class _Loss(nn.Module):
 def data_parallel_loss(model):
     """``model.loss``, or in a process group, DDP around it. Every trainable
     parameter reaches every family's loss, so no unused-parameter search
-    runs; buffers are not broadcast, since the one that changes (RepPoints'
-    EMA normaliser) is computed from global counts and is equal on every
-    rank already."""
+    runs; buffers are not broadcast, since those that change are equal on
+    every rank already: RepPoints' EMA normaliser is computed from global
+    counts, and a BatchNorm's running statistics from the statistics of the
+    global batch (its reduction over the process group)."""
     if not dist.is_available() or not dist.is_initialized():
         return model.loss
     from torch.nn.parallel import DistributedDataParallel

@@ -14,10 +14,11 @@ batch and steps through DDP (``engine/train_loop.py``); rank 0 alone writes
 ``config.yaml``, ``metrics.json`` and the checkpoints, every rank resumes
 from the same file, and ``test`` evaluates each rank's strided share of the
 test set and returns the results on rank 0 (``{}`` elsewhere), as the JAX
-trainer does across processes. Not ported, each raising NotImplementedError
-where it is asked for: test-time augmentation (``TEST.AUG.ENABLED``), the
-rotated-box evaluator, and ``TEST.PRECISE_BN`` on a model with trainable
-BatchNorm.
+trainer does across processes. ``TEST.PRECISE_BN`` recomputes a trainable
+BatchNorm's running statistics before the evaluation, as the JAX trainer
+does (``models/layers.py:precise_bn_stats``). Not ported, each raising
+NotImplementedError where it is asked for: test-time augmentation
+(``TEST.AUG.ENABLED``) and the rotated-box evaluator.
 """
 
 from __future__ import annotations
@@ -29,13 +30,13 @@ from typing import Dict
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..checkpoint.checkpointer import DetectionCheckpointer
 from ..data import build_detection_test_loader, build_detection_train_loader
 from ..data.catalog import MetadataCatalog
 from ..evaluation import COCOEvaluator, inference_on_dataset
 from ..models import build_model
+from ..models.layers import has_batch_stats, precise_bn_stats
 from ..parallel.multihost import (is_main_process, mean_over_processes, process_count,
                                   process_index, sync_processes)
 from ..solver import build_optimizer
@@ -169,12 +170,14 @@ class BaseTrainer:
     # ------------------------------------------------------------------ eval
     def test(self) -> Dict:
         cfg = self.cfg
-        if cfg.TEST.PRECISE_BN.ENABLED and any(
-                isinstance(m, nn.modules.batchnorm._BatchNorm)
-                for m in self.model.modules()):
-            raise NotImplementedError(
-                "TEST.PRECISE_BN with trainable BatchNorm is not ported: it "
-                "comes with trainable BN (RepPoints and the ablation chassis)")
+        if cfg.TEST.PRECISE_BN.ENABLED and has_batch_stats(self.model):
+            # the running statistics recomputed over NUM_ITER train batches
+            # of the unsharded loader, the same images on every process, and
+            # kept in the model, so that the next checkpoint carries them
+            loader = iter(build_detection_train_loader(cfg, seed=1, shard_id=0,
+                                                       num_shards=1))
+            n = max(1, cfg.TEST.PRECISE_BN.NUM_ITER)
+            precise_bn_stats(self.model, (next(loader)["image"] for _ in range(n)))
         if cfg.TEST.AUG.ENABLED:
             raise NotImplementedError(
                 "TEST.AUG.ENABLED (test-time augmentation, engine/tta.py) is "

@@ -11,6 +11,7 @@ from torch import nn
 from .meta_arch.ablation import AblationMetaArch
 from .meta_arch.fcos import FCOS, FCOSTopK
 from .meta_arch.fcos_anchor import FCOSAnchor
+from .meta_arch.proposal_network import ProposalNetworkWithMasks
 from .meta_arch.hybrids import (FCOSNCRetinaNet, FCOSRepPoints, FCOSRetinaNet,
                                 PointRetinaNet, RepPointsCenterness,
                                 ReppointsRetinaNet, RepPointsV2)
@@ -18,6 +19,8 @@ from .meta_arch.rcnn import ProposalVisibleRCNN
 from .meta_arch.reppoints import RepPointsDetector
 from .meta_arch.retinanet import (CenternessRetinaNet, DeformableConvRetinaNet,
                                   NearestRetinaNet, RetinaNet)
+from .proposal_generator.ppg import PointsProposalGenerator
+from .proposal_generator.rpg import RepPointsGenerator
 
 
 def _fcos_with_anchor(cfg) -> FCOS:
@@ -38,14 +41,26 @@ def _rcnn_with_anchor(cfg) -> ProposalVisibleRCNN:
     return ProposalVisibleRCNN(cfg, with_anchor=True)
 
 
+def _proposal_network(cfg) -> nn.Module:
+    """ProposalNetwork and ProposalNetworkWithMasks dispatch on
+    MODEL.PROPOSAL_GENERATOR.NAME, as the JAX package's registry does: the
+    two point-based generators are proposal-only detectors of their own;
+    any other name builds ProposalNetworkWithMasks."""
+    name = cfg.MODEL.PROPOSAL_GENERATOR.NAME
+    if name == "PointsProposalGenerator":
+        return PointsProposalGenerator(cfg)
+    if name == "RepPointsGenerator":
+        return RepPointsGenerator(cfg)
+    return ProposalNetworkWithMasks(cfg)
+
+
 # name -> constructor taking cfg. FCOSV2 is the reference's refactor of FCOS
 # with the same topk-then-NMS inference and GroupNet's head is FCOS's line for
 # line, so the three names share one class, as in the JAX package; so do
 # GeneralizedRCNN and ProposalVisibleRCNN. AblationMetaArch picks its head
 # (LRTBHead, LRTBTopkHead, PointSetHead, AnchorHead) by
-# MODEL.META_ARCH.NAME. Not ported yet: FCOSV3 and ProposalNetwork(WithMasks)
-# (ROADMAP.md queue 1, item 6), RotatedRetinaNet (item 10) and CornerNet
-# (item 9).
+# MODEL.META_ARCH.NAME. Not ported yet: FCOSV3, RotatedRetinaNet and
+# CornerNet (ROADMAP.md queue 1).
 META_ARCHS = {
     "FCOS": FCOS,
     "FCOSV2": FCOS,
@@ -70,6 +85,8 @@ META_ARCHS = {
     "FCOSRepPoints": FCOSRepPoints,
     "ReppointsRetinaNet": ReppointsRetinaNet,
     "AblationMetaArch": AblationMetaArch,
+    "ProposalNetwork": _proposal_network,
+    "ProposalNetworkWithMasks": _proposal_network,
 }
 
 

@@ -14,6 +14,9 @@ JAX package's Pallas seams do:
   deformable.
 Both fold the FrozenBN scale into a weight rounded to the compute dtype and
 add the bias in fp32; in bf16 they differ from the plain path by rounding.
+With any other norm (``MODEL.RESNETS.NORM`` GN, BN, SyncBN or "") neither
+seam runs, as in the JAX package: a fixed affine cannot hold a batch
+statistic.
 
 ``MODEL.RESNETS.DEFORM_ON_PER_STAGE`` makes a stage's conv2 a ``DFConv2d``
 (modulated with ``DEFORM_MODULATED``) where it has stride 1, groups 1 and
@@ -216,10 +219,14 @@ def resnet_output_channels(depth: int, res2_out_channels: int = 256) -> Dict[str
 
 
 def resnet_from_cfg(cfg) -> ResNet:
+    """The trunk of ``MODEL.RESNETS``. NORM is any norm of ``get_norm``:
+    "FrozenBN", "GN", "BN" / "SyncBN" (trainable, batch statistics in a
+    loss) or "". The fused seams fold a fixed affine, so they run with
+    FrozenBN only, as in the JAX package; another trunk takes the plain
+    layers. FREEZE_AT is applied by the optimizer (``requires_grad_``), so
+    a frozen stage's BatchNorm still normalises by batch statistics and
+    updates its running ones in a loss, as the JAX package's does."""
     r = cfg.MODEL.RESNETS
-    if r.NORM != "FrozenBN":
-        raise NotImplementedError(
-            f"MODEL.RESNETS.NORM={r.NORM!r} is not ported (FrozenBN only)")
     return ResNet(
         depth=r.DEPTH,
         norm=r.NORM,

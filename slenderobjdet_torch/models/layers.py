@@ -2,18 +2,62 @@
 
 Tensors are NCHW (in ``torch.channels_last`` memory inside the backbone);
 parameters are float32 and the compute dtype is the input's dtype.
+
+Trainable BatchNorm (``BatchNorm``, ``get_norm("BN" | "SyncBN")``) tells
+training from inference by a context, not by ``module.training``: inside
+``batch_statistics()`` every ``BatchNorm`` normalises by its batch's
+statistics and updates its running ones; outside it, it uses the running
+statistics. Every detector's ``loss`` enters the context
+(``uses_batch_statistics``), as the JAX package's ``apply_train`` opens the
+``buffers`` collection exactly inside a loss; ``predict``, ``forward`` and
+``build_model``'s ``.eval()`` leave it closed. In a process group the batch
+statistics are reduced over the processes (``parallel.multihost.
+sum_over_processes``), so that "BN" and "SyncBN" are one module whose
+statistics are those of the global batch, as under the JAX package's
+sharded jit. ``precise_bn_stats`` enters the context without the reduction.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import Optional
+import threading
+from typing import Iterable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.deform_conv import deform_apply, deform_conv2d_batched, kernel_base_offsets
+from ..parallel.multihost import sum_over_processes
+
+# None: running statistics; True / False: batch statistics, reduced over the
+# process group or not
+_BATCH_STATS = threading.local()
+
+
+@contextlib.contextmanager
+def batch_statistics(sync: bool = True):
+    """Inside, every ``BatchNorm`` normalises by its batch's statistics and
+    updates its running ones; with ``sync``, the statistics are those of the
+    batch joined over the process group."""
+    prev = getattr(_BATCH_STATS, "mode", None)
+    _BATCH_STATS.mode = sync
+    try:
+        yield
+    finally:
+        _BATCH_STATS.mode = prev
+
+
+def uses_batch_statistics(loss):
+    """Decorates a detector's ``loss``: it runs inside ``batch_statistics()``."""
+    @functools.wraps(loss)
+    def wrapper(self, *args, **kwargs):
+        with batch_statistics():
+            return loss(self, *args, **kwargs)
+    return wrapper
 
 
 class Conv2d(nn.Conv2d):
@@ -75,6 +119,110 @@ class GroupNorm32(nn.GroupNorm):
                             self.bias, self.eps).to(x.dtype)
 
 
+class BatchNorm(nn.Module):
+    """Trainable batch normalisation over dim 1 with running statistics
+    (counterpart of the JAX package's ``layers.BatchNorm``, torch
+    ``BatchNorm2d`` semantics):
+
+    - inside ``batch_statistics()``: normalise by the biased batch mean and
+      variance, computed in float32 in two passes (``mean((x - mean)^2)``,
+      never ``E[x^2] - E[x]^2``, which cancels and can go negative), then
+      ``running = (1 - momentum) * running + momentum * stat`` with the
+      running variance from the unbiased ``n / (n - 1)`` variance, ``n`` the
+      count of the (global) batch;
+    - outside it: normalise by the running statistics.
+
+    The affine is applied as ``x * inv + (bias - mean * inv)`` with both
+    factors cast to x's dtype, the JAX module's order, so bfloat16 rounds
+    alike. A module applied several times in one loss (a head shared by the
+    pyramid levels) takes each call's own statistics and updates its running
+    ones call by call, as Flax does. ``weight``, ``bias``, ``running_mean``
+    and ``running_var`` are the Flax ``scale``, ``bias``, ``mean`` and
+    ``var``; there is no ``num_batches_tracked``."""
+
+    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def _batch_moments(self, x: torch.Tensor, sync: bool):
+        xf = x.float()
+        dims = [0, *range(2, x.ndim)]
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        stats = torch.cat([xf.sum(dims), xf.new_tensor([x.numel() // x.shape[1]])])
+        if sync:
+            stats = sum_over_processes(stats)
+        n = stats[-1]
+        mean = stats[:-1] / n
+        sq = torch.square(xf - mean.view(shape)).sum(dims)
+        var = (sum_over_processes(sq) if sync else sq) / n
+        return mean, var, n
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        sync = getattr(_BATCH_STATS, "mode", None)
+        if sync is None:
+            mean, var = self.running_mean, self.running_var
+        else:
+            mean, var, n = self._batch_moments(x, sync)
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * (n / torch.clamp(n - 1, min=1))
+                self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        inv = self.weight * torch.rsqrt(var + self.eps)
+        return (x * inv.to(x.dtype).view(shape)
+                + (self.bias - mean * inv).to(x.dtype).view(shape))
+
+
+def has_batch_stats(model: nn.Module) -> bool:
+    """True iff ``model`` holds a trainable ``BatchNorm`` (the JAX package's
+    test for live running statistics in its buffers)."""
+    return any(isinstance(m, BatchNorm) for m in model.modules())
+
+
+@torch.no_grad()
+def precise_bn_stats(model: nn.Module, image_batches: Iterable,
+                     momentum: float = 0.1) -> bool:
+    """Recompute every ``BatchNorm``'s running statistics over
+    ``image_batches`` (uint8 (B, H, W, 3) images), in place, by the JAX
+    package's mechanism (``layers.precise_bn_stats``): a batch at a time,
+    every mean and var is zeroed and ONE forward with batch statistics runs,
+    whose update leaves ``momentum * stat`` (for a module applied several
+    times in a forward, the momentum-weighted mix of its calls'
+    statistics); those are summed in float64 and divided by ``momentum *
+    count``. The statistics are the process's own (no reduction over a
+    process group): every process recomputes them over the same images.
+    Returns False, changing nothing, where the model has no BatchNorm."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    if not bns:
+        return False
+    dev = bns[0].running_mean.device
+    total = [[torch.zeros_like(b.running_mean, dtype=torch.float64) for _ in range(2)]
+             for b in bns]
+    count = 0
+    for images in image_batches:
+        for b in bns:
+            b.running_mean.zero_()
+            b.running_var.zero_()
+        with batch_statistics(sync=False):
+            model(torch.as_tensor(np.asarray(images), device=dev))
+        for b, (tm, tv) in zip(bns, total):
+            tm += b.running_mean.double()
+            tv += b.running_var.double()
+        count += 1
+    if count == 0:
+        raise ValueError("precise_bn_stats needs at least one batch")
+    for b, (tm, tv) in zip(bns, total):
+        b.running_mean.copy_((tm / (momentum * count)).float())
+        b.running_var.copy_((tv / (momentum * count)).float())
+    return True
+
+
 class DeformConvLayer(nn.Module):
     """3x3 deformable conv with the absolute-offset convention of
     ``ops/deform_conv.py`` (counterpart of the JAX package's
@@ -122,7 +270,8 @@ class DFConv2d(DeformConvLayer):
 
 
 def get_norm(norm: str, features: int) -> Optional[nn.Module]:
-    """Norm factory for the norms the predict path uses."""
+    """Norm factory: "" (none), "FrozenBN", "GN" and "BN" / "SyncBN", one
+    module (``BatchNorm`` reduces over the process group in both)."""
     if norm == "" or norm is None:
         return None
     if norm == "FrozenBN":
@@ -130,8 +279,7 @@ def get_norm(norm: str, features: int) -> Optional[nn.Module]:
     if norm == "GN":
         return GroupNorm32(features)
     if norm in ("BN", "SyncBN"):
-        raise NotImplementedError(
-            f"norm {norm!r} (trainable BatchNorm) is not ported yet")
+        return BatchNorm(features)
     raise ValueError(f"Unknown norm {norm!r}")
 
 
@@ -140,7 +288,8 @@ def init_detector_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Draw every parameter of a detector from ``generator`` (a CPU generator)
     as the JAX package initialises them: backbone and FPN convs lecun-normal
     (untruncated here), convs under ``head.`` normal(0, 0.01), conv biases 0,
-    norms and scales at identity. Modules are visited in ``named_modules``
+    norms (BatchNorm's running statistics at mean 0, var 1) and scales at
+    identity. Modules are visited in ``named_modules``
     order, which fixes the order of the draws; the caller sets the
     classification bias to its focal prior afterwards. A deformable conv's
     (K, Cin, Cout) weight is drawn from normal(0, 0.01) wherever it sits, and
@@ -167,6 +316,11 @@ def init_detector_weights(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, FrozenBatchNorm):
             m.scale.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
         elif isinstance(m, nn.GroupNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()

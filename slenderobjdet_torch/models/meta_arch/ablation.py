@@ -44,7 +44,7 @@ from ...structures import boxes as box_ops
 from ..anchors import AnchorGeneratorSpec, fcos_locations
 from ..backbones.fpn import build_backbone
 from ..layers import (Conv2d, DeformConvLayer, GroupNorm32, Scale, init_detector_weights,
-                      prior_bias)
+                      prior_bias, uses_batch_statistics)
 from ..matchers import iou_matcher
 from .fcos import (_fcos_level_candidates, compute_centerness_targets, fcos_assign,
                    sizes_of_interest, topk_per_gt_gate)
@@ -355,6 +355,7 @@ class AblationMetaArch(RepPointsModule):
         return total
 
     # --------------------------------------------------------------- loss
+    @uses_batch_statistics
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {"image": uint8 (B, H, W, 3), "gt_boxes": (B, G, 4) XYXY,
         "gt_classes": (B, G) int, "gt_valid": (B, G) bool} as numpy arrays

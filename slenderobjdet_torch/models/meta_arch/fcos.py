@@ -37,7 +37,8 @@ from ...structures import boxes as box_ops
 from ..anchors import fcos_locations
 from ..backbones.fpn import build_backbone
 from ..layers import (Conv2d, DFConv2d, GroupNorm32, Scale,
-                      init_detector_weights, prior_bias)
+                      init_detector_weights, prior_bias,
+                      uses_batch_statistics)
 
 
 class FCOSHead(nn.Module):
@@ -309,6 +310,7 @@ class FCOS(FCOSModule):
         self.head.cls_logits.bias.fill_(prior_bias(self.head.prior_prob))
 
     # --------------------------------------------------------------- loss
+    @uses_batch_statistics
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {"image": uint8 (B, H, W, 3), "gt_boxes": (B, G, 4) XYXY,
         "gt_classes": (B, G) int, "gt_valid": (B, G) bool} as numpy arrays

@@ -29,7 +29,8 @@ from ...ops.topk import pair_top_k
 from ...parallel.multihost import global_normalizer, global_quotient
 from ..anchors import AnchorGeneratorSpec, fcos_locations
 from ..backbones.fpn import build_backbone
-from ..layers import Conv2d, GroupNorm32, Scale, init_detector_weights, prior_bias
+from ..layers import (Conv2d, GroupNorm32, Scale, init_detector_weights, prior_bias,
+                      uses_batch_statistics)
 from .fcos import compute_centerness_targets, fcos_assign, sizes_of_interest
 from .reppoints import RepPointsModule, nms_detections
 
@@ -158,6 +159,7 @@ class FCOSAnchor(RepPointsModule):
         return locations, counts, anchor_off, sizes_of_interest(counts)
 
     # --------------------------------------------------------------- loss
+    @uses_batch_statistics
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {"image", "gt_boxes", "gt_classes", "gt_valid"} as for
         ``FCOS.loss``. Returns the total loss and {"cls_loss", "reg_loss",

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from ...ops.losses import optax_sigmoid_ce, sigmoid_focal_loss
 from ...parallel.multihost import global_normalizer, global_sum, process_share
 from ...structures import boxes as box_ops
-from ..layers import Conv2d
+from ..layers import Conv2d, uses_batch_statistics
 from ..matchers import iou_matcher
 from .ablation import compute_slender_centerness_targets  # noqa: F401
 from .fcos import FCOS, compute_centerness_targets
@@ -88,6 +88,7 @@ class RepPointsCenterness(RepPointsDetector):
         super().__init__(cfg)
         self.slender_centerness = cfg.MODEL.META_ARCH.SLENDER_CENTERNESS
 
+    @uses_batch_statistics
     def loss(self, batch):
         dev = self.pixel_mean.device
         images = torch.as_tensor(batch["image"], device=dev)

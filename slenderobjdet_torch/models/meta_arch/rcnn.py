@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 from ..backbones.fpn import build_backbone
-from ..layers import init_detector_weights
+from ..layers import init_detector_weights, uses_batch_statistics
 from ..proposal_generator.rpn import RPN, StandardRPNHead
 from ..roi_heads.roi_heads import StandardROIHeads
 
@@ -128,6 +128,7 @@ class ProposalVisibleRCNN(RCNNModule):
             images.shape[0], 2)
 
     # --------------------------------------------------------------- loss
+    @uses_batch_statistics
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {"image": uint8 (B, H, W, 3), "gt_boxes": (B, G, 4),
         "gt_classes": (B, G), "gt_valid": (B, G)} as numpy arrays or tensors,

@@ -51,7 +51,8 @@ from ...structures import boxes as box_ops
 from ..anchors import feature_map_shapes
 from ..backbones.fpn import build_backbone
 from ..layers import (Conv2d, DeformConvLayer, GroupNorm32,
-                      init_detector_weights, prior_bias)
+                      init_detector_weights, prior_bias,
+                      uses_batch_statistics)
 from ..matchers import iou_matcher
 
 __all__ = ["DeformConvLayer", "RepPointsHead", "RepPointsModule", "nms_detections",
@@ -386,6 +387,7 @@ class RepPointsDetector(RepPointsModule):
                 for i, d in enumerate(deltas_l)]
 
     # --------------------------------------------------------------- loss
+    @uses_batch_statistics
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {"image": uint8 (B, H, W, 3), "gt_boxes": (B, G, 4) XYXY,
         "gt_classes": (B, G) int, "gt_valid": (B, G) bool} as numpy arrays or

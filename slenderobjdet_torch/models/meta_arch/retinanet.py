@@ -32,7 +32,8 @@ from ...parallel.multihost import global_normalizer
 from ...structures import boxes as box_ops
 from ..anchors import AnchorGeneratorSpec
 from ..backbones.fpn import build_backbone
-from ..layers import Conv2d, DFConv2d, init_detector_weights, prior_bias
+from ..layers import (Conv2d, DFConv2d, init_detector_weights, prior_bias,
+                      uses_batch_statistics)
 from ..matchers import iou_matcher
 from .fcos import fcos_assign, sizes_of_interest
 from .reppoints import rep_points_assign_with_idx
@@ -250,6 +251,7 @@ class RetinaNet(RetinaNetModule):
         return torch.stack(labels), torch.stack(matched)
 
     # --------------------------------------------------------------- loss
+    @uses_batch_statistics
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {"image": uint8 (B, H, W, 3), "gt_boxes": (B, G, 4) XYXY,
         "gt_classes": (B, G) int, "gt_valid": (B, G) bool} as numpy arrays

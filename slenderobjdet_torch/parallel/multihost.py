@@ -27,6 +27,8 @@ __all__ = [
     "all_gather_objects",
     "sync_processes",
     "global_sum",
+    "sum_over_processes",
+    "gather_over_processes",
     "process_share",
     "global_normalizer",
     "global_quotient",
@@ -84,6 +86,34 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
     x = x.clone()
     dist.all_reduce(x)
     return x
+
+
+def sum_over_processes(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the processes WITH its gradient (trainable
+    BatchNorm's batch statistics): the backward all-reduces the gradient
+    too, so each process's activations receive every process's terms.
+    ``x`` itself with no group. Unlike ``torch.nn.SyncBatchNorm``'s
+    reduction it runs on CPU tensors, under gloo."""
+    if not _initialized():
+        return x
+    from torch.distributed.nn.functional import all_reduce
+
+    return all_reduce(x)
+
+
+def gather_over_processes(x: torch.Tensor) -> torch.Tensor:
+    """The processes' ``x`` (each the same shape, no gradient) concatenated
+    along dim 0 in rank order, which is the joined batch's order when ``x``
+    holds a process's rows; ``x`` itself with no group."""
+    x = x.detach()
+    if not _initialized():
+        return x
+    dev = x.device
+    if dist.get_backend() == "gloo":        # gloo gathers host tensors only
+        x = x.cpu()
+    out = [torch.empty_like(x) for _ in range(process_count())]
+    dist.all_gather(out, x.contiguous())
+    return torch.cat(out).to(dev)
 
 
 def process_share(n: torch.Tensor) -> torch.Tensor:

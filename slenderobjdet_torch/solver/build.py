@@ -7,7 +7,7 @@
 - ``build_optimizer``: ``MODEL.BACKBONE.FREEZE_AT`` as ``requires_grad_(False)``
   (the JAX package zeroes those updates, weight decay included), then
   parameter groups labelled in detectron2's order (any ``bias``, a norm's
-  included, is a bias; a GroupNorm weight or ``Scale.scale`` is a norm; the
+  included, is a bias; a GroupNorm or BatchNorm weight or ``Scale.scale`` is a norm; the
   rest is regular) with ``WEIGHT_DECAY{,_NORM,_BIAS}`` and
   ``BIAS_LR_FACTOR`` as each group's ``lr_factor``.
 - ``clip_gradients``: ``SOLVER.CLIP_GRADIENTS`` as optax's ``clip`` (by
@@ -29,7 +29,7 @@ from typing import Callable, Dict, List
 import torch
 from torch import nn
 
-from ..models.layers import Scale
+from ..models.layers import BatchNorm, Scale
 
 
 class Adagrad(torch.optim.Optimizer):
@@ -95,7 +95,9 @@ def frozen(cfg, name: str) -> bool:
     """Whether FREEZE_AT freezes the parameter ``name`` (matched on the
     path as the JAX package's ``_freeze_mask`` does)."""
     freeze_at = cfg.MODEL.BACKBONE.FREEZE_AT
-    if freeze_at >= 1 and "stem" in name:
+    # the stem's norm is ``bottom_up/<Norm>_0`` in the Flax tree, a path
+    # without "stem": a trainable stem norm trains, as in the JAX package
+    if freeze_at >= 1 and "stem" in name.replace(".stem_norm.", "."):
         return True
     return any(freeze_at >= stage and f"res{stage}_" in name
                for stage in range(2, 6))
@@ -108,7 +110,7 @@ def param_labels(model: nn.Module) -> Dict[str, str]:
         for pname, _ in module.named_parameters(recurse=False):
             if pname == "bias":
                 label = "bias"
-            elif isinstance(module, (nn.GroupNorm, Scale)):
+            elif isinstance(module, (nn.GroupNorm, BatchNorm, Scale)):
                 label = "norm"
             else:
                 label = "regular"

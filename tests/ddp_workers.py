@@ -1,4 +1,5 @@
-"""What the data-parallel tests run in each rank (``tests/test_torch_ddp*.py``).
+"""What the data-parallel tests run in each rank (``tests/test_torch_ddp*.py``,
+``tests/test_torch_syncbn.py``).
 
 The ranks are spawned processes, which unpickle these functions by module
 name: this module imports torch and the port only (no jax), so that a rank
@@ -54,16 +55,21 @@ def rows(batch, lo, hi):
     return {k: v[lo:hi] for k, v in batch.items()}
 
 
-def worst_excess(model, path, init, rtol, update_rtol) -> float:
+def worst_excess(model, path, init, rtol, update_rtol, exact_zero=()) -> float:
     """Over the trainable tensors, the largest max |got - want| over what
     is allowed: ``rtol`` of the tensor's largest value plus ``update_rtol``
     of its largest update since ``init``. At most 1 passes. (A head bias
     after GroupNorm sits near 1e-6 with a gradient that cancels to rounding,
-    so its own scale alone would measure the summation order.)"""
+    so its own scale alone would measure the summation order.) A tensor in
+    ``exact_zero`` (a bias a BatchNorm follows, whose gradient is 0 up to
+    rounding) is allowed 1e-9 absolute."""
     want = torch.load(path, weights_only=True)
     worst = 0.0
     for name, p in model.named_parameters():
         w = want[name].double()
+        if name in exact_zero:
+            worst = max(worst, float((p.detach().double() - w).abs().max()) / 1e-9)
+            continue
         allowed = (rtol * float(w.abs().max())
                    + update_rtol * float((w - init[name].double()).abs().max()))
         diff = float((p.detach().double() - w).abs().max())
@@ -77,8 +83,8 @@ def run_families(specs, batches):
     per step the rank's metrics, after the steps listed in a spec's
     ``refs`` (``{step: state-dict file}``) the worst excess of the
     parameters over ``spec["tol"]`` (``worst_excess``) against that file,
-    and at the end the digest of the model's state and
-    its ``loss_normalizer`` where it has one."""
+    and at the end the digest of the model's state, its ``loss_normalizer``
+    where it has one and its BatchNorms' running statistics."""
     from slenderobjdet_torch.engine.train_loop import step_generator
     from slenderobjdet_torch.parallel import process_count, process_index, state_digest
 
@@ -96,12 +102,33 @@ def run_families(specs, batches):
             got["metrics"].append({k: float(v) for k, v in step(batch).items()})
             if i + 1 in spec.get("refs", {}):
                 got["excess"][i + 1] = worst_excess(model, spec["refs"][i + 1], init,
-                                                    *spec["tol"])
+                                                    *spec["tol"], spec.get("exact_zero", ()))
         got["digest"] = state_digest(model)
         if hasattr(model, "loss_normalizer"):
             got["loss_normalizer"] = float(model.loss_normalizer)
+        got["running"] = {k: v.clone() for k, v in model.named_buffers() if "running_" in k}
         out[name] = got
     return out
+
+
+def run_batchnorm_layer(x, g, state):
+    """One trainable BatchNorm (``state``: its state dict) on this rank's
+    rows of the joined NCHW ``x``, with batch statistics reduced over the
+    group: this rank's output rows and input gradient rows (the upstream
+    gradient ``g``), its parameter gradients and the running statistics."""
+    from slenderobjdet_torch.models.layers import BatchNorm, batch_statistics
+    from slenderobjdet_torch.parallel import process_count, process_index
+
+    rank, world = process_index(), process_count()
+    local = x.shape[0] // world
+    bn = BatchNorm(x.shape[1])
+    bn.load_state_dict(state)
+    xs = x[rank * local:(rank + 1) * local].clone().requires_grad_(True)
+    with batch_statistics():
+        y = bn(xs)
+    (y * g[rank * local:(rank + 1) * local]).sum().backward()
+    return {"y": y.detach(), "x_grad": xs.grad, "weight_grad": bn.weight.grad,
+            "bias_grad": bn.bias.grad, "state": bn.state_dict()}
 
 
 def rank_and_world():
@@ -174,3 +201,9 @@ def run_main(args, datasets, restart_after=None):
         active[0] = False
         torch.save = real_save
     return {"result": result, "written": sorted(written)}
+
+
+def run_syncbn(x, g, state, specs, batches):
+    """``run_batchnorm_layer`` then ``run_families``, in one spawn."""
+    torch.set_num_threads(THREADS)
+    return {"layer": run_batchnorm_layer(x, g, state), "families": run_families(specs, batches)}

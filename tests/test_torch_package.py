@@ -41,6 +41,8 @@ from slenderobjdet_torch.solver import build_optimizer
 from slenderobjdet_torch.tools import bw_probe, dma_streams_probe, fused_kernel_probe
 from slenderobjdet_torch.models import anchors, matchers
 from slenderobjdet_torch.models.meta_arch import hybrids, rcnn, reppoints, retinanet
+from slenderobjdet_torch.models.meta_arch import proposal_network
+from slenderobjdet_torch.models.proposal_generator import ppg, rpg
 from slenderobjdet_torch.models import sampling
 from slenderobjdet_torch.ops import deform_conv, roi_align
 names = []
@@ -80,11 +82,8 @@ def _flagship(**overrides):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("MODEL.RESNETS.NORM", "BN"),
     ("TPU.PACK_HEAD_LEVELS", True),
     ("TPU.INT8_PREDICT", True),
-    ("MODEL.RESNETS.NORM", "SyncBN"),
-    ("MODEL.RESNETS.NORM", "GN"),
 ])
 def test_unported_options_raise(key, value):
     with pytest.raises(NotImplementedError, match=key.split(".")[-1]):
@@ -549,3 +548,70 @@ def test_reppoints_family_builds_on_the_card(arch):
              "orig_size": np.array([[64, 96]], np.float32)}
     out = model.predict(batch)
     assert out["boxes"].shape == (1, 100, 4) and bool(torch.isfinite(out["boxes"]).all())
+
+
+@pytest.mark.gpu
+def test_batchnorm_on_the_card_matches_the_cpu():
+    """A trainable BatchNorm with batch statistics (outputs, running
+    statistics, gradients) and with running statistics, fp32 on the card
+    against the same module on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from slenderobjdet_torch.models.layers import BatchNorm, batch_statistics
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(4, 32, 12, 20, generator=gen) * 3 + 1
+    g = torch.randn(4, 32, 12, 20, generator=gen)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        bn = BatchNorm(32).to(dev)
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, 32))
+            bn.bias.copy_(torch.linspace(-1, 1, 32))
+        xs = x.to(dev, copy=True).requires_grad_(True)   # a leaf on each device
+        with batch_statistics():
+            y = bn(xs)
+        (y * g.to(dev)).sum().backward()
+        with torch.no_grad():
+            y_eval = bn(x.to(dev))
+        outs.append([t.detach().cpu() for t in (y, xs.grad, bn.weight.grad, bn.running_mean,
+                                                 bn.running_var, y_eval)])
+    # the two devices sum in other orders: max |diff| over the largest value
+    names = ("y", "x grad", "weight grad", "running mean", "running var", "y eval")
+    for name, got, want in zip(names, outs[1], outs[0]):
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= 1e-5, (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("generator", ["RepPointsGenerator", "PointsProposalGenerator", "RPN"])
+def test_proposal_network_predicts_on_the_card(generator):
+    """The three proposal networks built on the card (R-18) predict through
+    the NMS kernel, one launch a call, and match the same weights on the
+    CPU: the same valid slots, boxes within 1e-3 px."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = torch_get_cfg()
+    cfg.merge_from_file(str(CONFIG))
+    cfg.MODEL.META_ARCHITECTURE = "ProposalNetwork"
+    cfg.MODEL.PROPOSAL_GENERATOR.NAME = generator
+    cfg.MODEL.RPN.IN_FEATURES = ["p3", "p4", "p5", "p6", "p7"]
+    cfg.MODEL.RESNETS.DEPTH = 18
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    model = build_model(cfg)
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rs = np.random.RandomState(3)
+    batch = {"image": rs.randint(0, 256, (2, 64, 96, 3)).astype(np.uint8),
+             "scale": np.ones(2, np.float32), "orig_size": np.array([[64, 96]] * 2, np.float32)}
+    _build.reset_launch_counts()
+    out = model.predict(batch)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["nms"] == 1
+    want = cpu.predict(batch)
+    assert out["boxes"].shape == (2, 100, 4) and bool(torch.isfinite(out["boxes"]).all())
+    assert torch.equal(out["valid"].cpu(), want["valid"])
+    v = want["valid"]
+    torch.testing.assert_close(out["boxes"].cpu()[v], want["boxes"][v], rtol=0, atol=1e-3)
