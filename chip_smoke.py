@@ -8,6 +8,7 @@
     python3 chip_smoke.py reppoints   # the RepPoints and DCN phases
     python3 chip_smoke.py ddp    # the data-parallel phase
     python3 chip_smoke.py proposal syncbn   # the proposal networks and SyncBN
+    python3 chip_smoke.py fcosv3 # FCOSV3 and the masks data path
 
 Builds the port's CUDA kernels from ``slenderobjdet_torch/ops/csrc`` (at
 first use, into ``build/torch_kernels/``), then, each phase failing the run
@@ -195,6 +196,23 @@ if it fails:
    own difference under a reordering of the joined batch), bit-equal across
    the ranks; the
    all-reduces' ms and share of a step.
+30. FCOSV3 and the masks data path (``fcosv3``,
+   configs/fcos/fcosv3_R_50_FPN_1x.yaml, NEED_MASKS): the C border renderer
+   must have built (``structures/native.py``) and agree with numpy on 16
+   images of 800x1333 / 1333x800 with 8-30 polygon instances each (host ms
+   an image for the centre map and ProposalNetworkWithMasks' three maps,
+   both renderers); the train step at B=16, 896x1408, 100 padded gt and a
+   rendered centre map, flags on and off: 0 < num_pos <= FCOS's on the batch,
+   the loss falls over 11 steps, each fused step 1 stem + 13 bottleneck
+   launches, img/s and peak memory beside FCOS's on the same batch, the
+   centre map's host-to-device copy; predict at B=8 with 1 + 13 + 1
+   launches and the NMS kernel identical to ``batched_nms`` on the model's
+   own candidates; ``main`` (``family_trainer`` on synthetic dicts with
+   polygons: train, ``--resume`` bit-equal, evaluate) and 10 iterations of
+   ``main`` on the FCOS and the FCOSV3 yaml for img/s and the loader-wait
+   share; one ProposalNetworkWithMasks step at B=16 on mapper-made maps
+   (peak memory); a sizes pack written by ``tools/coco_to_pack --sizes`` and
+   read back through the mapper within the JAX test's tolerances.
 
 Every kernel's time stands beside its bound, the least time the card could
 take: the larger of its bytes (inputs read once, outputs written once) over
@@ -1131,18 +1149,30 @@ def train_turns(family, steps, batch, part_keys, rates, launches=None):
     return peaks
 
 
-def synthetic_dataset(name, tmpdir, n_images=32, seed=10, repeat=1):
+def box_polygon(rs, x1, y1, x2, y2):
+    """A quadrilateral inside the box touching its four sides, at points
+    drawn from ``rs``: [x, y1], [x2, y], then the same points mirrored
+    through the box's centre."""
+    cx = x1 + rs.randint(1, max(int(x2 - x1), 2))
+    cy = y1 + rs.randint(1, max(int(y2 - y1), 2))
+    return [float(v) for v in (cx, y1, x2, cy, x2 - (cx - x1), y2, x1, y2 - (cy - y1))]
+
+
+def synthetic_dataset(name, tmpdir, n_images=32, seed=10, repeat=1, polygons=False):
     """Register ``name`` in the port's catalogs: dataset dicts that inline
     their images (LOADER_IMAGE_HW and its transpose in turns, so that the
     loader resizes nothing and needs no image decoder) with 3-20
     integer-pixel boxes each, and the COCO json the evaluator reads, written
     under ``tmpdir``. ``repeat`` lists the ``n_images`` again under new ids
-    (the arrays are shared). Returns the json's dict."""
+    (the arrays are shared). ``polygons`` gives every box a ``box_polygon``
+    segmentation, drawn from a generator of its own (the boxes stay those
+    of ``seed``). Returns the json's dict."""
     import os
 
     from slenderobjdet_torch.data import DatasetCatalog, MetadataCatalog
 
     rs = np.random.RandomState(seed)
+    prs = np.random.RandomState(seed + 1000)
     dicts, images, annotations = [], [], []
     for i in range(n_images * repeat):
         if i >= n_images:       # the same image and boxes under a new id
@@ -1166,6 +1196,9 @@ def synthetic_dataset(name, tmpdir, n_images=32, seed=10, repeat=1):
             "annotations": [{"bbox": [float(a), float(b), float(c), float(d)],
                              "category_id": int(k), "iscrowd": 0}
                             for a, b, c, d, k in zip(x1, y1, x2, y2, classes)]})
+        if polygons:
+            for a in dicts[-1]["annotations"]:
+                a["segmentation"] = [box_polygon(prs, *a["bbox"])]
         images.append({"id": i + 1, "file_name": f"{i + 1:06d}.png", "height": h, "width": w})
         annotations += [{"id": len(annotations) + j + 1, "image_id": i + 1,
                          "category_id": int(k) + 1, "iscrowd": 0,
@@ -1737,14 +1770,15 @@ def phase_retinanet_trainer(kernels, dev, smi):
 
 
 def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
-                   loss_key="loss_box_reg", overrides=None):
+                   loss_key="loss_box_reg", overrides=None, polygons=False):
     """``train_net_torch.main`` on ``yaml`` over the synthetic dataset: 4
     iterations with a checkpoint at 2 and the evaluation, then ``--resume``
     to 8 from exactly the saved state, then ``--eval-only``. Every step must
     launch ``step_launches`` and every test batch 1 stem, 13 bottleneck and
     ``predict_nms`` NMS kernels; ``metrics.json`` must log ``loss_key``. A
     model's running statistic (RepPoints' ``loss_normalizer``) rides in the
-    checkpoint and must have moved off its initial value."""
+    checkpoint and must have moved off its initial value. ``polygons``: the
+    synthetic annotations carry segmentations (``synthetic_dataset``)."""
     import os
     import tempfile
 
@@ -1755,8 +1789,9 @@ def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
     name = f"chip_smoke_{family}"
     with watched_trainer() as watch, \
             tempfile.TemporaryDirectory(prefix=f"chip_smoke_{family}_") as tmp:
-        synthetic_dataset(name, tmp, seed=seed)
-        n_test = len(synthetic_dataset(name + "_test", tmp, seed=seed, repeat=4)["images"])
+        synthetic_dataset(name, tmp, seed=seed, polygons=polygons)
+        n_test = len(synthetic_dataset(name + "_test", tmp, seed=seed, repeat=4,
+                                       polygons=polygons)["images"])
         n_test_batches = n_test // 8
         out = os.path.join(tmp, "output")
 
@@ -3967,6 +4002,425 @@ def phase_syncbn(kernels, dev, smi):
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
 
 
+# ------------------------------------------------------------------ FCOSV3
+FCOSV3_YAML = "configs/fcos/fcosv3_R_50_FPN_1x.yaml"
+FCOSV3_HW = LOADER_SHAPES[0]         # the loader's landscape bucket, 896 x 1408
+FCOSV3_STEP_LAUNCHES = {"fused_stem": 1, "fused_bottleneck": 13}
+FCOSV3_PREDICT_LAUNCHES = {"fused_stem": 1, "fused_bottleneck": 13, "nms": 1}
+FCOSV3_RENDER_IMAGES = 16            # images whose maps are rendered by both renderers
+MAP_ATOL = 1e-5      # C renderer vs numpy: border and center maps (tests/test_border_native.py)
+SIZE_ATOL = 1e-3     # and the size map
+
+
+def render_polygons(rs, h, w):
+    """8-30 instances in an h x w image: rotated rectangles and 6-16-vertex
+    ellipses, a third of them of aspect ratio 8 or more, vertices to 0.1 px;
+    some run off the image."""
+    polys = []
+    for _ in range(rs.randint(8, 31)):
+        length = rs.randint(40, 500)
+        width = max(3.0, length / rs.choice([1.5, 3.0, 8.0, 12.0, 20.0]))
+        if rs.rand() < 0.3:
+            ang = np.sort(rs.rand(rs.randint(6, 17)) * 2 * np.pi)
+            pts = np.stack([np.cos(ang) * length / 2, np.sin(ang) * width / 2], 1)
+        else:
+            pts = np.array([[-length, -width], [length, -width], [length, width],
+                            [-length, width]]) / 2
+        a = rs.rand() * np.pi
+        rot = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+        centre = np.array([rs.randint(0, w), rs.randint(0, h)], np.float64)
+        polys.append([np.round(pts @ rot.T + centre, 1).reshape(-1)])
+    return polys
+
+
+def check_native_maps(label, nat, ref, sigma_steps):
+    """The C renderer's maps against numpy's: MAP_ATOL, SIZE_ATOL for the
+    size map, and for a gaussian centre map the step at the hull boundary
+    (a pixel on it gets exp(-1 / (2 sigma^2)) from one renderer and 0 from
+    the other, as in the JAX package). Returns the count of step pixels."""
+    steps = 0
+    for i, (n, r) in enumerate(zip(nat, ref)):
+        tol = SIZE_ATOL if r.ndim == 3 else MAP_ATOL
+        far = np.abs(n - r) > tol
+        if i in sigma_steps and far.any():
+            pair = np.sort(np.stack([n[far], r[far]]), axis=0)
+            if not (np.all(pair[0] == 0) and np.all(pair[1] == sigma_steps[i])):
+                raise AssertionError(f"{label} map {i}: C vs numpy beyond the boundary step")
+            steps += int(far.sum())
+        elif far.any():
+            raise AssertionError(f"{label} map {i}: C vs numpy max diff "
+                                 f"{float(np.abs(n - r).max())}")
+    return steps
+
+
+def phase_fcosv3_render(smi, report):
+    """The host renderer: FCOSV3_RENDER_IMAGES images in both buckets'
+    resized sizes (800 x 1333 and 1333 x 800), 8-30 instances each; the C
+    renderer must have built (``native.available()``) and agree with numpy;
+    host ms an image for the centre map alone and PNWM's three maps."""
+    from slenderobjdet_torch.structures import borders, native
+
+    if not native.available():
+        raise AssertionError("the C border renderer did not build or load "
+                             f"({native.library_path()})")
+    rs = np.random.RandomState(50)
+    ms = {("c", "center"): [], ("numpy", "center"): [], ("c", "masks"): [],
+          ("numpy", "masks"): []}
+    steps = n_inst = 0
+    for i in range(FCOSV3_RENDER_IMAGES):
+        hw = LOADER_IMAGE_HW if i % 2 == 0 else LOADER_IMAGE_HW[::-1]
+        polys = render_polygons(rs, *hw)
+        n_inst += len(polys)
+        masks = borders.BorderMasks(polys)
+        out = {}
+        try:
+            for renderer in ("c", "numpy"):
+                borders.USE_NATIVE = renderer == "c"
+                t0 = time.perf_counter()
+                center = masks.center_masks(hw, "gaussian", 0.5)
+                t1 = time.perf_counter()
+                maps = masks.masks(hw)
+                t2 = time.perf_counter()
+                ms[renderer, "center"].append((t1 - t0) * 1e3)
+                ms[renderer, "masks"].append((t2 - t1) * 1e3)
+                out[renderer] = [center, *maps]
+        finally:
+            borders.USE_NATIVE = True
+        steps += check_native_maps(f"image {i}", out["c"], out["numpy"],
+                                   {0: np.float32(np.exp(-2.0))})
+        if not out["c"][0].max() > 0.9:
+            raise AssertionError(f"image {i}: an empty centre map")
+    mean = {k: float(np.mean(v)) for k, v in ms.items()}
+    report.update({f"render_{r}_{m}_ms": v for (r, m), v in mean.items()})
+    log(f"time render ({smi}, host): {FCOSV3_RENDER_IMAGES} images of 800x1333 / 1333x800, "
+        f"{n_inst} instances (8-30 an image), C renderer ({native.backend()}, "
+        f"{native.library_path().parent.name}): centre map {mean['c', 'center']:.1f} ms/img, "
+        f"PNWM's three maps {mean['c', 'masks']:.1f} ms/img; numpy: centre "
+        f"{mean['numpy', 'center']:.1f}, three maps {mean['numpy', 'masks']:.1f} ms/img; "
+        f"C == numpy within {MAP_ATOL} / {SIZE_ATOL} but {steps} boundary pixels")
+
+
+def fcosv3_batch(batch, seed, hw=FCOSV3_HW):
+    """``train_batch`` with the loader's centre map: each valid box's
+    ``box_polygon`` rendered (gaussian, sigma 0.5) by the C renderer."""
+    from slenderobjdet_torch.structures.borders import BorderMasks
+
+    out = train_batch(batch, seed, hw=hw)
+    rs = np.random.RandomState(seed + 1)
+    out["center_mask"] = np.stack([
+        BorderMasks([[np.array(box_polygon(rs, *b))] for b in boxes[valid]])
+        .center_masks(hw, "gaussian", 0.5)
+        for boxes, valid in zip(out["gt_boxes"], out["gt_valid"])])
+    return out
+
+
+def phase_fcosv3_train(kernels, dev, smi, report):
+    """FCOSV3 at B=16, 896 x 1408, 100 padded gt and the centre map, flags on
+    and off from the same weights: the gate keeps 0 < num_pos <= FCOS's on
+    the batch; TRAIN_STEPS + 1 steps whose loss falls, each fused step 1 stem
+    and 13 bottleneck launches, the unfused none; img/s and peak memory
+    beside FCOS's on the same batch; the centre map's host-to-device copy."""
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.models.meta_arch.fcos import FCOSV3
+    from slenderobjdet_torch.solver import build_optimizer
+
+    batch = fcosv3_batch(16, seed=51)
+    gen = torch.Generator().manual_seed(52)
+    models, weights = {}, None
+    for key in ("fused", "unfused"):
+        m = build_model(train_cfg(key == "fused", yaml=FCOSV3_YAML), device=dev, generator=gen)
+        if weights is None:
+            randomize_frozen_bn(m, gen)
+            weights = {k: v.clone() for k, v in m.state_dict().items()}
+        else:
+            m.load_state_dict(weights)
+        if type(m) is not FCOSV3:
+            raise AssertionError(f"{FCOSV3_YAML} built {type(m).__name__}")
+        models[key] = m
+    with torch.no_grad():
+        gated = float(models["fused"].loss(batch)[1]["num_pos"])
+        plain = float(models["fused"].loss(
+            {k: v for k, v in batch.items() if k != "center_mask"})[1]["num_pos"])
+    log(f"fcosv3 gate on B=16 {FCOSV3_HW[0]}x{FCOSV3_HW[1]}: num_pos {gated:.0f} with the "
+        f"centre map, {plain:.0f} as FCOS ({1 - gated / plain:.3f} of the positives at or "
+        f"below 0.2)")
+    if not 0 < gated <= plain:
+        raise AssertionError(f"fcosv3 num_pos {gated}, FCOS's {plain}")
+    steps = {k: make_train_step(m, build_optimizer(train_cfg(k == "fused", yaml=FCOSV3_YAML), m),
+                                train_cfg(k == "fused", yaml=FCOSV3_YAML))
+             for k, m in models.items()}
+    rates = {}
+    peaks = train_turns("FCOSV3", steps, batch, ("cls_loss", "reg_loss", "centerness_loss",
+                                                 "num_pos"), rates,
+                        launches={"fused": FCOSV3_STEP_LAUNCHES, "unfused": {}})
+    for k in ("fused_stem", "fused_bottleneck"):
+        kernels[k].setdefault("launches_by_path", {})["fcosv3_train_step"] = \
+            FCOSV3_STEP_LAUNCHES[k]
+    del steps
+    # FCOS on the same batch, the same weights: 2 steps to warm, 4 timed
+    fcos_rates = {}
+    for key, m in models.items():
+        cfg = train_cfg(key == "fused")
+        m.mask_center_sampling = False          # the FCOS loss on this batch
+        step = make_train_step(m, build_optimizer(cfg, m), cfg)
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        fcos_rates[key] = 16 / float(np.mean(times[2:]))
+        m.mask_center_sampling = True
+    # the centre map's copy to the card, as the loss makes it each step
+    copy = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.as_tensor(batch["center_mask"], dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        copy.append((time.perf_counter() - t0) * 1e3)
+    copy_ms = float(np.mean(copy[1:]))
+    mb = batch["center_mask"].nbytes / 1e6
+    report.update(fcosv3_img_s=rates, fcos_same_batch_img_s=fcos_rates,
+                  fcosv3_peak_gib=peaks, center_mask_copy_ms=copy_ms)
+    log(f"time fcosv3 train ({smi}): B=16 {FCOSV3_HW[0]}x{FCOSV3_HW[1]}, 100 padded gt: "
+        f"FCOSV3 fused {rates['fused']:.2f} img/s (peak {peaks['fused']:.2f} GiB), unfused "
+        f"{rates['unfused']:.2f} img/s (peak {peaks['unfused']:.2f} GiB); FCOS on the same "
+        f"batch fused {fcos_rates['fused']:.2f}, unfused {fcos_rates['unfused']:.2f} img/s; "
+        f"the centre map's host-to-device copy {mb:.1f} MB (pageable) {copy_ms:.2f} ms a step")
+    return models["fused"]
+
+
+def phase_fcosv3_predict(kernels, dev, smi, model):
+    """FCOSV3 predicts as FCOS does: the NMS kernel against ``batched_nms``
+    on the model's own candidates (B=8 at 896 x 1408, the classifier's bias
+    moved so that the coarsest level's 99.5th percentile score sits on the
+    threshold), then one predict call with 1 stem, 13 bottleneck and 1 NMS
+    launch and outputs of the right shapes."""
+    from slenderobjdet_torch.ops import _build
+
+    req = requests(1, 8, seed=53, hw=FCOSV3_HW)[0]
+    with torch.inference_mode():
+        images = torch.as_tensor(req["image"], device=dev)
+        top = model(images)[0][-1].float().flatten()
+        thresh = float(np.log(model.pre_nms_thresh / (1 - model.pre_nms_thresh)))
+        classifier(model).bias.add_(thresh - float(
+            torch.kthvalue(top.cpu(), int(0.995 * top.numel())).values))
+        boxes, scores, classes, valid, _ = model.candidates(*model(images), FCOSV3_HW)
+    nms_check(kernels, smi, "fcosv3", f"B8_N{boxes.shape[1]}", boxes, scores, valid,
+              model.nms_thresh, model.max_dets, classes=classes)
+    del images, boxes, scores, classes, valid
+    _build.reset_launch_counts()
+    out = model.predict(req)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _build.launch_counts().items() if v}
+    check_outputs(out, 8)
+    if counts != FCOSV3_PREDICT_LAUNCHES:
+        raise AssertionError(f"fcosv3 predict launched {counts}")
+    for k in PREDICT_KERNELS:
+        kernels[k].setdefault("launches_by_path", {})["fcosv3_predict"] = counts[k]
+    log(f"fcosv3 predict B=8 {FCOSV3_HW[0]}x{FCOSV3_HW[1]}: launches {counts}, "
+        f"{int(out['valid'].sum())} valid detections (FCOS's predict path; not timed again)")
+
+
+def phase_fcosv3_trainer(kernels, dev, smi, report):
+    """``train_net_torch.main`` on the FCOSV3 yaml over the synthetic dataset
+    with polygons (``family_trainer``: train, ``--resume`` bit-equal,
+    evaluate); then 10 iterations of ``main`` each on the FCOS and the FCOSV3
+    yaml without evaluation, on the same images: img/s over steps 2-9 and
+    the share of them spent waiting for the loader (FCOSV3's renders the
+    centre map, FCOS's does not)."""
+    import os
+    import tempfile
+
+    import train_net_torch
+
+    family_trainer(kernels, smi, "fcosv3", FCOSV3_YAML, 54, FCOSV3_STEP_LAUNCHES,
+                   predict_nms=1, loss_key="centerness_loss", polygons=True)
+    name = "chip_smoke_fcosv3_wait"
+    with watched_trainer() as watch, \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_fcosv3_wait_") as tmp:
+        synthetic_dataset(name, tmp, seed=55, polygons=True)
+        for family, yaml in (("FCOS", FCOS_YAML), ("FCOSV3", FCOSV3_YAML)):
+            watch.clear()
+            watch.sync_at[0] = 2
+            train_net_torch.main(trainer_args(name, os.path.join(tmp, family), max_iter=10,
+                                              checkpoint_period=1000, yaml=yaml,
+                                              overrides={"DATASETS.TEST": "()"}))
+            if [r["launches"] for r in watch.steps] != [FCOSV3_STEP_LAUNCHES] * 10:
+                raise AssertionError(f"{family} main launched "
+                                     f"{[r['launches'] for r in watch.steps]}")
+            span = watch.steps[-1]["t1"] - watch.steps[2]["t0"]
+            wait = sum(watch.waits[3:10])
+            report[f"{family}_main"] = {"img_s": 16 * 8 / span, "wait_share": wait / span,
+                                        "wait_ms": wait / 7 * 1e3}
+        log(f"time fcosv3 trainer ({smi}): steps 2-9 of train_net_torch.main, B=16, flags on: "
+            + "; ".join(f"{f} {v['img_s']:.2f} img/s, waiting for the loader "
+                        f"{v['wait_ms']:.2f} ms/step, {v['wait_share']:.4f} of a step"
+                        for f, v in ((f, report[f"{f}_main"]) for f in ("FCOS", "FCOSV3"))))
+
+
+def phase_fcosv3_pnwm(kernels, dev, smi, report):
+    """One ProposalNetworkWithMasks step at B=16 on maps the mapper made
+    (NEED_MASKS: ``center_mask``, ``border_mask``, ``size_map``) from 16
+    inlined 800 x 1333 images with polygons: 1 stem + 13 bottleneck
+    launches, finite losses, the mapper's host ms an image, peak memory and
+    the three maps' copy to the card."""
+    from slenderobjdet_torch.data.build import _stack_batch
+    from slenderobjdet_torch.data.mapper import DatasetMapper
+    from slenderobjdet_torch.models import build_model
+
+    cfg = proposal_cfg("ProposalNetworkWithMasks", lr=PROPOSAL_TRAIN_LR)
+    cfg.defrost()
+    cfg.MODEL.META_ARCHITECTURE = "ProposalNetworkWithMasks"
+    cfg.NEED_MASKS = True
+    cfg.freeze()
+    rs = np.random.RandomState(56)
+    mapper = DatasetMapper(cfg, is_train=True)
+    t0 = time.perf_counter()
+    examples = []
+    for i in range(16):
+        h, w = LOADER_IMAGE_HW
+        annos = []
+        for poly in render_polygons(rs, h, w)[:20]:
+            xy = poly[0].reshape(-1, 2)
+            annos.append({"bbox": [*xy.min(0).tolist(), *xy.max(0).tolist()],
+                          "category_id": 0, "iscrowd": 0,
+                          "segmentation": [poly[0].tolist()]})
+        examples.append(mapper({"image": rs.randint(0, 256, (h, w, 3), dtype=np.uint8),
+                                "image_id": i, "annotations": annos},
+                               rng=np.random.default_rng((56, i))))
+    map_ms = (time.perf_counter() - t0) / 16 * 1e3
+    batch = {k: v for k, v in _stack_batch(examples).items() if k != "image_id"}
+    shapes = {k: batch[k].shape for k in ("image", "center_mask", "border_mask", "size_map")}
+    if shapes != {"image": (16, *FCOSV3_HW, 3), "center_mask": (16, *FCOSV3_HW),
+                  "border_mask": (16, *FCOSV3_HW), "size_map": (16, *FCOSV3_HW, 2)}:
+        raise AssertionError(f"PNWM mapper batch {shapes}")
+    model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(57))
+    totals, launches, rate, peak = proposal_steps(model, cfg, batch, 3,
+                                                  "fcosv3 ProposalNetworkWithMasks", smi)
+    if any(c != FCOSV3_STEP_LAUNCHES for c in launches):
+        raise AssertionError(f"PNWM steps launched {launches}")
+    for k in ("fused_stem", "fused_bottleneck"):
+        kernels[k].setdefault("launches_by_path", {})["fcosv3_pnwm_step"] = \
+            FCOSV3_STEP_LAUNCHES[k]
+    copy = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in ("center_mask", "border_mask", "size_map"):
+            torch.as_tensor(batch[k], dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        copy.append((time.perf_counter() - t0) * 1e3)
+    mb = sum(batch[k].nbytes for k in ("center_mask", "border_mask", "size_map")) / 1e6
+    report.update(pnwm_peak_gib=peak, pnwm_img_s=rate, pnwm_map_ms=map_ms,
+                  pnwm_maps_copy_ms=float(np.mean(copy[1:])))
+    log(f"fcosv3 PNWM on mapper maps ({smi}): the mapper {map_ms:.1f} ms/img on the host "
+        f"(C renderer, 800x1333, up to 20 instances); B=16 step {rate:.2f} img/s, peak "
+        f"{peak:.2f} GiB; the three maps' copy {mb:.1f} MB {np.mean(copy[1:]):.2f} ms a step; "
+        f"centre map max {float(batch['center_mask'].max()):.3f}, size map max "
+        f"{float(batch['size_map'].max()):.1f} px")
+
+
+def phase_fcosv3_pack(kernels, dev, smi):
+    """A sizes pack written by ``python -m slenderobjdet_torch.tools.
+    coco_to_pack --sizes`` (4 images of 800 x 1333, their files stand-in
+    bytes: the tool packs them undecoded), read back through the mapper
+    (USE_NORI, NORI_PATH, NEED_MASKS, ProposalNetworkWithMasks, test mode)
+    with the images inlined: the maps equal the mapper's own rendering within
+    MAP_ATOL and SIZE_ATOL (``tests/test_recordpack.py``'s tolerances)."""
+    import os
+    import tempfile
+
+    from slenderobjdet_torch.data.mapper import DatasetMapper
+    from slenderobjdet_torch.tools import coco_to_pack
+
+    split = "chip_smoke_pack"
+    rs = np.random.RandomState(58)
+    h, w = LOADER_IMAGE_HW
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pack_") as tmp:
+        images, annotations, dicts = [], [], []
+        for i in range(4):
+            fname = f"{i:06d}.png"
+            with open(os.path.join(tmp, fname), "wb") as f:
+                f.write(rs.bytes(64))
+            images.append({"id": i + 1, "file_name": fname, "height": h, "width": w})
+            annos = []
+            for poly in render_polygons(rs, h, w)[:12]:
+                xy = np.clip(poly[0].reshape(-1, 2), 0, [w, h])
+                x1, y1 = xy.min(0)
+                x2, y2 = xy.max(0)
+                if x2 - x1 < 2 or y2 - y1 < 2:
+                    continue
+                annos.append({"id": len(annotations) + len(annos) + 1, "image_id": i + 1,
+                              "category_id": 1, "iscrowd": 0, "area": float((x2 - x1) * (y2 - y1)),
+                              "bbox": [float(x1), float(y1), float(x2 - x1), float(y2 - y1)],
+                              "segmentation": [xy.reshape(-1).tolist()]})
+            annotations += annos
+            dicts.append({"image": rs.randint(0, 256, (h, w, 3), dtype=np.uint8),
+                          "file_name": os.path.join("/nowhere", fname), "image_id": i + 1,
+                          "height": h, "width": w,
+                          "annotations": [{"bbox": [a["bbox"][0], a["bbox"][1],
+                                                    a["bbox"][0] + a["bbox"][2],
+                                                    a["bbox"][1] + a["bbox"][3]],
+                                           "category_id": 0, "iscrowd": 0,
+                                           "segmentation": a["segmentation"]} for a in annos]})
+        with open(os.path.join(tmp, "gt.json"), "w") as f:
+            json.dump({"images": images, "annotations": annotations,
+                       "categories": [{"id": 1, "name": "thing"}]}, f)
+        t0 = time.perf_counter()
+        coco_to_pack.main(["--gt-json", os.path.join(tmp, "gt.json"), "--image-root", tmp,
+                           "--out", os.path.join(tmp, f"{split}.pack"), "--sizes"])
+        pack_s = time.perf_counter() - t0
+        cfg = proposal_cfg("ProposalNetworkWithMasks")
+        cfg.defrost()
+        cfg.MODEL.META_ARCHITECTURE = "ProposalNetworkWithMasks"
+        cfg.NEED_MASKS = True
+        cfg.DATASETS.TEST = (split,)
+        cfg.freeze()
+        inline = DatasetMapper(cfg, is_train=False)
+        cfg.defrost()
+        cfg.USE_NORI = True
+        cfg.NORI_PATH = tmp
+        cfg.freeze()
+        packed = DatasetMapper(cfg, is_train=False)
+        if packed.sizes_pack is None or len(packed.sizes_pack) != 4:
+            raise AssertionError("the sizes pack was not opened")
+        worst = {}
+        for d in dicts:
+            a, b = inline(d), packed(d)
+            for k, tol in (("center_mask", MAP_ATOL), ("border_mask", MAP_ATOL),
+                           ("size_map", SIZE_ATOL)):
+                err = float(np.abs(a[k] - b[k]).max())
+                worst[k] = max(worst.get(k, 0.0), err)
+                if err > tol or not b[k].max() > 0.5:
+                    raise AssertionError(f"sizes pack {k}: max diff {err}, max {b[k].max()}")
+    log(f"fcosv3 sizes pack: coco_to_pack --sizes wrote 4 images' maps in {pack_s:.2f} s; "
+        f"read back through the mapper with inlined images, max diff against its own "
+        f"rendering {worst}")
+
+
+def phase_fcosv3(kernels, dev, smi):
+    """FCOSV3 and the masks data path (``fcosv3``): the host renderer, the
+    train step, predict, ``main``, ProposalNetworkWithMasks on mapper maps
+    and the sizes pack; every sub-phase must pass."""
+    report = {}
+    phase_fcosv3_render(smi, report)
+    model = phase_fcosv3_train(kernels, dev, smi, report)
+    torch.cuda.empty_cache()
+    phase_fcosv3_predict(kernels, dev, smi, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_fcosv3_trainer(kernels, dev, smi, report)
+    torch.cuda.empty_cache()
+    phase_fcosv3_pnwm(kernels, dev, smi, report)
+    torch.cuda.empty_cache()
+    phase_fcosv3_pack(kernels, dev, smi)
+    log(f"fcosv3 report ({smi}): {json.dumps(report, default=float)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -4092,6 +4546,8 @@ def main() -> int:
     run("proposal_trainer", phase_proposal_trainer, kernels, dev, smi)
     torch.cuda.empty_cache()
     run("syncbn", phase_syncbn, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("fcosv3", phase_fcosv3, kernels, dev, smi)
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

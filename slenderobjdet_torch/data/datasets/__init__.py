@@ -1,7 +1,12 @@
 from .coco import load_coco_json, register_builtin, register_coco_instances
+from .objects365 import (obj365_to_coco_name_map, register_builtin_obj365,
+                         register_objects365)
 
 __all__ = [
     "load_coco_json",
     "register_builtin",
     "register_coco_instances",
+    "obj365_to_coco_name_map",
+    "register_builtin_obj365",
+    "register_objects365",
 ]

@@ -9,7 +9,7 @@ import torch
 from torch import nn
 
 from .meta_arch.ablation import AblationMetaArch
-from .meta_arch.fcos import FCOS, FCOSTopK
+from .meta_arch.fcos import FCOS, FCOSTopK, FCOSV3
 from .meta_arch.fcos_anchor import FCOSAnchor
 from .meta_arch.proposal_network import ProposalNetworkWithMasks
 from .meta_arch.hybrids import (FCOSNCRetinaNet, FCOSRepPoints, FCOSRetinaNet,
@@ -59,14 +59,15 @@ def _proposal_network(cfg) -> nn.Module:
 # line, so the three names share one class, as in the JAX package; so do
 # GeneralizedRCNN and ProposalVisibleRCNN. AblationMetaArch picks its head
 # (LRTBHead, LRTBTopkHead, PointSetHead, AnchorHead) by
-# MODEL.META_ARCH.NAME. Not ported yet: FCOSV3, RotatedRetinaNet and
-# CornerNet (ROADMAP.md queue 1).
+# MODEL.META_ARCH.NAME. Not ported yet: RotatedRetinaNet and CornerNet
+# (ROADMAP.md queue 1).
 META_ARCHS = {
     "FCOS": FCOS,
     "FCOSV2": FCOS,
     "GroupNet": FCOS,
     "FCOSWithAnchor": _fcos_with_anchor,
     "FCOSTopK": FCOSTopK,
+    "FCOSV3": FCOSV3,
     "FCOSAnchor": FCOSAnchor,
     "FCOSRetinaNet": FCOSRetinaNet,
     "FCOSNCRetinaNet": FCOSNCRetinaNet,

@@ -1,7 +1,7 @@
 """FCOS (counterpart of ``slenderobjdet_tpu/models/meta_arch/fcos.py``:
 ``FCOSHead``, ``FCOSModule``, ``fcos_assign_single`` batched as
 ``fcos_assign``, ``compute_centerness_targets``, ``FCOS.loss``,
-``FCOS.predict``, ``_fcos_level_candidates`` and ``FCOSTopK``;
+``FCOS.predict``, ``_fcos_level_candidates``, ``FCOSTopK`` and ``FCOSV3``;
 ``use_centerness=False`` is the no-centerness ablation ``FCOSNCRetinaNet``
 and ``with_anchor`` the diagnosis variant ``FCOSWithAnchor``).
 
@@ -11,7 +11,10 @@ contains it within its level's size range, focal classification loss, IoU
 loss weighted by the centerness target and centerness BCE, each normalised
 by a sum over the whole batch. With ``topk_per_gt`` (``FCOSTopK``) only the
 k highest-centerness positives of each gt feed the regression loss
-(``topk_per_gt_gate``).
+(``topk_per_gt_gate``). With ``mask_center_sampling`` (``FCOSV3``) a
+positive location whose polygon-rendered centre score (``batch
+["center_mask"]``, read at the location's truncated pixel) is at most
+``mask_thresh`` becomes background (``mask_center_gate``).
 
 Inference is fixed-shape too: per-level threshold and pair top-k of
 ``PRE_NMS_TOP_N`` candidates, ltrb decoding, then class-aware greedy NMS
@@ -197,6 +200,19 @@ def topk_per_gt_gate(ctr_targets, pos, gt_inds, num_gt: int, k: int):
     return ((scores >= kth[:, None, :]) & per_gt).any(dim=-1)
 
 
+def mask_center_gate(labels, locations, center_mask, num_classes: int,
+                     thresh: float):
+    """FCOSV3's gate (JAX ``fcos.py:363-373``): labels (B, L) with every
+    positive whose center score is at most ``thresh`` set to background.
+    The score of a location is ``center_mask`` (B, H, W) at its (x, y)
+    truncated toward zero (``astype(int32)``) and clipped to the map."""
+    ix = torch.clamp(locations[:, 0].int(), 0, center_mask.shape[2] - 1).long()
+    iy = torch.clamp(locations[:, 1].int(), 0, center_mask.shape[1] - 1).long()
+    scores_at = center_mask[:, iy, ix]                              # (B, L)
+    return torch.where((labels < num_classes) & (scores_at <= thresh),
+                       num_classes, labels)
+
+
 class FCOSModule(nn.Module):
     """Backbone + FPN + FCOS head over uint8 NHWC images; the image is
     normalised in float32 and then cast to the compute dtype."""
@@ -252,9 +268,10 @@ class FCOS(FCOSModule):
     predict path."""
 
     # the regression positives a gt (FCOSTopK sets 5); FCOSV3's mask-based
-    # centre sampling is not ported
+    # centre sampling and its threshold
     topk_per_gt = None
     mask_center_sampling = False
+    mask_thresh = 0.2
 
     def __init__(self, cfg, use_centerness: bool = True,
                  with_anchor: bool = False):
@@ -313,14 +330,12 @@ class FCOS(FCOSModule):
     @uses_batch_statistics
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {"image": uint8 (B, H, W, 3), "gt_boxes": (B, G, 4) XYXY,
-        "gt_classes": (B, G) int, "gt_valid": (B, G) bool} as numpy arrays
-        or tensors. Returns the total loss and {"cls_loss", "reg_loss",
-        "centerness_loss" (with the centerness branch), "num_pos"}; every
-        normaliser is a count over the global batch, summed over the
-        processes (``parallel.multihost.global_normalizer``)."""
-        if self.mask_center_sampling:
-            raise NotImplementedError(
-                "mask_center_sampling (FCOSV3's center_mask input) is not ported")
+        "gt_classes": (B, G) int, "gt_valid": (B, G) bool} and, for
+        ``mask_center_sampling``, "center_mask" (B, H, W) float, as numpy
+        arrays or tensors. Returns the total loss and {"cls_loss",
+        "reg_loss", "centerness_loss" (with the centerness branch),
+        "num_pos"}; every normaliser is a count over the global batch,
+        summed over the processes (``parallel.multihost.global_normalizer``)."""
         dev = self.pixel_mean.device
         images = torch.as_tensor(batch["image"], device=dev)
         locations_np, counts = fcos_locations(tuple(images.shape[1:3]),
@@ -339,6 +354,11 @@ class FCOS(FCOSModule):
             torch.as_tensor(batch["gt_classes"], device=dev),
             torch.as_tensor(batch["gt_valid"], dtype=torch.bool, device=dev),
             self.num_classes)
+        if self.mask_center_sampling and "center_mask" in batch:
+            labels = mask_center_gate(
+                labels, locations,
+                torch.as_tensor(batch["center_mask"], dtype=torch.float32, device=dev),
+                self.num_classes, self.mask_thresh)
         if self.norm_reg_targets:
             stride_per_loc = torch.as_tensor(np.concatenate([
                 np.full((c,), s, np.float32)
@@ -400,9 +420,10 @@ class FCOS(FCOSModule):
             torch.as_tensor(batch["scale"], device=dev),
             torch.as_tensor(batch["orig_size"], device=dev))
 
-    def postprocess(self, logits_l, reg_l, ctr_l, image_hw,
-                    scale, orig_size) -> Dict[str, torch.Tensor]:
-        """Candidates, NMS and rescaling from the head's per-level outputs."""
+    def candidates(self, logits_l, reg_l, ctr_l, image_hw):
+        """The NMS's input from the head's per-level outputs: per level the
+        threshold and the top ``pre_nms_top_n`` pairs, decoded, concatenated:
+        boxes (B, N, 4), scores, classes, valid and source locations."""
         locations_np, counts = fcos_locations(image_hw, self.strides)
         dev = logits_l[0].device
         offsets = np.concatenate([[0], np.cumsum(counts)])
@@ -414,8 +435,13 @@ class FCOS(FCOSModule):
                 logits_l[lvl], reg_l[lvl],
                 None if ctr_l is None else ctr_l[lvl], locs,
                 self.pre_nms_thresh, self.pre_nms_top_n))
-        boxes, scores, classes, valid, locs = (torch.cat(t, dim=1)
-                                               for t in zip(*cands))
+        return tuple(torch.cat(t, dim=1) for t in zip(*cands))
+
+    def postprocess(self, logits_l, reg_l, ctr_l, image_hw,
+                    scale, orig_size) -> Dict[str, torch.Tensor]:
+        """Candidates, NMS and rescaling from the head's per-level outputs."""
+        boxes, scores, classes, valid, locs = self.candidates(logits_l, reg_l, ctr_l,
+                                                              image_hw)
 
         keep_idx, keep_valid = cuda_batched_nms(
             boxes, scores, classes, self.nms_thresh, self.max_dets,
@@ -443,3 +469,12 @@ class FCOSTopK(FCOS):
     every positive."""
 
     topk_per_gt = 5
+
+
+class FCOSV3(FCOS):
+    """FCOS with mask-based center sampling (reference fcosv3.py:55-343):
+    only locations where the polygon-rendered center-score map exceeds 0.2
+    stay positive. Needs cfg.NEED_MASKS, so that the loader gives
+    ``center_mask`` (``data/mapper.py``, ``structures/borders.py``)."""
+
+    mask_center_sampling = True

@@ -1,2 +1,3 @@
-"""Measurement tools of the port, each runnable as
-``python -m slenderobjdet_torch.tools.<name>`` on a CUDA card."""
+"""Tools of the port, each runnable as
+``python -m slenderobjdet_torch.tools.<name>``: the measurement tools on a
+CUDA card, ``coco_to_pack`` on any host."""

@@ -5,7 +5,7 @@ same tiny size:
 - ``predict`` slot for slot against the JAX package, one cell a head;
 - the point grid and anchors exactly, the deformable convs in float32
   whatever the compute dtype, the three ablation YAMLs at full width, the
-  registry's 25 names and what still raises;
+  registry's 26 names and what still raises;
 - ``train_net_torch.main --device cpu`` on ``pointset_sup.yaml``: train,
   resume bit-equal to an uninterrupted run, evaluate.
 
@@ -135,7 +135,7 @@ def test_deform_convs_run_in_float32_whatever_the_compute_dtype(monkeypatch):
 # ------------------------------------------------------- registry, build
 def test_registry_holds_twenty_three_names():
     assert {"AblationMetaArch", "FCOSTopK", "FCOSAnchor"} <= set(META_ARCHS)
-    assert len(META_ARCHS) == 25
+    assert len(META_ARCHS) == 26
 
 
 @pytest.mark.parametrize("yaml_name,head,adaption,anchors", [

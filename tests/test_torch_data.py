@@ -5,8 +5,9 @@ train and test loaders. The two loaders read the same synthetic COCO json
 seed) and must yield the same batches: every array bit-equal and the same
 ``image_id`` order, for ``NUM_WORKERS`` 0 and 4 and each of the three
 samplers. Also: the torch bilinear resize that stands in where cv2 is
-missing stays within one grey level of ``cv2.INTER_LINEAR``, and the
-options that are not ported raise.
+missing stays within one grey level of ``cv2.INTER_LINEAR``. The mapper's
+NEED_MASKS, USE_NORI and DATALOADER.OSS_ROOT are held by
+``tests/test_torch_borders.py`` and ``tests/test_torch_recordpack.py``.
 """
 
 import json
@@ -332,13 +333,3 @@ def test_read_image_reports_a_missing_file(tmp_path):
     with pytest.raises(FileNotFoundError):
         tmapper.read_image({"file_name": str(tmp_path / "nope.png")})
 
-
-@pytest.mark.parametrize("overrides,match", [
-    ({"NEED_MASKS": True}, "NEED_MASKS"),
-    ({"USE_NORI": True, "NORI_PATH": "/nowhere"}, "USE_NORI"),
-    ({"DATALOADER.OSS_ROOT": "s3://bucket"}, "OSS_ROOT"),
-])
-def test_unported_mapper_options_raise(overrides, match):
-    _, tcfg = cfg_pair(**overrides)
-    with pytest.raises(NotImplementedError, match=match):
-        tmapper.DatasetMapper(tcfg)

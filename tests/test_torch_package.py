@@ -23,12 +23,14 @@ CONFIG = ROOT / "configs/fcos/fcos_R_50_FPN_1x.yaml"
 RETINA_CONFIG = ROOT / "configs/retina/retinanet_R_50_FPN_1x.yaml"
 RCNN_CONFIG = ROOT / "configs/faster/faster_rcnn_R_50_FPN_1x.yaml"
 REPPOINTS_CONFIG = ROOT / "configs/rep-points/rep_points_detector_R_50_FPN_1x.yaml"
+V3_CONFIG = ROOT / "configs/fcos/fcosv3_R_50_FPN_1x.yaml"
 
 
 def test_port_imports_no_jax():
-    """Importing the port (its train step and probe tools included) and
-    building the flagship model, RetinaNet, Faster R-CNN and RepPoints leaves jax, flax
-    and the JAX package out of sys.modules (a fresh interpreter)."""
+    """Importing the port (its train step, probe tools and host-side data
+    modules included) and building the flagship model, RetinaNet, Faster
+    R-CNN, RepPoints and FCOSV3 leaves jax, flax and the JAX package out of
+    sys.modules (a fresh interpreter)."""
     code = f"""
 import sys
 sys.path.insert(0, {str(ROOT)!r})
@@ -45,16 +47,23 @@ from slenderobjdet_torch.models.meta_arch import proposal_network
 from slenderobjdet_torch.models.proposal_generator import ppg, rpg
 from slenderobjdet_torch.models import sampling
 from slenderobjdet_torch.ops import deform_conv, roi_align
+from slenderobjdet_torch.structures import borders, native
+from slenderobjdet_torch.data import recordpack
+from slenderobjdet_torch.data.datasets import objects365
+from slenderobjdet_torch.utils import smart_path
+from slenderobjdet_torch.tools import coco_to_pack
 names = []
 for config in ({str(CONFIG)!r}, {str(RETINA_CONFIG)!r}, {str(RCNN_CONFIG)!r},
-               {str(REPPOINTS_CONFIG)!r}):
+               {str(REPPOINTS_CONFIG)!r}, {str(V3_CONFIG)!r}):
     cfg = get_cfg()
     cfg.merge_from_file(config)
     cfg.MODEL.RESNETS.DEPTH = 18
     model = build_model(cfg, device="cpu")
     make_train_step(model, build_optimizer(cfg, model), cfg)
     names.append(type(model).__name__)
-assert names == ["FCOS", "RetinaNet", "ProposalVisibleRCNN", "RepPointsDetector"], names
+assert names == ["FCOS", "RetinaNet", "ProposalVisibleRCNN", "RepPointsDetector",
+                 "FCOSV3"], names
+borders.BorderMasks([[[0.0, 0.0, 9.0, 0.0, 9.0, 5.0]]]).masks((8, 12))
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'slenderobjdet_tpu')]
 print(bad)
@@ -615,3 +624,40 @@ def test_proposal_network_predicts_on_the_card(generator):
     assert torch.equal(out["valid"].cpu(), want["valid"])
     v = want["valid"]
     torch.testing.assert_close(out["boxes"].cpu()[v], want["boxes"][v], rtol=0, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_fcosv3_loss_on_the_card_matches_the_cpu():
+    """FCOSV3 (R-18, fp32, TF32 off) on the card against the same weights on
+    the CPU: the gate's labels exactly (``num_pos``), each loss term within
+    1e-4, on a centre map rendered from polygons (``structures/borders.py``)
+    that removes positives."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from slenderobjdet_torch.structures.borders import BorderMasks
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = torch_get_cfg()
+    cfg.merge_from_file(str(V3_CONFIG))
+    cfg.MODEL.RESNETS.DEPTH = 18
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    model = build_model(cfg)
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rs = np.random.RandomState(5)
+    xy = rs.randint(0, 40, (2, 6, 2))
+    boxes = np.concatenate([xy, xy + rs.randint(8, 24, (2, 6, 2))], -1).astype(np.float32)
+    masks = np.stack([BorderMasks([[np.array([b[0], b[1], b[2], b[1], b[2], b[3], b[0], b[3]],
+                                             np.float64)] for b in img]).center_masks((64, 64))
+                      for img in boxes])
+    batch = {"image": rs.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8), "gt_boxes": boxes,
+             "gt_classes": rs.randint(0, 80, (2, 6)).astype(np.int32),
+             "gt_valid": np.ones((2, 6), bool), "center_mask": masks}
+    with torch.no_grad():
+        got = model.loss(batch)[1]
+        want = cpu.loss(batch)[1]
+        ungated = cpu.loss({k: v for k, v in batch.items() if k != "center_mask"})[1]
+    assert float(got["num_pos"]) == float(want["num_pos"]) < float(ungated["num_pos"])
+    for k in ("cls_loss", "reg_loss", "centerness_loss"):
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-4), k

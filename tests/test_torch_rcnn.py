@@ -510,11 +510,11 @@ def test_rcnn_predict_matches_jax(rcnn_pair, arch):
 def test_registry_holds_the_fourteen_names():
     """The fourteen names of the earlier chassis, the six of deformable
     convolution and the point-set family, and the ablation chassis with its
-    two FCOS diagnosis detectors, and the two proposal networks."""
+    two FCOS diagnosis detectors, the two proposal networks and FCOSV3."""
     assert sorted(META_ARCHS) == sorted(FOURTEEN + [
         "DeformableConvRetinaNet", "RepPointsDetector", "RepPointsCenterness", "RepPointsV2",
         "FCOSRepPoints", "ReppointsRetinaNet", "AblationMetaArch", "FCOSTopK", "FCOSAnchor",
-        "ProposalNetwork", "ProposalNetworkWithMasks"])
+        "ProposalNetwork", "ProposalNetworkWithMasks", "FCOSV3"])
 
 
 @pytest.mark.parametrize("arch", ["ProposalVisibleRCNN", "GeneralizedRCNN",

@@ -652,15 +652,15 @@ def test_registry_holds_the_eleven_names():
     the rest are Faster R-CNN's (tests/test_torch_rcnn.py), the point-set
     family's (tests/test_torch_reppoints_variants.py) and the ablation
     chassis's and its two FCOS diagnosis detectors' (tests/test_torch_ablation.py,
-    tests/test_torch_fcos_anchor.py) and the proposal networks'
-    (tests/test_torch_proposal.py)."""
+    tests/test_torch_fcos_anchor.py), the proposal networks'
+    (tests/test_torch_proposal.py) and FCOSV3 (tests/test_torch_fcosv3.py)."""
     chassis = ELEVEN + ["DeformableConvRetinaNet"]
     assert set(chassis) <= set(META_ARCHS) and len(set(chassis)) == 12
     assert set(META_ARCHS) - set(chassis) == {
         "ProposalVisibleRCNN", "GeneralizedRCNN", "ProposalVisibleRCNNWithAnchor",
         "RepPointsDetector", "RepPointsCenterness", "RepPointsV2", "FCOSRepPoints",
         "ReppointsRetinaNet", "FCOSTopK", "FCOSAnchor", "AblationMetaArch",
-        "ProposalNetwork", "ProposalNetworkWithMasks"}
+        "ProposalNetwork", "ProposalNetworkWithMasks", "FCOSV3"}
 
 
 @pytest.mark.parametrize("arch", ELEVEN)

@@ -379,8 +379,9 @@ def test_two_optimizer_steps_match_optax(overrides):
 
 def test_adagrad_and_unported_variants_raise():
     """ADAGRAD and ``use_centerness=False`` are ported and build; an unknown
-    optimizer and the variant that is still missing (FCOSV3's mask-based
-    centre sampling) raise."""
+    optimizer raises. FCOSV3's mask-based centre sampling is ported
+    (``tests/test_torch_fcosv3.py``): without the loader's ``center_mask``
+    its gate is skipped, as in the JAX package, and the loss is FCOS's."""
     model = torch_build_model(port_cfg(), device="cpu")
     opt = tsolver.build_optimizer(port_cfg(**{"SOLVER.OPTIM": "ADAGRAD"}), model)
     assert isinstance(opt, tsolver.Adagrad)
@@ -388,9 +389,11 @@ def test_adagrad_and_unported_variants_raise():
     with pytest.raises(ValueError, match="LAMB"):
         tsolver.build_optimizer(port_cfg(**{"SOLVER.OPTIM": "LAMB"}), model)
     assert not hasattr(tfcos.FCOS(port_cfg(), use_centerness=False).head, "centerness")
-    model.mask_center_sampling = True
-    with pytest.raises(NotImplementedError, match="mask_center_sampling"):
-        model.loss(dryrun_batch())
+    with torch.no_grad():
+        want, _ = model.loss(dryrun_batch())
+        model.mask_center_sampling = True
+        got, _ = model.loss(dryrun_batch())
+    assert torch.equal(got, want)
 
 
 def test_fcos_loss_with_norm_reg_targets_and_giou_matches_jax(pair):

@@ -194,7 +194,6 @@ def test_main_fails_without_a_card_unless_the_cpu_is_asked_for(synth, monkeypatc
     ({"TEST.AUG.ENABLED": True}, "TEST.AUG.ENABLED"),
     ({"MODEL.META_ARCHITECTURE": "RepPointsDetector",
       "MODEL.REPPOINTS.TRANSFORM_METHOD": "moment"}, "moment_transfer"),
-    ({"NEED_MASKS": True}, "NEED_MASKS"),
 ])
 def test_unported_trainer_options_raise(synth, overrides, match):
     cfg = make_cfg(torch_get_cfg, synth / "unported", **{"SOLVER.MAX_ITER": 1}, **overrides)
@@ -242,7 +241,8 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
 
 def test_trainer_modules_load_without_jax():
     """A fresh interpreter that imports the entry point, the trainer, the
-    loaders, the evaluator and the checkpointer holds no jax module."""
+    loaders (the map renderer, packs, object-storage paths and Objects365
+    among them), the evaluator and the checkpointer holds no jax module."""
     code = f"""
 import sys
 sys.path.insert(0, {str(ROOT)!r})
@@ -250,6 +250,11 @@ import train_net_torch
 from slenderobjdet_torch.engine import trainer
 from slenderobjdet_torch.checkpoint import checkpointer
 from slenderobjdet_torch import data, evaluation
+from slenderobjdet_torch.data import recordpack
+from slenderobjdet_torch.data.datasets import objects365
+from slenderobjdet_torch.structures import borders, native
+from slenderobjdet_torch.tools import coco_to_pack
+from slenderobjdet_torch.utils import smart_path
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'slenderobjdet_tpu')]
 assert not bad, bad
