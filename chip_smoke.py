@@ -9,6 +9,7 @@
     python3 chip_smoke.py ddp    # the data-parallel phase
     python3 chip_smoke.py proposal syncbn   # the proposal networks and SyncBN
     python3 chip_smoke.py fcosv3 # FCOSV3 and the masks data path
+    python3 chip_smoke.py rotated_retinanet rotated_rcnn   # the rotated boxes
 
 Builds the port's CUDA kernels from ``slenderobjdet_torch/ops/csrc`` (at
 first use, into ``build/torch_kernels/``), then, each phase failing the run
@@ -213,6 +214,32 @@ if it fails:
    share; one ProposalNetworkWithMasks step at B=16 on mapper-made maps
    (peak memory); a sizes pack written by ``tools/coco_to_pack --sizes`` and
    read back through the mapper within the JAX test's tolerances.
+
+31. The rotated boxes (``rotated_*`` phases; ``ops/csrc/rotated.cu``):
+   RotatedRetinaNet (configs/rotated/rotated_retinanet_R_50_FPN_1x.yaml,
+   27 anchors a cell, 708,939 at 896x1408) and the rotated Faster R-CNN
+   (configs/rotated/faster_rcnn_rotated_R_50_FPN_1x.yaml: RRPN over 945,252
+   anchors, RROIHeads), nothing cut, bf16, flags on and off, seeded. Each:
+   head outputs against fp32; the ``rotated_iou`` kernel at its train
+   shapes (100 padded gt x all anchors; the ROI sampling's 100 x 1,100)
+   against the plain IoU, max |diff| <= 1e-6 and the matcher's labels equal
+   but where an IoU lies within 1e-6 of a threshold (counted); the
+   ``rotated_nms`` kernel on the model's own offset candidates
+   (RotatedRetinaNet B=8 5,000 -> 100 at both buckets; the RRPN's B=8 5,000
+   and B=16 10,000 -> 1,000; the box head's B=8 1,000 -> 100) identical to
+   the plain loop; kernel and plain timed, the bound from the fp32
+   operations the kernel reports; 3 predict calls of B=8 at 896x1408 and
+   3 at 1408x896 with exact launches (1 + 13 + 1 rotated NMS; R-CNN 2),
+   outputs (B, 100, 5) finite, fused against unfused detections class by
+   class (``comparable_retinanet``; R-CNN on shared proposals); 11 + 4
+   train steps at B=16 with 100 padded rotated gt, flags on and off, every
+   step's launches exact (16 rotated IoU an image batch; R-CNN 32 and 1
+   rotated NMS), the loss falling, img/s and peak memory; and
+   ``train_net_torch.main`` on an rcoco dataset of 32 synthetic images
+   whose quadrilateral polygons give the rboxes (``rbox_from_polygon``,
+   without cv2): train, ``--resume`` bit-equal, evaluation and
+   ``--eval-only`` by the rotated evaluator (SCORE_THRESH_TEST 0; the
+   R-CNN's -1, its random softmax being 0 for every class).
 
 Every kernel's time stands beside its bound, the least time the card could
 take: the larger of its bytes (inputs read once, outputs written once) over
@@ -1543,9 +1570,10 @@ def comparable_retinanet(gen, *models):
     cannot be brought to one detection a class (boxes of different anchor
     shapes or levels overlap by less than 0.5 however they are scaled), so
     the NMS is given nothing to decide instead:
-    - the bbox_pred filters are 0 and its bias is (0, 0, -12, -12): every
-      box is its anchor shrunk to a point at its centre, an exact function
-      of the anchor, and boxes of different cells never overlap;
+    - the bbox_pred filters are 0 and its bias is (0, 0, -12, -12) (and an
+      angle delta 0 for the rotated head): every box is its anchor shrunk
+      to a point at its centre, an exact function of the anchor, and boxes
+      of different cells never overlap;
     - the cls_score bias is -30 for every anchor shape but one, so a cell
       holds one candidate a class and no two boxes of a class overlap: the
       detections are the 100 best scores;
@@ -1565,8 +1593,8 @@ def comparable_retinanet(gen, *models):
     with torch.no_grad():
         for m in models:
             m.head.bbox_pred.weight.zero_()
-            m.head.bbox_pred.bias.copy_(
-                torch.tensor([0.0, 0.0, -12.0, -12.0]).repeat(head.num_anchors))
+            m.head.bbox_pred.bias.copy_(torch.tensor(
+                [0.0, 0.0, -12.0, -12.0] + [0.0] * (head.box_dim - 4)).repeat(head.num_anchors))
             m.head.cls_score.weight.copy_(shared + per_channel)
             m.head.cls_score.bias.copy_(class_bias.flatten())
 
@@ -1770,7 +1798,7 @@ def phase_retinanet_trainer(kernels, dev, smi):
 
 
 def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
-                   loss_key="loss_box_reg", overrides=None, polygons=False):
+                   loss_key="loss_box_reg", overrides=None, polygons=False, rotated=False):
     """``train_net_torch.main`` on ``yaml`` over the synthetic dataset: 4
     iterations with a checkpoint at 2 and the evaluation, then ``--resume``
     to 8 from exactly the saved state, then ``--eval-only``. Every step must
@@ -1778,7 +1806,10 @@ def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
     ``predict_nms`` NMS kernels; ``metrics.json`` must log ``loss_key``. A
     model's running statistic (RepPoints' ``loss_normalizer``) rides in the
     checkpoint and must have moved off its initial value. ``polygons``: the
-    synthetic annotations carry segmentations (``synthetic_dataset``)."""
+    synthetic annotations carry segmentations (``synthetic_dataset``).
+    ``rotated``: the dataset is an rcoco one (``rotated_synthetic_dataset``),
+    evaluated by the rotated evaluator (the bbox stats, no AR matrix and no
+    results file), and the NMS kernel counted is the rotated one."""
     import os
     import tempfile
 
@@ -1789,9 +1820,14 @@ def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
     name = f"chip_smoke_{family}"
     with watched_trainer() as watch, \
             tempfile.TemporaryDirectory(prefix=f"chip_smoke_{family}_") as tmp:
-        synthetic_dataset(name, tmp, seed=seed, polygons=polygons)
-        n_test = len(synthetic_dataset(name + "_test", tmp, seed=seed, repeat=4,
-                                       polygons=polygons)["images"])
+        def make(dataset, repeat=1):
+            if rotated:
+                return rotated_synthetic_dataset(dataset, tmp, seed=seed, repeat=repeat)
+            return synthetic_dataset(dataset, tmp, seed=seed, repeat=repeat, polygons=polygons)
+
+        make(name)
+        n_test = len(make(name + "_test", repeat=4)["images"])
+        nms_key = "rotated_nms" if rotated else "nms"
         n_test_batches = n_test // 8
         out = os.path.join(tmp, "output")
 
@@ -1823,15 +1859,16 @@ def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
         counts = _build.launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         losses = check_steps(0, 4)
-        want = {"nms": 4 * step_launches.get("nms", 0) + predict_nms * n_test_batches,
-                "fused_stem": 4 + n_test_batches,
-                "fused_bottleneck": 13 * (4 + n_test_batches)}
+        want = {k: 4 * v for k, v in step_launches.items()}
+        want[nms_key] = want.get(nms_key, 0) + predict_nms * n_test_batches
+        want["fused_stem"] += n_test_batches
+        want["fused_bottleneck"] += 13 * n_test_batches
         if {k: counts[k] for k in want} != want:
             raise AssertionError(f"{family} trainer launched {counts}, expected {want}")
-        for k in PREDICT_KERNELS:
+        for k in want:
             kernels[k].setdefault("launches_by_path", {})[f"{family}_trainer"] = counts[k]
         for fname in ("config.yaml", "metrics.json", "model_0000002.pth", "model_0000004.pth",
-                      "last_checkpoint", "coco_instances_results.json"):
+                      "last_checkpoint") + (() if rotated else ("coco_instances_results.json",)):
             if not os.path.exists(os.path.join(out, fname)):
                 raise AssertionError(f"the trainer did not write {fname}")
         with open(os.path.join(out, "metrics.json")) as f:
@@ -1842,7 +1879,7 @@ def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
             raise AssertionError(f"metrics.json: {logged}")
         timing = results[name + "_test"]["_timing"]
         log(f"{family} trainer: 4 steps and {n_test_batches} test batches launched {counts}; "
-            f"every step {step_launches}, every test batch {predict_nms} NMS; total "
+            f"every step {step_launches}, every test batch {predict_nms} {nms_key}; total "
             f"losses {[round(v, 4) for v in losses]}; peak memory {peak:.2f} GiB; whole main "
             f"(build, 4 steps, 2 saves, evaluation) {wall:.1f} s")
         log(f"time {family} trainer eval ({smi}): {timing['images']} timed images of {n_test}, "
@@ -1881,15 +1918,15 @@ def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
         counts = _build.launch_counts()
         res = results[name + "_test"]
         missing = [k for k in STATS_NAMES if k not in res["bbox"]]
-        if missing or "AR@100" not in res["ar"]:
-            raise AssertionError(f"--eval-only: bbox lacks {missing}; ar {sorted(res['ar'])}")
-        want = {"nms": predict_nms * n_test_batches, "fused_stem": n_test_batches,
+        if missing or not (rotated or "AR@100" in res["ar"]):
+            raise AssertionError(f"--eval-only: bbox lacks {missing}; ar {sorted(res.get('ar', {}))}")
+        want = {nms_key: predict_nms * n_test_batches, "fused_stem": n_test_batches,
                 "fused_bottleneck": 13 * n_test_batches}
         if {k: counts[k] for k in want} != want:
             raise AssertionError(f"--eval-only launched {counts}, expected {want}")
         timing = res["_timing"]
-        log(f"{family} trainer --eval-only ({smi}): bbox has all {len(STATS_NAMES)} names, ar "
-            f"has {len(res['ar'])} keys; launches {want}; "
+        log(f"{family} trainer --eval-only ({smi}): bbox has all {len(STATS_NAMES)} names "
+            f"(AP {res['bbox']['AP']:.4f}), ar has {len(res.get('ar', {}))} keys; launches {want}; "
             f"{1 / timing['s_per_img'] if timing['s_per_img'] else float('nan'):.2f} img/s over "
             f"{timing['images']} timed images")
 
@@ -4421,6 +4458,444 @@ def phase_fcosv3(kernels, dev, smi):
     log(f"fcosv3 report ({smi}): {json.dumps(report, default=float)}")
 
 
+# ----------------------------------------------------------- rotated boxes
+ROTATED_RETINANET_YAML = "configs/rotated/rotated_retinanet_R_50_FPN_1x.yaml"
+ROTATED_RCNN_YAML = "configs/rotated/faster_rcnn_rotated_R_50_FPN_1x.yaml"
+ROTATED_HW = LOADER_SHAPES              # both buckets, 896 x 1408 and 1408 x 896
+ROTATED_ANGLES = np.array([-45, -30, -15, 0, 15, 30, 45, 60, 90], np.float32)
+ROTATED_IOU_TOL = 1e-6       # rotated_iou kernel vs plain, max |diff|
+ROTATED_BAND = 1e-6          # an IoU this near a threshold may label either way
+ROTATED_RETINANET_PREDICT = {"fused_stem": 1, "fused_bottleneck": 13, "rotated_nms": 1}
+ROTATED_RETINANET_STEP = {"fused_stem": 1, "fused_bottleneck": 13, "rotated_iou": 16}
+ROTATED_RCNN_PREDICT = {"fused_stem": 1, "fused_bottleneck": 13, "rotated_nms": 2}
+ROTATED_RCNN_STEP = {"fused_stem": 1, "fused_bottleneck": 13, "rotated_iou": 32,
+                     "rotated_nms": 1}
+ROTATED_KERNELS = ("rotated_iou", "rotated_nms")
+# a test setting, as WARMUP_ITERS 0 is: RetinaNet's 2e-4 gives NaN by step 5
+# here, where 27 anchors a cell put ~14,000 positives in a batch
+ROTATED_RETINANET_TRAIN_LR = 2e-5
+
+
+def rotated_train_batch(batch: int, seed: int, hw):
+    """``train_batch`` with each gt box turned into an XYWHA box of the same
+    centre and sides at an angle from ROTATED_ANGLES (``gt_rboxes``; the
+    padded rows stay 0)."""
+    out = train_batch(batch, seed=seed, hw=hw)
+    rs = np.random.RandomState(seed + 1)
+    b = out["gt_boxes"]
+    rboxes = np.stack([(b[..., 0] + b[..., 2]) / 2, (b[..., 1] + b[..., 3]) / 2,
+                       b[..., 2] - b[..., 0], b[..., 3] - b[..., 1],
+                       rs.choice(ROTATED_ANGLES, b.shape[:2])], -1).astype(np.float32)
+    out["gt_rboxes"] = np.where(out["gt_valid"][..., None], rboxes, 0.0).astype(np.float32)
+    return out
+
+
+def rotated_synthetic_dataset(name, tmpdir, seed=10, repeat=1):
+    """``synthetic_dataset`` with polygons, made an rcoco dataset: every
+    annotation's rbox is ``rbox_from_polygon`` of its segmentation (the
+    rcoco loader's rule, without cv2), in the dataset dicts and in the json
+    the rotated evaluator reads (whose ratios come from the polygons)."""
+    from slenderobjdet_torch.data import DatasetCatalog, MetadataCatalog
+    from slenderobjdet_torch.structures.masks import rbox_from_polygon
+
+    gt = synthetic_dataset(name, tmpdir, seed=seed, repeat=repeat, polygons=True)
+    by_image = {}
+    for a in gt["annotations"]:
+        by_image.setdefault(a["image_id"], []).append(a)
+    for d in DatasetCatalog.get(name):
+        for a, j in zip(d["annotations"], by_image.get(d["image_id"], [])):
+            if "rbox" not in a:
+                a["rbox"] = rbox_from_polygon(a["segmentation"])
+            j["segmentation"], j["rbox"] = a["segmentation"], a["rbox"]
+    meta = MetadataCatalog.get(name)
+    with open(meta.json_file, "w") as f:
+        json.dump(gt, f)
+    meta.set(evaluator_type="rcoco")
+    return gt
+
+
+def rotated_iou_check(kernels, smi, family, gt, anchors, thresholds, labels, key,
+                      low_quality=True):
+    """The IoU kernel at a main-path shape (one image's 100 padded gt
+    against all its anchors) against the plain version on the same input:
+    max |diff| <= ROTATED_IOU_TOL, and the matcher's labels from the two
+    matrices equal except where an IoU lies within ROTATED_BAND of a
+    threshold (counted); then the kernel and the plain version timed, and
+    the bound from the fp32 operations the kernel reports."""
+    from slenderobjdet_torch.models.matchers import iou_matcher
+    from slenderobjdet_torch.ops.rotated import launch_rotated_iou, plain_pairwise_rotated_iou
+
+    dev = gt.device
+    work = torch.zeros(1, dtype=torch.int64, device=dev)
+    got = launch_rotated_iou(gt, anchors, work=work)
+    want = plain_pairwise_rotated_iou(gt, anchors)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    valid = gt[:, 2] * gt[:, 3] > 0
+    labels = [iou_matcher(anchors, gt, valid, thresholds, labels,
+                          allow_low_quality_matches=low_quality,
+                          pairwise_fn=lambda *_, m=m: m)[1] for m in (got, want)]
+    near = torch.zeros_like(want, dtype=torch.bool)
+    for t in thresholds:
+        near |= (want - t).abs() <= ROTATED_BAND
+    differ = labels[0] != labels[1]
+    unexplained = int((differ & ~near.any(0)).sum())
+    log(f"rotated_iou {family} {key}: {tuple(gt.shape)} x {tuple(anchors.shape)}, max |kernel "
+        f"- plain| {err:.3e} (<= {ROTATED_IOU_TOL}), {int((want > 0).sum())} pairs overlap; "
+        f"labels differ at {int(differ.sum())} anchors, IoUs within {ROTATED_BAND} of a "
+        f"threshold at {int(near.sum())} pairs, {unexplained} differences unexplained")
+    if err > ROTATED_IOU_TOL or unexplained:
+        raise AssertionError(f"rotated_iou {family} {key}: err {err}, {unexplained} labels")
+    ops = int(work.item())
+    del labels, near, differ, want
+    ms = cuda_ms(lambda: launch_rotated_iou(gt, anchors), 5)
+    plain_ms = cuda_ms(lambda: plain_pairwise_rotated_iou(gt, anchors), 1, warmup=0)
+    b_ms, b_by = bound_ms(nbytes(gt, anchors, got), ops, PEAK_FP32_FLOPS)
+    log(f"time rotated_iou {family} {key} ({smi}): kernel {ms:.4f} ms, plain {plain_ms:.2f} ms; "
+        f"{ops / (gt.shape[0] * anchors.shape[0]):.1f} fp32 operations a pair ({ops:.4e}); "
+        f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.4f} of bound")
+    entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": None, "max_abs_err": err, "pairs": gt.shape[0] * anchors.shape[0],
+             "fp32_ops": ops}
+    kernels["rotated_iou"][f"at_{family}_{key}"] = entry
+    return entry
+
+
+def rotated_nms_check(kernels, smi, family, key, boxes, scores, valid, thr, max_out):
+    """The NMS kernel on a model's own (offset) candidates against the plain
+    greedy loop: identical keep lists, or it fails; then both timed, and the
+    bound from the kernel's reported fp32 operations."""
+    from slenderobjdet_torch.ops.rotated import launch_rotated_nms, plain_rotated_nms
+
+    work = torch.zeros(1, dtype=torch.int64, device=boxes.device)
+    got = launch_rotated_nms(boxes, scores, thr, max_out, valid=valid, work=work)
+    want = plain_rotated_nms(boxes, scores, thr, max_out, valid=valid)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"rotated_nms kernel != plain on {family}'s {key} candidates: "
+                             f"{int((got[0] != want[0]).sum())} indices differ")
+    ops = int(work.item())
+    kept = got[1].sum(1).tolist()
+    ms = cuda_ms(lambda: launch_rotated_nms(boxes, scores, thr, max_out, valid=valid), 5)
+    plain_ms = cuda_ms(lambda: plain_rotated_nms(boxes, scores, thr, max_out, valid=valid), 1,
+                       warmup=0)
+    b_ms, b_by = bound_ms(nbytes(boxes, scores, valid, *got), ops, PEAK_FP32_FLOPS)
+    B, N = scores.shape
+    log(f"rotated_nms {family} {key} ({smi}): kernel == plain at B={B} N={N} thr {thr} "
+        f"max_out {max_out}, {float(valid.float().mean()):.3f} valid, kept an image "
+        f"{min(kept)}-{max(kept)}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms; {ops:.4e} fp32 "
+        f"operations; bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.4f} of bound")
+    entry = {"batch": B, "candidates": N, "max_out": max_out, "thr": thr, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+             "max_abs_err": 0.0, "kept": sum(kept), "fp32_ops": ops}
+    kernels["rotated_nms"][f"at_{family}_{key}"] = entry
+    return entry
+
+
+def check_rotated_outputs(out, batch, proposals=None):
+    shapes = {"boxes": (batch, 100, 5), "scores": (batch, 100), "classes": (batch, 100),
+              "valid": (batch, 100)}
+    if proposals:
+        shapes.update({"proposals": (batch, proposals, 5), "proposal_scores": (batch, proposals),
+                       "proposal_valid": (batch, proposals)})
+    if sorted(out) != sorted(shapes):
+        raise AssertionError(f"predict returned {sorted(out)}")
+    for k, s in shapes.items():
+        if tuple(out[k].shape) != s:
+            raise AssertionError(f"{k} shape {tuple(out[k].shape)} != {s}")
+        if out[k].is_floating_point() and not bool(torch.isfinite(out[k]).all()):
+            raise AssertionError(f"non-finite {k}")
+
+
+def rotated_predict_calls(kernels, smi, family, model, plain, reqs, want_counts, proposals=None):
+    """``predict`` on each request with the launch counts reset before and
+    read after each call; outputs checked; returns the outputs."""
+    from slenderobjdet_torch.ops import _build
+
+    per_call, outs = [], []
+    for r in reqs:
+        _build.reset_launch_counts()
+        outs.append(model.predict(r))
+        torch.cuda.synchronize()
+        per_call.append({k: v for k, v in _build.launch_counts().items() if v})
+    log(f"{family} predict launches a call of B={reqs[0]['image'].shape[0]} at "
+        f"{[r['image'].shape[1:3] for r in reqs]}: {per_call}")
+    if any(c != want_counts for c in per_call):
+        raise AssertionError(f"{family} predict launched {per_call}, expected {want_counts}")
+    kernels["rotated_nms"].setdefault("launches_by_path", {})[f"{family}_predict"] = sum(
+        c["rotated_nms"] for c in per_call)
+    kernels["rotated_nms"]["launches"] += sum(c["rotated_nms"] for c in per_call)
+    for out in outs:
+        check_rotated_outputs(out, reqs[0]["image"].shape[0], proposals)
+    counts = [o["valid"].sum(1).tolist() for o in outs]
+    log(f"{family} predict: keep_valid counts an image {counts}")
+    if sum(map(sum, counts)) <= 0:
+        raise AssertionError(f"{family}: no valid detections")
+    ms = cuda_ms(lambda: model.predict(reqs[0]), 3)
+    log(f"time {family} predict ({smi}): B=8 {reqs[0]['image'].shape[1:3]} fused "
+        f"{ms:.2f} ms, {8e3 / ms:.2f} img/s")
+    return outs
+
+
+def phase_rotated_retinanet(kernels, dev, smi):
+    """RotatedRetinaNet R-50-FPN (the rotated yaml, nothing cut, bf16, flags
+    on and off, seeded, FrozenBN away from identity) at both loader buckets:
+    head outputs against fp32; the IoU kernel at the train step's shape (100
+    padded gt x 708,939 anchors) and the NMS kernel on the model's own 5,000
+    class-offset candidates (B=8, 100 slots), each against its plain
+    version; 3 predict calls of B=8 a bucket with exactly 1 stem, 13
+    bottleneck and 1 rotated NMS launch each; fused against unfused
+    detections class by class (``comparable_retinanet``, ``match_detections``)."""
+    from slenderobjdet_torch.ops.rotated import offset_boxes
+
+    models = list(build_models(dev, ROTATED_RETINANET_YAML, RETINANET_CLS_BIAS))
+    model, plain, ref32 = models
+    reqs = {hw: requests(3, 8, seed=31 + i, hw=hw) for i, hw in enumerate(ROTATED_HW)}
+    check_heads("rotated_retinanet", ("logits", "deltas"), reqs[ROTATED_HW[0]][0], dev,
+                model, plain, ref32)
+    del ref32, models[2]
+    torch.cuda.empty_cache()
+    hw = ROTATED_HW[0]
+    with torch.inference_mode():
+        top = model(torch.as_tensor(reqs[hw][0]["image"], device=dev))[0][-1].flatten()
+        shift = RETINANET_CLS_BIAS - float(torch.kthvalue(top, int(0.995 * top.numel())).values)
+        for m in (model, plain):
+            classifier(m).bias.add_(shift)
+        del top
+        for i, h in enumerate(ROTATED_HW):
+            images = torch.as_tensor(reqs[h][0]["image"], device=dev)
+            boxes, scores, classes, valid = model.candidates(*model(images), h)
+            if tuple(boxes.shape) != (8, 5000, 5):
+                raise AssertionError(f"rotated RetinaNet candidates {tuple(boxes.shape)}")
+            e = rotated_nms_check(kernels, smi, "rotated_retinanet", f"predict_B8_{h[0]}x{h[1]}",
+                                  offset_boxes(boxes, classes), scores, valid,
+                                  model.nms_thresh, model.max_dets)
+            if i == 0:
+                kernels["rotated_nms"].update(
+                    {k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms", "max_abs_err")})
+            del images, boxes, scores, classes, valid
+        anchors, _ = model.anchors(hw)
+        if anchors.shape[0] != 708939:
+            raise AssertionError(f"{anchors.shape[0]} rotated anchors at {hw}")
+        gt = torch.as_tensor(rotated_train_batch(1, 33, hw)["gt_rboxes"][0], device=dev)
+        e = rotated_iou_check(kernels, smi, "rotated_retinanet", gt, anchors,
+                              model.iou_thresholds, model.iou_labels, "train_100x708939")
+        kernels["rotated_iou"].update({k: e[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                         "bound_by", "library_ms",
+                                                         "max_abs_err")})
+    torch.cuda.empty_cache()
+    comparable_retinanet(torch.Generator().manual_seed(34), model, plain)
+    matched = same_box = total = 0
+    diffs = []
+    for h in ROTATED_HW:
+        outs = rotated_predict_calls(kernels, smi, f"rotated_retinanet_{h[0]}x{h[1]}", model,
+                                     plain, reqs[h], ROTATED_RETINANET_PREDICT)
+        for r, out in zip(reqs[h], outs):
+            ref = plain.predict(r)
+            check_rotated_outputs(ref, 8)
+            m, sb, t, d = match_detections(out, ref, 8)
+            matched, same_box, total, diffs = matched + m, same_box + sb, total + t, diffs + d
+    share = matched / max(total, 1)
+    log(f"rotated_retinanet fused vs unfused detections: {matched}/{total} slots matched by "
+        f"class with score diff <= {SCORE_TOL} ({same_box} with the same box); score diff "
+        f"median {np.median(diffs):.3e}, max {np.max(diffs):.3e}")
+    if share < MATCH_MIN:
+        raise AssertionError(f"rotated_retinanet fused vs unfused: {share:.4f} matched")
+
+
+def rotated_train_steps(kernels, dev, smi, family, yaml, lr, seed, step_launches,
+                        unfused_launches, part_keys, randomize):
+    """The train step at full width entered as a trainer does: 11 steps on
+    one batch of 16 images at 896 x 1408 with 100 padded rotated gt, then 4
+    more a model, flags on and off in turns, each step launching exactly
+    ``step_launches`` (flags off: ``unfused_launches``); WARMUP_ITERS 0."""
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.solver import build_optimizer
+
+    gen = torch.Generator().manual_seed(seed)
+    steps, weights = {}, None
+    for key in ("fused", "unfused"):
+        cfg = train_cfg(key == "fused", yaml=yaml)
+        cfg.defrost()
+        cfg.SOLVER.BASE_LR = lr
+        cfg.freeze()
+        m = build_model(cfg, device=dev, generator=gen)
+        if weights is None:
+            randomize(m, gen)
+            weights = {k: v.clone() for k, v in m.state_dict().items()}
+        else:
+            m.load_state_dict(weights)
+        steps[key] = make_train_step(m, build_optimizer(cfg, m), cfg)
+    del weights
+    batch = rotated_train_batch(16, seed + 1, ROTATED_HW[0])
+    rates = {}
+    peaks = train_turns(family, steps, batch, part_keys, rates,
+                        launches={"fused": step_launches, "unfused": unfused_launches})
+    steps_a_model = TRAIN_STEPS + 1 + 4
+    for k in ROTATED_KERNELS:
+        if k in step_launches:
+            kernels[k].setdefault("launches_by_path", {})[f"{family}_train_step"] = \
+                step_launches[k]
+            # train_turns held every step of both models to its exact counts
+            kernels[k]["launches"] += steps_a_model * (step_launches[k]
+                                                      + unfused_launches.get(k, 0))
+    h, w = ROTATED_HW[0]
+    log(f"time {family} train ({smi}): B=16 {h}x{w}, 100 padded gt: fused "
+        f"{rates['fused']:.2f} img/s, peak {peaks['fused']:.2f} GiB; unfused "
+        f"{rates['unfused']:.2f} img/s, peak {peaks['unfused']:.2f} GiB")
+
+
+def phase_rotated_retinanet_train(kernels, dev, smi):
+    """The RotatedRetinaNet train step: 1 stem, 13 bottleneck and 16 rotated
+    IoU launches (one an image) a fused step, BASE_LR ROTATED_RETINANET_TRAIN_LR."""
+    rotated_train_steps(kernels, dev, smi, "rotated_retinanet", ROTATED_RETINANET_YAML,
+                        ROTATED_RETINANET_TRAIN_LR, 35, ROTATED_RETINANET_STEP, {"rotated_iou": 16},
+                        ("loss_cls", "loss_box_reg", "num_pos"), randomize_frozen_bn)
+
+
+def phase_rotated_retinanet_trainer(kernels, dev, smi):
+    """``train_net_torch.main`` on the rotated RetinaNet YAML over an rcoco
+    dataset (``family_trainer``; SCORE_THRESH_TEST 0 so that the random
+    model's detections reach the rotated evaluator)."""
+    family_trainer(kernels, smi, "rotated_retinanet", ROTATED_RETINANET_YAML, 36,
+                   ROTATED_RETINANET_STEP, predict_nms=1, rotated=True,
+                   overrides={"MODEL.RETINANET.SCORE_THRESH_TEST": 0.0})
+
+
+def build_rotated_rcnn_models(dev):
+    """The rotated Faster R-CNN fused in bf16 and the same weights unfused
+    in bf16 and in fp32 (``randomize_rcnn``)."""
+    from slenderobjdet_torch.models import build_model
+
+    gen = torch.Generator().manual_seed(37)
+    model = build_model(flagship_cfg(True, yaml=ROTATED_RCNN_YAML), device=dev, generator=gen)
+    randomize_rcnn(model, gen)
+    models = [model]
+    for dtype in ("bfloat16", "float32"):
+        m = build_model(flagship_cfg(False, dtype, yaml=ROTATED_RCNN_YAML), device=dev)
+        m.load_state_dict(model.state_dict())
+        models.append(m)
+    return models
+
+
+def comparable_rotated_rcnn(*models):
+    """``comparable_rcnn`` for 5-delta boxes: the bbox_pred filters 0 and
+    its bias (0, 0, -60, -60, 0) a class, so every detection is its
+    proposal shrunk to a point at its centre."""
+    with torch.no_grad():
+        for m in models:
+            pred = m.roi_box.outputs.bbox_pred
+            pred.weight.zero_()
+            pred.bias.copy_(torch.tensor([0.0, 0.0, -60.0, -60.0, 0.0]).repeat(
+                pred.bias.numel() // 5))
+
+
+def phase_rotated_rcnn(kernels, dev, smi):
+    """The rotated Faster R-CNN R-50-FPN (RRPN + RROIHeads, nothing cut, bf16,
+    flags on and off) at both buckets: RPN outputs and ROI features against
+    fp32; the IoU kernel at the RRPN's train shape (100 x 945,252) and the
+    ROI sampling's (100 x 1,100); the NMS kernel on the RRPN's own level-
+    offset candidates at predict (B=8, 5,000 -> 1,000) and train (B=16,
+    10,000 -> 1,000) and on the box head's class-offset candidates (B=8,
+    1,000 -> 100); 3 predict calls of B=8 a bucket with exactly 1 stem, 13
+    bottleneck and 2 rotated NMS launches; fused against unfused detections
+    on shared proposals."""
+    from slenderobjdet_torch.ops.rotated import offset_boxes
+
+    models = build_rotated_rcnn_models(dev)
+    model, plain, ref32 = models
+    reqs = {hw: requests(3, 8, seed=38 + i, hw=hw) for i, hw in enumerate(ROTATED_HW)}
+    check_heads("rotated_rcnn", ("rpn logits", "rpn deltas", "roi features"),
+                reqs[ROTATED_HW[0]][0], dev, model, plain, ref32)
+    models.pop()
+    del ref32
+    torch.cuda.empty_cache()
+    rpn, roi = model.rpn, model.roi_heads
+    hw = ROTATED_HW[0]
+    anchors, counts = model.rpn_anchors(hw)
+    if anchors.shape[0] != 945252:
+        raise AssertionError(f"{anchors.shape[0]} RRPN anchors at {hw}")
+
+    def rpn_outputs(images):
+        logits_l, deltas_l, feats = model(torch.as_tensor(images, device=dev))
+        sizes = torch.tensor([hw] * images.shape[0], device=dev)
+        return torch.cat(logits_l, 1), torch.cat(deltas_l, 1), feats, sizes
+
+    with torch.inference_mode():
+        for key, images, train in (
+                ("rrpn_predict_B8", reqs[hw][0]["image"], False),
+                ("rrpn_train_B16", rotated_train_batch(16, 40, hw)["image"], True)):
+            logits, deltas, _, sizes = rpn_outputs(images)
+            boxes, scores, ok, _, levels = rpn.candidates(anchors, counts, logits, deltas,
+                                                          sizes, train)
+            rotated_nms_check(kernels, smi, "rotated_rcnn", key, offset_boxes(boxes, levels),
+                              scores, ok, rpn.nms_thresh, rpn.post_nms_topk[train])
+            del logits, deltas, boxes, scores, ok, levels
+        torch.cuda.empty_cache()
+        gt = torch.as_tensor(rotated_train_batch(1, 41, hw)["gt_rboxes"][0], device=dev)
+        rotated_iou_check(kernels, smi, "rotated_rcnn", gt, anchors, rpn.iou_thresholds,
+                          rpn.iou_labels, "rrpn_train_100x945252")
+        logits, deltas, feats, sizes = rpn_outputs(reqs[hw][0]["image"])
+        props, _, prop_valid = rpn.proposals(anchors, counts, logits, deltas, sizes, train=False)
+        rotated_iou_check(kernels, smi, "rotated_rcnn", gt, torch.cat([props[0], gt]),
+                          roi.iou_thresholds, roi.iou_labels, "roi_sampling_100x1100",
+                          low_quality=False)
+        shape_rcnn_classifier(models, feats, props, prop_valid)
+        boxes, scores, classes, valid, _ = roi.candidates(model.roi_box, feats, props, prop_valid)
+        rotated_nms_check(kernels, smi, "rotated_rcnn", "box_head_B8",
+                          offset_boxes(boxes, classes), scores, valid, roi.nms_thresh,
+                          roi.max_dets)
+        del logits, deltas, feats, props, boxes, scores, classes, valid
+    torch.cuda.empty_cache()
+
+    comparable_rotated_rcnn(model, plain)
+    matched = swapped = total = 0
+    for h in ROTATED_HW:
+        outs = rotated_predict_calls(kernels, smi, f"rotated_rcnn_{h[0]}x{h[1]}", model, plain,
+                                     reqs[h], ROTATED_RCNN_PREDICT,
+                                     proposals=rpn.post_nms_topk[False])
+        for r, out in zip(reqs[h], outs):
+            with torch.inference_mode():
+                _, _, feats = plain(torch.as_tensor(r["image"], device=dev))
+                scale = torch.as_tensor(r["scale"], device=dev)
+                ref = roi.inference(plain.roi_box, feats, out["proposals"],
+                                    out["proposal_valid"], scale,
+                                    torch.as_tensor(r["orig_size"], device=dev))
+                ref_cands = roi.candidates(plain.roi_box, feats, out["proposals"],
+                                           out["proposal_valid"])
+            m, e, t, _, _ = match_on_shared_proposals(out, ref, ref_cands, 8, roi.score_thresh)
+            matched, swapped, total = matched + m, swapped + e, total + t
+            del feats
+    share = (matched + swapped) / max(total, 1)
+    log(f"rotated_rcnn fused vs unfused on shared proposals: {matched}/{total} slots matched "
+        f"by (class, box), {swapped} swapped at the cut: {share:.4f}")
+    if share < MATCH_MIN:
+        raise AssertionError(f"rotated_rcnn fused vs unfused: {share:.4f} of slots matched")
+
+
+def phase_rotated_rcnn_train(kernels, dev, smi):
+    """The rotated Faster R-CNN train step: 1 stem, 13 bottleneck, 32 rotated
+    IoU (16 RRPN matches, 16 proposal samplings) and 1 rotated NMS launch a
+    fused step, BASE_LR RCNN_TRAIN_LR."""
+    rotated_train_steps(kernels, dev, smi, "rotated_rcnn", ROTATED_RCNN_YAML, RCNN_TRAIN_LR, 42,
+                        ROTATED_RCNN_STEP, {"rotated_iou": 32, "rotated_nms": 1},
+                        ("loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg", "num_fg"),
+                        randomize_rcnn)
+
+
+def phase_rotated_rcnn_trainer(kernels, dev, smi):
+    """``train_net_torch.main`` on the rotated Faster R-CNN YAML over an
+    rcoco dataset. SCORE_THRESH_TEST -1 makes every one of the top 1000
+    (proposal, class) pairs a candidate: the random box head's logits are
+    so far apart that in fp32 the background's softmax is 1 and every
+    class's 0, which no threshold of 0 or above passes."""
+    family_trainer(kernels, smi, "rotated_rcnn", ROTATED_RCNN_YAML, 43, ROTATED_RCNN_STEP,
+                   predict_nms=2, rotated=True,
+                   overrides={"MODEL.ROI_HEADS.SCORE_THRESH_TEST": -1.0})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -4459,6 +4934,11 @@ def main() -> int:
                               "replaces": "tools/dma_streams_probe.py:28"},
         "bw_probe": {"name": "bw_probe", "route": "cuda", "source": f"{src}/bw_probe.cu",
                      "replaces": "tools/pallas_bw_probe.py:37"},
+        # no Pallas kernel: these replace the JAX package's XLA compositions
+        "rotated_iou": {"name": "rotated_iou", "route": "cuda", "source": f"{src}/rotated.cu",
+                        "replaces": "slenderobjdet_tpu/ops/rotated.py:114", "launches": 0},
+        "rotated_nms": {"name": "rotated_nms", "route": "cuda", "source": f"{src}/rotated.cu",
+                        "replaces": "slenderobjdet_tpu/ops/rotated.py:128", "launches": 0},
     }
     failed = []
     only = tuple(sys.argv[1:])      # name prefixes: a partial run, for development
@@ -4548,6 +5028,18 @@ def main() -> int:
     run("syncbn", phase_syncbn, kernels, dev, smi)
     torch.cuda.empty_cache()
     run("fcosv3", phase_fcosv3, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("rotated_retinanet", phase_rotated_retinanet, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("rotated_retinanet_train", phase_rotated_retinanet_train, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("rotated_retinanet_trainer", phase_rotated_retinanet_trainer, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("rotated_rcnn", phase_rotated_rcnn, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("rotated_rcnn_train", phase_rotated_rcnn_train, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("rotated_rcnn_trainer", phase_rotated_rcnn_trainer, kernels, dev, smi)
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

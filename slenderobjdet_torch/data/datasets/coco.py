@@ -10,9 +10,8 @@ absent, the builtin names stay registered and raise a clear error on first
 use (tests register synthetic datasets through the same API).
 
 A copy of ``slenderobjdet_tpu/data/datasets/coco.py`` on the port's own
-catalogs; Objects365 is ``objects365.py`` beside it. The rotated-box views of
-the builtin jsons (``rotated_coco.py``) are not ported yet: they come with
-the rotated detectors, and their names are not registered here.
+catalogs; Objects365 is ``objects365.py`` beside it, and the rotated-box
+views of the builtin jsons (``rcoco_2017_{train,val}``) ``rotated_coco.py``.
 """
 
 from __future__ import annotations

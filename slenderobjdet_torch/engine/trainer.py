@@ -16,9 +16,10 @@ from the same file, and ``test`` evaluates each rank's strided share of the
 test set and returns the results on rank 0 (``{}`` elsewhere), as the JAX
 trainer does across processes. ``TEST.PRECISE_BN`` recomputes a trainable
 BatchNorm's running statistics before the evaluation, as the JAX trainer
-does (``models/layers.py:precise_bn_stats``). Not ported, each raising
-NotImplementedError where it is asked for: test-time augmentation
-(``TEST.AUG.ENABLED``) and the rotated-box evaluator.
+does (``models/layers.py:precise_bn_stats``). A dataset of evaluator_type
+"rcoco" is evaluated by ``RotatedCOCOEvaluator``, any other by
+``COCOEvaluator``. Not ported, raising NotImplementedError where it is asked
+for: test-time augmentation (``TEST.AUG.ENABLED``).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from ..checkpoint.checkpointer import DetectionCheckpointer
 from ..data import build_detection_test_loader, build_detection_train_loader
 from ..data.catalog import MetadataCatalog
 from ..evaluation import COCOEvaluator, inference_on_dataset
+from ..evaluation.rotated_evaluation import RotatedCOCOEvaluator
 from ..models import build_model
 from ..models.layers import has_batch_stats, precise_bn_stats
 from ..parallel.multihost import (is_main_process, mean_over_processes, process_count,
@@ -194,13 +196,8 @@ class BaseTrainer:
             evaluator_type = MetadataCatalog.get(dataset_name).get(
                 "evaluator_type", "coco"
             )
-            if evaluator_type == "rcoco":
-                raise NotImplementedError(
-                    "the rotated-box evaluator (evaluator_type 'rcoco') is "
-                    "not ported: it comes with the rotated detectors")
-            evaluator = COCOEvaluator(
-                dataset_name, cfg, output_dir=cfg.OUTPUT_DIR
-            )
+            evaluator = (RotatedCOCOEvaluator if evaluator_type == "rcoco"
+                         else COCOEvaluator)(dataset_name, cfg, output_dir=cfg.OUTPUT_DIR)
             loader = build_detection_test_loader(cfg, dataset_name,
                                                  batch_size=8)
             results = inference_on_dataset(predict_fn, loader, evaluator)

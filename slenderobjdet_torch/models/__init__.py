@@ -17,6 +17,7 @@ from .meta_arch.hybrids import (FCOSNCRetinaNet, FCOSRepPoints, FCOSRetinaNet,
                                 ReppointsRetinaNet, RepPointsV2)
 from .meta_arch.rcnn import ProposalVisibleRCNN
 from .meta_arch.reppoints import RepPointsDetector
+from .meta_arch.retina_rotated import RotatedRetinaNet
 from .meta_arch.retinanet import (CenternessRetinaNet, DeformableConvRetinaNet,
                                   NearestRetinaNet, RetinaNet)
 from .proposal_generator.ppg import PointsProposalGenerator
@@ -59,8 +60,7 @@ def _proposal_network(cfg) -> nn.Module:
 # line, so the three names share one class, as in the JAX package; so do
 # GeneralizedRCNN and ProposalVisibleRCNN. AblationMetaArch picks its head
 # (LRTBHead, LRTBTopkHead, PointSetHead, AnchorHead) by
-# MODEL.META_ARCH.NAME. Not ported yet: RotatedRetinaNet and CornerNet
-# (ROADMAP.md queue 1).
+# MODEL.META_ARCH.NAME. Not ported yet: CornerNet (ROADMAP.md queue 1).
 META_ARCHS = {
     "FCOS": FCOS,
     "FCOSV2": FCOS,
@@ -77,6 +77,7 @@ META_ARCHS = {
     "NearestRetinaNet": NearestRetinaNet,
     "PointRetinaNet": PointRetinaNet,
     "DeformableConvRetinaNet": DeformableConvRetinaNet,
+    "RotatedRetinaNet": RotatedRetinaNet,
     "ProposalVisibleRCNN": ProposalVisibleRCNN,
     "GeneralizedRCNN": ProposalVisibleRCNN,
     "ProposalVisibleRCNNWithAnchor": _rcnn_with_anchor,

@@ -2,8 +2,10 @@
 own copy of ``slenderobjdet_tpu/models/anchors.py``, held equal to it bit for
 bit by ``tests/test_torch_retinanet.py``). Anchors follow detectron2's
 DefaultAnchorGenerator: per-level sizes x aspect ratios, a cell's anchors
-centred at 0 and shifted by ``(arange + OFFSET) * stride``. The rotated
-generator comes with the rotated detectors."""
+centred at 0 and shifted by ``(arange + OFFSET) * stride``; the rotated
+generator (``RotatedAnchorGeneratorSpec``, detectron2's
+RotatedAnchorGenerator) gives XYWHA anchors of SIZES x ASPECT_RATIOS x
+ANGLES a cell."""
 
 from __future__ import annotations
 
@@ -63,6 +65,64 @@ def anchors_per_level(
     sx, sy = np.meshgrid(shift_x, shift_y)
     shifts = np.stack([sx.reshape(-1), sy.reshape(-1)] * 2, axis=1)  # (hw, 4) x,y,x,y
     return (shifts[:, None, :] + cell_anchors[None, :, :]).reshape(-1, 4)
+
+
+def rotated_cell_anchors(
+    sizes: Sequence[float], aspect_ratios: Sequence[float],
+    angles: Sequence[float],
+) -> np.ndarray:
+    """(S*R*A, 5) XYWHA cell anchors centred at the origin: size-major, then
+    ratio, then angle."""
+    out = []
+    for size in sizes:
+        area = size ** 2.0
+        for ar in aspect_ratios:
+            w = math.sqrt(area / ar)
+            h = ar * w
+            for a in angles:
+                out.append([0.0, 0.0, w, h, a])
+    return np.array(out, np.float32)
+
+
+class RotatedAnchorGeneratorSpec:
+    """SIZES, ASPECT_RATIOS and ANGLES broadcast over the levels, anchors at
+    ``(grid + OFFSET) * stride`` in XYWHA; shared by the rotated RetinaNet
+    and the RRPN."""
+
+    def __init__(self, cfg, strides: Sequence[int]):
+        g = cfg.MODEL.ANCHOR_GENERATOR
+        sizes, ratios, angles = g.SIZES, g.ASPECT_RATIOS, g.ANGLES
+        n = len(strides)
+        sizes = list(sizes) * n if len(sizes) == 1 else sizes
+        ratios = list(ratios) * n if len(ratios) == 1 else ratios
+        angles = list(angles) * n if len(angles) == 1 else angles
+        self.strides = list(strides)
+        self.offset = g.OFFSET
+        self.cell_anchors = [
+            rotated_cell_anchors(s, r, a)
+            for s, r, a in zip(sizes, ratios, angles)
+        ]
+        self.num_cell_anchors = [c.shape[0] for c in self.cell_anchors]
+
+    def anchors(self, image_hw) -> Tuple[np.ndarray, List[int]]:
+        """((sum hwA, 5), [count per level]) for a padded image size, cell
+        by cell in row-major order, a cell's anchors in cell order."""
+        shapes = feature_map_shapes(image_hw, self.strides)
+        per_level = []
+        for (h, w), s, ca in zip(shapes, self.strides, self.cell_anchors):
+            sx = (np.arange(w, dtype=np.float32) + self.offset) * s
+            sy = (np.arange(h, dtype=np.float32) + self.offset) * s
+            gx, gy = np.meshgrid(sx, sy)
+            shifts = np.stack(
+                [gx.reshape(-1), gy.reshape(-1)]
+                + [np.zeros(h * w, np.float32)] * 3,
+                axis=1,
+            )
+            per_level.append(
+                (shifts[:, None, :] + ca[None, :, :]).reshape(-1, 5)
+            )
+        counts = [a.shape[0] for a in per_level]
+        return np.concatenate(per_level), counts
 
 
 class AnchorGeneratorSpec:

@@ -14,7 +14,12 @@ without it, the padded size.
 
 ``with_anchor`` is ProposalVisibleRCNNWithAnchor: each proposal keeps its
 source anchor and each detection its (proposal, anchor) pair. The rotated
-two-stage detectors (RRPN, RROIHeads) and ``TPU.INT8_PREDICT`` raise.
+two-stage detector (PROPOSAL_GENERATOR "RRPN" or ROI_HEADS "RROIHeads",
+the reference's ``configs/rotated/Base-RRCNN-FPN.yaml``) swaps in the XYWHA
+machinery wholesale: ``RotatedRPN`` with a 5-delta RPN head,
+``RotatedROIHeads``, ``gt_rboxes`` as the ground truth and XYWHA
+detections and proposals (cx, cy, w, h over the scale, the angle as it
+is). ``TPU.INT8_PREDICT`` raises.
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ from torch import nn
 from ..backbones.fpn import build_backbone
 from ..layers import init_detector_weights, uses_batch_statistics
 from ..proposal_generator.rpn import RPN, StandardRPNHead
+from ..proposal_generator.rrpn import RotatedRPN
 from ..roi_heads.roi_heads import StandardROIHeads
+from ..roi_heads.rotated import RotatedROIHeads
 
 
 class RCNNModule(nn.Module):
@@ -63,11 +70,6 @@ class ProposalVisibleRCNN(RCNNModule):
     ``anchors``)."""
 
     def __init__(self, cfg, with_anchor: bool = False):
-        if (cfg.MODEL.PROPOSAL_GENERATOR.NAME == "RRPN"
-                or cfg.MODEL.ROI_HEADS.NAME == "RROIHeads"):
-            raise NotImplementedError(
-                "the rotated two-stage detector (RRPN, RROIHeads) is not ported: "
-                "it comes with the rotated boxes (ROADMAP.md queue 1, item 10)")
         if cfg.TPU.INT8_PREDICT:
             raise NotImplementedError("TPU.INT8_PREDICT is not ported")
         dtype = (torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16"
@@ -75,17 +77,22 @@ class ProposalVisibleRCNN(RCNNModule):
         backbone = build_backbone(cfg)
         rpn_in = list(cfg.MODEL.RPN.IN_FEATURES)
         roi_in = list(cfg.MODEL.ROI_HEADS.IN_FEATURES)
-        rpn = RPN(cfg, [backbone.strides[f] for f in rpn_in])
-        roi_heads = StandardROIHeads(cfg, [backbone.strides[f] for f in roi_in])
+        rotated = (cfg.MODEL.PROPOSAL_GENERATOR.NAME == "RRPN"
+                   or cfg.MODEL.ROI_HEADS.NAME == "RROIHeads")
+        rpn = (RotatedRPN if rotated else RPN)(cfg, [backbone.strides[f] for f in rpn_in])
+        roi_heads = (RotatedROIHeads if rotated else StandardROIHeads)(
+            cfg, [backbone.strides[f] for f in roi_in])
         channels = cfg.MODEL.FPN.OUT_CHANNELS
-        super().__init__(backbone, StandardRPNHead(channels, rpn.num_cell_anchors),
+        super().__init__(backbone, StandardRPNHead(channels, rpn.num_cell_anchors,
+                                                   box_dim=5 if rotated else 4),
                          rpn_in, roi_in, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
                          dtype)
         self.roi_box = roi_heads.build_module(channels, dtype)
         self.rpn = rpn
         self.roi_heads = roi_heads
-        self.with_anchor = (with_anchor
-                            or cfg.MODEL.PROPOSAL_GENERATOR.NAME == "RPNWithAnchor")
+        self.rotated = rotated
+        self.with_anchor = not rotated and (
+            with_anchor or cfg.MODEL.PROPOSAL_GENERATOR.NAME == "RPNWithAnchor")
         self.max_dets = cfg.TEST.DETECTIONS_PER_IMAGE
         self._anchors = {}
 
@@ -112,8 +119,9 @@ class ProposalVisibleRCNN(RCNNModule):
                 layer.bias.zero_()
 
     def rpn_anchors(self, image_hw) -> Tuple[torch.Tensor, list]:
-        """The RPN's anchors (N, 4) on the model's device and the per-level
-        counts, for a padded image shape (kept for the shapes seen)."""
+        """The RPN's anchors (N, 4), or (N, 5) rotated, on the model's
+        device and the per-level counts, for a padded image shape (kept for
+        the shapes seen)."""
         dev = self.pixel_mean.device
         key = (tuple(int(v) for v in image_hw), str(dev))
         if key not in self._anchors:
@@ -130,17 +138,19 @@ class ProposalVisibleRCNN(RCNNModule):
     # --------------------------------------------------------------- loss
     @uses_batch_statistics
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch: {"image": uint8 (B, H, W, 3), "gt_boxes": (B, G, 4),
-        "gt_classes": (B, G), "gt_valid": (B, G)} as numpy arrays or tensors,
-        and optionally "image_size" (B, 2) and "generator" (seed 0 when
-        absent). Returns the total and {"loss_rpn_cls", "loss_rpn_loc",
-        "loss_cls", "loss_box_reg", "num_fg"}."""
+        """batch: {"image": uint8 (B, H, W, 3), "gt_boxes": (B, G, 4) (the
+        rotated detector: "gt_rboxes" (B, G, 5)), "gt_classes": (B, G),
+        "gt_valid": (B, G)} as numpy arrays or tensors, and optionally
+        "image_size" (B, 2) and "generator" (seed 0 when absent). Returns the
+        total and {"loss_rpn_cls", "loss_rpn_loc", "loss_cls", "loss_box_reg",
+        "num_fg"}."""
         dev = self.pixel_mean.device
         images = torch.as_tensor(batch["image"], device=dev)
         generator = batch.get("generator")
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        gt_boxes = torch.as_tensor(batch["gt_boxes"], dtype=torch.float32, device=dev)
+        gt_boxes = torch.as_tensor(batch["gt_rboxes" if self.rotated else "gt_boxes"],
+                                   dtype=torch.float32, device=dev)
         gt_classes = torch.as_tensor(batch["gt_classes"], device=dev)
         gt_valid = torch.as_tensor(batch["gt_valid"], dtype=torch.bool, device=dev)
 
@@ -183,7 +193,8 @@ class ProposalVisibleRCNN(RCNNModule):
             self.roi_box, roi_feats, proposals, prop_valid, scale,
             torch.as_tensor(batch["orig_size"], device=dev), prop_anchors=prop_anchors)
         scale = scale.float()[:, None, None]
-        out["proposals"] = proposals / scale
+        out["proposals"] = (torch.cat([proposals[..., :4] / scale, proposals[..., 4:]], -1)
+                            if self.rotated else proposals / scale)
         out["proposal_scores"] = prop_scores
         out["proposal_valid"] = prop_valid
         if prop_anchors is not None:

@@ -41,16 +41,17 @@ from .reppoints import rep_points_assign_with_idx
 
 class RetinaNetHead(nn.Module):
     """Shared 4-conv cls/bbox subnets without norms, ``num_anchors`` anchors a
-    cell; ``use_dcn`` makes each subnet conv a modulated ``DFConv2d``
-    (DeformableConvRetinaNet)."""
+    cell, ``box_dim`` deltas an anchor; ``use_dcn`` makes each subnet conv a
+    modulated ``DFConv2d`` (DeformableConvRetinaNet)."""
 
     def __init__(self, in_channels: int, num_classes: int, num_anchors: int,
                  num_convs: int = 4, prior_prob: float = 0.01,
-                 use_dcn: bool = False):
+                 use_dcn: bool = False, box_dim: int = 4):
         super().__init__()
         c = in_channels
         self.num_classes = num_classes
         self.num_anchors = num_anchors
+        self.box_dim = box_dim
         self.num_convs = num_convs
         self.prior_prob = prior_prob
         for prefix in ("cls", "bbox"):
@@ -59,7 +60,7 @@ class RetinaNetHead(nn.Module):
                                 DFConv2d(c, c, modulated=True) if use_dcn
                                 else Conv2d(c, c, 3, padding=1))
         self.cls_score = Conv2d(c, num_anchors * num_classes, 3, padding=1)
-        self.bbox_pred = Conv2d(c, num_anchors * 4, 3, padding=1)
+        self.bbox_pred = Conv2d(c, num_anchors * box_dim, 3, padding=1)
 
     def _subnet(self, prefix, x):
         for i in range(self.num_convs):
@@ -68,7 +69,7 @@ class RetinaNetHead(nn.Module):
 
     def forward(self, feats: List[torch.Tensor]):
         """feats: list of (B, C, H_l, W_l). Returns per-level lists of
-        (B, H*W*A, num_classes) logits and (B, H*W*A, 4) deltas, float32,
+        (B, H*W*A, num_classes) logits and (B, H*W*A, box_dim) deltas, float32,
         rows cell by cell in row-major (h, w) order and anchor-minor within a
         cell, which is the order of ``anchors_per_level``."""
         logits, regs = [], []
@@ -79,7 +80,7 @@ class RetinaNetHead(nn.Module):
             rg = self.bbox_pred(self._subnet("bbox", x)).float()
             # NCHW -> (b, h, w, A*C) before the reshape
             logits.append(lg.permute(0, 2, 3, 1).reshape(b, n, self.num_classes))
-            regs.append(rg.permute(0, 2, 3, 1).reshape(b, n, 4))
+            regs.append(rg.permute(0, 2, 3, 1).reshape(b, n, self.box_dim))
         return logits, regs
 
 
@@ -109,13 +110,14 @@ class RetinaNetModule(nn.Module):
 
 
 def retinanet_label_anchors(anchors, gt_boxes, gt_classes, gt_valid,
-                            thresholds, labels, num_classes):
+                            thresholds, labels, num_classes, pairwise_fn=None):
     """One image's anchor labels by the IoU matcher with low-quality matches:
     (gt_labels (N,) int64, matched_boxes (N, 4)) with gt_labels in
-    [0, C-1] foreground, C background, -1 ignored."""
+    [0, C-1] foreground, C background, -1 ignored. ``pairwise_fn`` replaces
+    the box IoU (the rotated detector's)."""
     matched_idx, match_labels = iou_matcher(
         anchors, gt_boxes, gt_valid, thresholds, labels,
-        allow_low_quality_matches=True)
+        allow_low_quality_matches=True, pairwise_fn=pairwise_fn)
     matched_idx = matched_idx.long()
     out = torch.where(match_labels == 1, gt_classes.long()[matched_idx],
                       num_classes)

@@ -125,15 +125,21 @@ class RPN:
                                optax_sigmoid_ce(logits, sel_pos.float()),
                                0.0).sum() / normalizer
 
-        safe_boxes = torch.where(sel_pos[..., None], matched_boxes, anchors[None] + 1.0)
-        target_deltas = box_ops.get_deltas(anchors[None].expand_as(safe_boxes),
-                                           safe_boxes, weights=self.bbox_reg_weights)
+        target_deltas = self.target_deltas(anchors, matched_boxes, sel_pos)
         reg_loss = torch.where(
             sel_pos[..., None],
             smooth_l1_loss(deltas, target_deltas, self.smooth_l1_beta),
             0.0).sum() / normalizer
         return {"loss_rpn_cls": obj_loss * self.loss_weight,
                 "loss_rpn_loc": reg_loss * self.loss_weight}
+
+    def target_deltas(self, anchors, matched_boxes, sel_pos):
+        """The regression targets (B, N, 4); anchors that are not sampled
+        positives get a safe dummy target before the encoding (a where after
+        it leaks a NaN gradient)."""
+        safe_boxes = torch.where(sel_pos[..., None], matched_boxes, anchors[None] + 1.0)
+        return box_ops.get_deltas(anchors[None].expand_as(safe_boxes), safe_boxes,
+                                  weights=self.bbox_reg_weights)
 
     # ------------------------------------------------------------ proposals
     def candidates(self, anchors: torch.Tensor, counts: Sequence[int], logits,

@@ -97,19 +97,21 @@ def sample_proposals(
     append_gt: bool = True,
     generator: Optional[torch.Generator] = None,
     priorities: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    pairwise_fn=None,
 ):
     """detectron2's label_and_sample_proposals on one image, masked. Returns
     the sampled rows packed to the front: rois (S, 4), classes (S,) int32
     (num_classes = background), regression target boxes (S, 4) and row_valid
     (S,), S = min(num_samples, candidates). The subsampling priorities come
-    from ``generator`` or ``priorities`` (two (candidates,) tensors)."""
+    from ``generator`` or ``priorities`` (two (candidates,) tensors).
+    ``pairwise_fn`` replaces the box IoU (the rotated heads' (R, 5) boxes)."""
     if append_gt:
         proposals = torch.cat([proposals, gt_boxes], 0)
         prop_valid = torch.cat([prop_valid, gt_valid], 0)
 
     matched_idx, match_labels = iou_matcher(
         proposals, gt_boxes, gt_valid, iou_thresholds, iou_labels,
-        allow_low_quality_matches=False)
+        allow_low_quality_matches=False, pairwise_fn=pairwise_fn)
     pos = (match_labels == 1) & prop_valid
     neg = (match_labels == 0) & prop_valid
     sel_pos, sel_neg = subsample_labels(pos, neg, num_samples, positive_fraction,
@@ -131,6 +133,8 @@ def sample_proposals(
 
 class StandardROIHeads:
     """ROI box logic (the box module lives on the detector as ``roi_box``)."""
+
+    box_dim = 4
 
     def __init__(self, cfg, strides: Sequence[int]):
         h = cfg.MODEL.ROI_HEADS
@@ -158,7 +162,8 @@ class StandardROIHeads:
         P = self.pooler_resolution
         return ROIBoxModule(
             FastRCNNConvFCHead(P * P * in_channels, self.num_fc, self.fc_dim),
-            FastRCNNOutputLayers(self.fc_dim, self.num_classes, self.cls_agnostic),
+            FastRCNNOutputLayers(self.fc_dim, self.num_classes, self.cls_agnostic,
+                                 self.box_dim),
             dtype)
 
     def pool(self, feats, rois: torch.Tensor) -> torch.Tensor:
@@ -176,7 +181,7 @@ class StandardROIHeads:
         """feats: the ROI levels; proposals (B, R, 4) and prop_valid (B, R)
         without gradient; priorities, if given, one pair an image."""
         with torch.no_grad():
-            sampled = [sample_proposals(
+            sampled = [self.sample_proposals(
                 proposals[b], prop_valid[b], gt_boxes[b], gt_classes[b], gt_valid[b],
                 self.batch_size_per_image, self.positive_fraction,
                 self.iou_thresholds, self.iou_labels, self.num_classes,
@@ -197,20 +202,28 @@ class StandardROIHeads:
         ce = -torch.gather(logp, -1, classes.long()[..., None])[..., 0]
         cls_loss = torch.where(row_valid, ce, 0.0).sum() / valid_share
 
-        # the gt class's deltas; rows that are not foreground get a safe
-        # target before the loss (a where after it leaks a NaN gradient)
-        safe_targets = torch.where(fg[..., None], target_boxes, rois + 1.0)
-        tgt_deltas = box_ops.get_deltas(rois, safe_targets, weights=self.bbox_reg_weights)
+        # the gt class's deltas
+        tgt_deltas = self.target_deltas(rois, target_boxes, fg)
+        k = self.box_dim
         if self.cls_agnostic:
             sel_deltas = deltas
         else:
-            d = deltas.reshape(*deltas.shape[:-1], self.num_classes, 4)
+            d = deltas.reshape(*deltas.shape[:-1], self.num_classes, k)
             cls_idx = classes.long().clamp(0, self.num_classes - 1)
             sel_deltas = torch.gather(
-                d, -2, cls_idx[..., None, None].expand(*cls_idx.shape, 1, 4))[..., 0, :]
+                d, -2, cls_idx[..., None, None].expand(*cls_idx.shape, 1, k))[..., 0, :]
         reg = smooth_l1_loss(sel_deltas, tgt_deltas, self.smooth_l1_beta)
         reg_loss = torch.where(fg[..., None], reg, 0.0).sum() / valid_share
         return {"loss_cls": cls_loss, "loss_box_reg": reg_loss, "num_fg": num_fg}
+
+    sample_proposals = staticmethod(sample_proposals)
+
+    def target_deltas(self, rois, target_boxes, fg):
+        """The regression targets; rows that are not foreground get a safe
+        target before the encoding (a where after it leaks a NaN
+        gradient)."""
+        safe_targets = torch.where(fg[..., None], target_boxes, rois + 1.0)
+        return box_ops.get_deltas(rois, safe_targets, weights=self.bbox_reg_weights)
 
     # ------------------------------------------------------------ inference
     def candidates(self, module: ROIBoxModule, feats, proposals, prop_valid):

@@ -1,0 +1,288 @@
+"""Rotated-box geometry: exact IoU, greedy NMS and the delta transform
+(XYWHA), the counterpart of ``slenderobjdet_tpu/ops/rotated.py``.
+
+Boxes are (cx, cy, w, h, angle_deg), the angle counter-clockwise in image
+coordinates (y down): detectron2's RotatedBoxes convention.
+
+- ``rotated_to_corners``, ``_clip_polygon``, ``_polygon_area`` and
+  ``_pair_intersection_area``: the plain version of the intersection, the
+  JAX package's fixed 16-vertex buffers (the polygon of one box clipped by
+  the four half-planes of the other's edges, in its corner order, compacted
+  by a stable argsort and forward-filled), with the shoelace sum taken
+  vertex by vertex so that its rounding is one order everywhere.
+- ``plain_pairwise_rotated_iou`` and ``plain_rotated_nms``: the plain
+  versions of the IoU matrix and of greedy NMS (``max_out`` argmax steps,
+  ties to the lowest index, the ``NEG_INF / 2`` liveness test).
+- ``pairwise_rotated_iou`` and ``rotated_nms``: on CPU tensors the plain
+  versions; on CUDA tensors one launch of the kernels of ``csrc/rotated.cu``
+  (``launch_rotated_iou``, ``launch_rotated_nms``), which give the plain
+  versions' results bit for bit from the same corners and areas.
+- ``get_rotated_deltas`` / ``apply_rotated_deltas``: Box2BoxTransformRotated
+  (the angle difference floor-modded into [-180, 180)).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e10
+SLOTS = 16            # vertices a clipped polygon may hold
+PLAIN_CHUNK = 1 << 18  # pairs the plain IoU clips at once
+
+
+def rotated_to_corners(boxes: torch.Tensor) -> torch.Tensor:
+    """(..., 5) XYWHA -> (..., 4, 2) corners."""
+    cx, cy, w, h, a = boxes.unbind(-1)
+    theta = a * (math.pi / 180.0)
+    c, s = torch.cos(theta), torch.sin(theta)
+    dx = torch.stack([-w / 2, w / 2, w / 2, -w / 2], dim=-1)
+    dy = torch.stack([-h / 2, -h / 2, h / 2, h / 2], dim=-1)
+    gx = cx[..., None] + dx * c[..., None] + dy * s[..., None]
+    gy = cy[..., None] - dx * s[..., None] + dy * c[..., None]
+    return torch.stack([gx, gy], dim=-1)
+
+
+def _polygon_area(pts: torch.Tensor) -> torch.Tensor:
+    """Shoelace over forward-filled (..., SLOTS, 2) rings, summed slot by
+    slot in order (the repeated slots add exact zeros)."""
+    x, y = pts[..., 0], pts[..., 1]
+    terms = x * torch.roll(y, -1, dims=-1) - torch.roll(x, -1, dims=-1) * y
+    acc = terms[..., 0]
+    for k in range(1, terms.shape[-1]):
+        acc = acc + terms[..., k]
+    return 0.5 * acc.abs()
+
+
+def _clip_polygon(pts: torch.Tensor, count: torch.Tensor, e0: torch.Tensor,
+                  e1: torch.Tensor):
+    """Clip rings (P, SLOTS, 2) of ``count`` (P,) vertices by the half-plane
+    left of e0 -> e1 (P, 2). Returns the clipped rings, forward-filled, and
+    their counts: per vertex the vertex if inside (d >= 0), then the crossing
+    point where the edge to the next vertex changes side, the first SLOTS
+    kept."""
+    n = pts.shape[-2]
+    ex = e1[:, 0] - e0[:, 0]
+    ey = e1[:, 1] - e0[:, 1]
+    d = (ex[:, None] * (pts[..., 1] - e0[:, 1:2])
+         - ey[:, None] * (pts[..., 0] - e0[:, 0:1]))
+    idx = torch.arange(n, device=pts.device)
+    last = (count - 1)[:, None]
+    nxt = torch.where(idx[None] == last, 0, (idx[None] + 1) % n)        # (P, n)
+    d_next = torch.gather(d, 1, nxt)
+    pts_next = torch.gather(pts, 1, nxt[..., None].expand(-1, -1, 2))
+    inside, inside_next = d >= 0, d_next >= 0
+    in_ring = idx[None] < count[:, None]
+    diff = d - d_next
+    t = d / torch.where(diff.abs() < 1e-12, 1e-12, diff)
+    inter = pts + t[..., None] * (pts_next - pts)
+    out = torch.stack([pts, inter], dim=2).reshape(-1, 2 * n, 2)
+    emitted = torch.stack([in_ring & inside, in_ring & (inside != inside_next)],
+                          dim=2).reshape(-1, 2 * n)
+    order = torch.argsort((~emitted).to(torch.int8), dim=1, stable=True)[:, :n]
+    out = torch.gather(out, 1, order[..., None].expand(-1, -1, 2))
+    kept = torch.gather(emitted, 1, order)
+    fill = torch.where(kept, idx[None], 0).cummax(dim=1).values
+    out = torch.gather(out, 1, fill[..., None].expand(-1, -1, 2))
+    return out, kept.sum(dim=1)
+
+
+def _pair_intersection_area(c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
+    """Intersection areas of the polygons ``c1`` (..., 4, 2) clipped by the
+    boxes ``c2`` (..., 4, 2), broadcast over the leading dimensions."""
+    shape = torch.broadcast_shapes(c1.shape[:-2], c2.shape[:-2])
+    c1 = c1.expand(*shape, 4, 2).reshape(-1, 4, 2)
+    c2 = c2.expand(*shape, 4, 2).reshape(-1, 4, 2)
+    pts = torch.cat([c1, c1[:, 3:4].expand(-1, SLOTS - 4, 2)], dim=1)
+    count = torch.full((pts.shape[0],), 4, dtype=torch.int64, device=pts.device)
+    for i in range(4):
+        pts, count = _clip_polygon(pts, count, c2[:, i], c2[:, (i + 1) % 4])
+    area = torch.where(count >= 3, _polygon_area(pts), 0.0)
+    return area.reshape(shape)
+
+
+def plain_pairwise_rotated_iou(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                               chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+    """(N, 5), (M, 5) -> (N, M) exact IoU, each row's polygon clipped by
+    each column's box; the pairs clipped ``chunk`` at a time."""
+    c1, c2 = rotated_to_corners(boxes1), rotated_to_corners(boxes2)
+    a1 = boxes1[:, 2] * boxes1[:, 3]
+    a2 = boxes2[:, 2] * boxes2[:, 3]
+    n, m = boxes1.shape[0], boxes2.shape[0]
+    if n == 0 or m == 0:
+        return boxes1.new_zeros((n, m))
+    rows = max(1, chunk // m)
+    inter = torch.cat([_pair_intersection_area(c1[s:s + rows, None], c2[None])
+                       for s in range(0, n, rows)])
+    union = a1[:, None] + a2[None, :] - inter
+    return torch.where(union > 0, inter / torch.clamp(union, min=1e-12), 0.0)
+
+
+def plain_rotated_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+                      max_out: int, valid: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy rotated NMS over a batch: boxes (B, N, 5), scores (B, N), valid
+    (B, N) or None -> keep_idx (B, max_out) int32 (0 where invalid) and
+    keep_valid (B, max_out) bool. Each step keeps the argmax live score
+    (ties to the lowest index) while it is above NEG_INF / 2 and kills every
+    box whose IoU with it (its polygon clipped by the box) exceeds the
+    threshold."""
+    live = (torch.where(valid, scores, NEG_INF) if valid is not None
+            else scores.clone())
+    corners = rotated_to_corners(boxes)
+    areas = boxes[..., 2] * boxes[..., 3]
+    rows = torch.arange(boxes.shape[0], device=boxes.device)
+    keep_idx, keep_valid = [], []
+    for _ in range(max_out):
+        i = torch.argmax(live, dim=1)
+        ok = live[rows, i] > NEG_INF / 2
+        inter = _pair_intersection_area(corners[rows, i][:, None], corners)
+        iou = inter / torch.clamp(areas[rows, i][:, None] + areas - inter, min=1e-12)
+        live = torch.where(ok[:, None] & (iou > iou_threshold), NEG_INF, live)
+        live[rows, i] = NEG_INF
+        keep_idx.append(i)
+        keep_valid.append(ok)
+    keep_idx = torch.stack(keep_idx, dim=1).to(torch.int32)
+    keep_valid = torch.stack(keep_valid, dim=1)
+    return torch.where(keep_valid, keep_idx, 0), keep_valid
+
+
+def _corners_and_areas(boxes: torch.Tensor):
+    """The kernels' inputs, formed by the plain version's own operations:
+    (..., 8) float32 corners and (...,) areas."""
+    boxes = boxes.to(torch.float32)
+    corners = rotated_to_corners(boxes).reshape(*boxes.shape[:-1], 8).contiguous()
+    return corners, (boxes[..., 2] * boxes[..., 3]).contiguous()
+
+
+def launch_rotated_iou(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                       work: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the IoU kernel on CUDA tensors: (N, 5), (M, 5) -> (N, M)
+    float32. ``work``, a CUDA int64 tensor of one element, receives the fp32
+    operations the kernel took (counting slows it: leave it out when
+    timing)."""
+    _build.require_cuda("rotated_iou", boxes1, boxes2,
+                        *([] if work is None else [work]))
+    if boxes1.dim() != 2 or boxes2.dim() != 2 or boxes1.shape[1] != 5 \
+            or boxes2.shape[1] != 5:
+        raise ValueError(f"rotated_iou: boxes {tuple(boxes1.shape)} and "
+                         f"{tuple(boxes2.shape)}, expected (N, 5) and (M, 5)")
+    c1, a1 = _corners_and_areas(boxes1)
+    c2, a2 = _corners_and_areas(boxes2)
+    n, m = boxes1.shape[0], boxes2.shape[0]
+    out = torch.empty((n, m), dtype=torch.float32, device=boxes1.device)
+    if n == 0 or m == 0:
+        return out
+    rc = _build.library().rotated_iou_launch(
+        c1.data_ptr(), a1.data_ptr(), c2.data_ptr(), a2.data_ptr(), n, m, out.data_ptr(),
+        None if work is None else work.data_ptr(), _build.stream_ptr(boxes1))
+    _build.check(rc, "rotated_iou_launch")
+    _build.LAUNCHES["rotated_iou"] += 1
+    return out
+
+
+def launch_rotated_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+                       max_out: int, valid: Optional[torch.Tensor] = None,
+                       work: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the NMS kernel on CUDA tensors: boxes (B, N, 5), scores
+    (B, N), valid (B, N) bool or None -> keep_idx (B, max_out) int32, keep_valid
+    (B, max_out) bool, equal to ``plain_rotated_nms``. ``work`` as in
+    ``launch_rotated_iou``."""
+    given = [t for t in (boxes, scores, valid, work) if t is not None]
+    _build.require_cuda("rotated_nms", *given)
+    bsz, n = scores.shape
+    if boxes.shape != (bsz, n, 5) or n < 1 or max_out < 1 or (
+            valid is not None and (valid.shape != (bsz, n) or valid.dtype != torch.bool)):
+        raise ValueError(f"rotated_nms: boxes {tuple(boxes.shape)}, scores "
+                         f"{tuple(scores.shape)}, max_out {max_out}")
+    lib = _build.library()
+    if lib.rotated_nms_smem_bytes(n) > torch.cuda.get_device_properties(
+            boxes.device).shared_memory_per_block_optin:
+        raise ValueError(f"rotated_nms: N={n} candidates do not fit in shared memory "
+                         f"(at most 16384 an image)")
+    corners, areas = _corners_and_areas(boxes)
+    scores = scores.to(torch.float32).contiguous()
+    valid = None if valid is None else valid.contiguous()
+    keep_idx = torch.empty((bsz, max_out), dtype=torch.int32, device=boxes.device)
+    keep_valid = torch.empty((bsz, max_out), dtype=torch.bool, device=boxes.device)
+    rc = lib.rotated_nms_launch(
+        corners.data_ptr(), areas.data_ptr(), scores.data_ptr(),
+        None if valid is None else valid.data_ptr(), bsz, n,
+        ctypes.c_float(iou_threshold), max_out, keep_idx.data_ptr(), keep_valid.data_ptr(),
+        None if work is None else work.data_ptr(), _build.stream_ptr(boxes))
+    _build.check(rc, "rotated_nms_launch")
+    _build.LAUNCHES["rotated_nms"] += 1
+    return keep_idx, keep_valid
+
+
+def pairwise_rotated_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """(N, 5), (M, 5) -> (N, M) exact IoU: the kernel on CUDA tensors, the
+    plain version on CPU tensors."""
+    if boxes1.device.type == "cpu":
+        return plain_pairwise_rotated_iou(boxes1, boxes2)
+    return launch_rotated_iou(boxes1, boxes2)
+
+
+def rotated_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+                max_out: int, valid: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy rotated NMS over a batch (B, N, 5): the kernel on CUDA tensors,
+    the plain version on CPU tensors."""
+    if boxes.device.type == "cpu":
+        return plain_rotated_nms(boxes, scores, iou_threshold, max_out, valid=valid)
+    return launch_rotated_nms(boxes, scores, iou_threshold, max_out, valid=valid)
+
+
+def offset_boxes(boxes: torch.Tensor, groups: torch.Tensor) -> torch.Tensor:
+    """Class- or level-aware NMS's shift, as the JAX package forms it: the
+    centres moved by float(group) * 4096 in float32 (groups never overlap
+    while the image is smaller than 4096 pixels)."""
+    off = groups.to(boxes.dtype) * 4096.0
+    return torch.cat([boxes[..., :1] + off[..., None], boxes[..., 1:2] + off[..., None],
+                      boxes[..., 2:]], dim=-1)
+
+
+# --------------------------------------------------- rotated delta transform
+def get_rotated_deltas(src: torch.Tensor, target: torch.Tensor,
+                       weights: Sequence[float] = (1.0, 1.0, 1.0, 1.0, 1.0)
+                       ) -> torch.Tensor:
+    """Box2BoxTransformRotated.get_deltas: the angle difference normalised
+    into [-180, 180) and scaled by pi / 180."""
+    wx, wy, ww, wh, wa = weights
+    eps = 1e-7
+    dx = wx * (target[..., 0] - src[..., 0]) / torch.clamp(src[..., 2], min=eps)
+    dy = wy * (target[..., 1] - src[..., 1]) / torch.clamp(src[..., 3], min=eps)
+    dw = ww * torch.log(torch.clamp(target[..., 2], min=eps)
+                        / torch.clamp(src[..., 2], min=eps))
+    dh = wh * torch.log(torch.clamp(target[..., 3], min=eps)
+                        / torch.clamp(src[..., 3], min=eps))
+    da = target[..., 4] - src[..., 4]
+    da = torch.remainder(da + 180.0, 360.0) - 180.0
+    da = da * (math.pi / 180.0) * wa
+    return torch.stack([dx, dy, dw, dh, da], dim=-1)
+
+
+def apply_rotated_deltas(deltas: torch.Tensor, boxes: torch.Tensor,
+                         weights: Sequence[float] = (1.0, 1.0, 1.0, 1.0, 1.0)
+                         ) -> torch.Tensor:
+    """Box2BoxTransformRotated.apply_deltas (dw, dh clamped at
+    log(1000 / 16)); the angle normalised into [-180, 180)."""
+    wx, wy, ww, wh, wa = weights
+    clamp = math.log(1000.0 / 16.0)
+    dx = deltas[..., 0] / wx
+    dy = deltas[..., 1] / wy
+    dw = torch.clamp(deltas[..., 2] / ww, max=clamp)
+    dh = torch.clamp(deltas[..., 3] / wh, max=clamp)
+    da = deltas[..., 4] / wa * (180.0 / math.pi)
+    cx = dx * boxes[..., 2] + boxes[..., 0]
+    cy = dy * boxes[..., 3] + boxes[..., 1]
+    w = torch.exp(dw) * boxes[..., 2]
+    h = torch.exp(dh) * boxes[..., 3]
+    a = torch.remainder(boxes[..., 4] + da + 180.0, 360.0) - 180.0
+    return torch.stack([cx, cy, w, h, a], dim=-1)

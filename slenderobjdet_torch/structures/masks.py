@@ -5,9 +5,13 @@ Semantics mirror the reference's definition of an instance's "ratio"
 the ratio of an instance is min(w,h)/max(w,h) of the *oriented* min-area
 rectangle of the convex hull of its segmentation polygons; instances without
 usable polygons fall back to the axis-aligned bbox ratio. This runs on the
-host (numpy, and cv2 where it imports): data and evaluation preprocessing,
-never on the card. A copy of ``slenderobjdet_tpu/structures/masks.py``, held
-equal to it by ``tests/test_torch_eval.py``.
+host: data and evaluation preprocessing, never on the card. A copy of
+``slenderobjdet_tpu/structures/masks.py`` without cv2, which the card's
+machine does not have: the hull is ``borders.convex_hull`` and the
+rectangle ``rotated_rect.min_area_rect``, transcriptions of cv2's that give
+its results bit for bit, so that the ratio and the rotated box are the same
+on every machine (``tests/test_torch_eval.py``,
+``tests/test_torch_rotated_geometry.py``).
 """
 
 from __future__ import annotations
@@ -16,12 +20,8 @@ from typing import List, Sequence
 
 import numpy as np
 
-try:
-    import cv2
-
-    _HAS_CV2 = True
-except Exception:  # pragma: no cover
-    _HAS_CV2 = False
+from .borders import _hull_indices, convex_hull
+from .rotated_rect import min_area_rect
 
 
 def ratio_of_bbox_xyxy(bbox: Sequence[float]) -> float:
@@ -36,16 +36,12 @@ def ratio_of_polygon(polygons: List[np.ndarray]) -> float:
     """polygons: list of flat [x0,y0,x1,y1,...] arrays for one instance."""
     pts = np.concatenate([np.asarray(p, dtype=np.float32) for p in polygons])
     pts = pts.reshape(-1, 2)
-    if not _HAS_CV2:
+    hull = convex_hull(pts)
+    if hull is None:
         return ratio_of_bbox_xyxy(
             [pts[:, 0].min(), pts[:, 1].min(), pts[:, 0].max(), pts[:, 1].max()]
         )
-    hull = cv2.convexHull(pts.astype(np.float32)).reshape(-1, 2)
-    if hull.shape[0] < 3:
-        return ratio_of_bbox_xyxy(
-            [pts[:, 0].min(), pts[:, 1].min(), pts[:, 0].max(), pts[:, 1].max()]
-        )
-    (_, _), (w, h), _ = cv2.minAreaRect(hull.astype(np.float32))
+    (_, _), (w, h), _ = min_area_rect(hull)
     if w * h == 0:
         return 0.0
     return min(w, h) / max(w, h)
@@ -57,8 +53,8 @@ def rbox_from_polygon(polygons: List[np.ndarray]) -> List[float]:
     angle mapped into (-45, 45] with w/h swapped accordingly."""
     pts = np.concatenate([np.asarray(p, dtype=np.float32) for p in polygons])
     pts = pts.reshape(-1, 2)
-    hull = cv2.convexHull(pts.astype(np.float32)).reshape(-1, 2)
-    (cx, cy), (w, h), angle = cv2.minAreaRect(hull.astype(np.float32))
+    hull = pts[_hull_indices(pts)]
+    (cx, cy), (w, h), angle = min_area_rect(hull)
     angle = -angle
     while angle < 0:
         angle += 180

@@ -232,9 +232,10 @@ def test_catalogs_are_the_ports_own(dataset):
         tcatalog.DatasetCatalog.remove("torch_only_name")
     with pytest.raises(KeyError, match="not registered"):
         tcatalog.DatasetCatalog.get("torch_only_name")
-    # the builtin COCO names are registered; the rotated views wait
+    # the builtin COCO names are registered, and their rotated views
     assert {"coco_2017_train", "coco_2017_val"} <= set(tcatalog.DatasetCatalog.list())
-    assert "rcoco_2017_val" not in tcatalog.DatasetCatalog
+    assert {"rcoco_2017_train", "rcoco_2017_val"} <= set(tcatalog.DatasetCatalog.list())
+    assert tcatalog.MetadataCatalog.get("rcoco_2017_val").evaluator_type == "rcoco"
     assert tbuild.get_detection_dataset_dicts([NAME, NAME]) == 2 * tbuild.get_detection_dataset_dicts(NAME)
 
 

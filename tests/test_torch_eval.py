@@ -161,11 +161,20 @@ def test_slenderness_geometry_equals_the_jax_package():
     assert tmasks.compute_ann_ratio({"ratio": 0.25, "bbox": [0, 0, 1, 1]}) == 0.25
 
 
-def test_ratio_of_polygon_without_cv2_falls_back_to_the_bbox(monkeypatch):
-    polys = [np.array([0, 0, 40, 0, 40, 10, 0, 10.0])]
-    with_cv2 = tmasks.ratio_of_polygon(polys)
-    monkeypatch.setattr(tmasks, "_HAS_CV2", False)
-    assert tmasks.ratio_of_polygon(polys) == pytest.approx(0.25) == pytest.approx(with_cv2)
+def test_ratio_of_a_rotated_slender_polygon_is_the_oriented_one():
+    """A 100 x 8 rectangle turned by 30 degrees: its bbox ratio is about
+    0.54 and its oriented ratio 0.08. The port, which has no cv2 branch,
+    gives the JAX package's oriented ratio (cv2.minAreaRect) exactly."""
+    t = np.deg2rad(30.0)
+    u, v = np.array([np.cos(t), np.sin(t)]), np.array([-np.sin(t), np.cos(t)])
+    corners = [200 + a * 50 * u + b * 4 * v for a, b in ((-1, -1), (1, -1), (1, 1), (-1, 1))]
+    polys = [np.round(np.concatenate(corners), 3)]
+    pts = polys[0].reshape(-1, 2)
+    bbox_ratio = tmasks.ratio_of_bbox_xyxy([*pts.min(0), *pts.max(0)])
+    want = jmasks.ratio_of_polygon(polys)
+    assert want == pytest.approx(0.08, abs=1e-4) and bbox_ratio > 0.5
+    assert tmasks.ratio_of_polygon(polys) == want
+    assert not hasattr(tmasks, "_HAS_CV2") and not hasattr(tmasks, "cv2")
 
 
 def test_coco_api_equals_the_jax_package(registered):

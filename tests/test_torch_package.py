@@ -661,3 +661,48 @@ def test_fcosv3_loss_on_the_card_matches_the_cpu():
     assert float(got["num_pos"]) == float(want["num_pos"]) < float(ungated["num_pos"])
     for k in ("cls_loss", "reg_loss", "centerness_loss"):
         assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-4), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("classes,n,max_out,thr", [(0, 3000, 100, 0.5), (80, 5000, 100, 0.5),
+                                                   (5, 10000, 1000, 0.7)])
+def test_rotated_kernels_match_plain_on_gpu(classes, n, max_out, thr):
+    """The rotated IoU kernel (one launch, every pair) against the plain
+    IoU on the card, bit for bit, and the rotated NMS kernel (one launch a
+    call) against the plain greedy loop: identical keep lists, with the
+    models' class / level offsets (4096 x group), at RotatedRetinaNet's
+    5,000 candidates and the RRPN's 10,000 with 1,000 slots; integer-pixel
+    boxes at 896 x 1408, angles from a small set, tied scores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from slenderobjdet_torch.ops import rotated
+
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(9 + n)
+    angles = np.array([-90, -45, -30, 0, 15, 30, 45, 60, 90, 120], np.float32)
+
+    def rboxes(shape):
+        return torch.tensor(np.stack(
+            [rs.randint(0, 1408, shape), rs.randint(0, 896, shape), rs.randint(4, 300, shape),
+             rs.randint(4, 120, shape), rs.choice(angles, shape)], -1).astype(np.float32),
+            device=dev)
+
+    gt, anchors = rboxes((100,)), rboxes((20000,))
+    gt[90:] = 0.0                                          # padded gt: zero boxes
+    _build.reset_launch_counts()
+    got = rotated.launch_rotated_iou(gt, anchors)
+    assert _build.launch_counts()["rotated_iou"] == 1
+    want = rotated.plain_pairwise_rotated_iou(gt, anchors)
+    assert torch.equal(got, want) and int((want > 0).sum()) > 1000
+    boxes, scores = rboxes((2, n)), torch.tensor(
+        np.floor(rs.rand(2, n) * 64) / 64, dtype=torch.float32, device=dev)
+    valid = torch.tensor(rs.rand(2, n) < 0.9, device=dev)
+    if classes:
+        groups = torch.tensor(rs.randint(0, classes, (2, n)), device=dev)
+        boxes = rotated.offset_boxes(boxes, groups)
+    _build.reset_launch_counts()
+    got = rotated.rotated_nms(boxes, scores, thr, max_out, valid=valid)
+    assert _build.launch_counts()["rotated_nms"] == 1
+    want = rotated.plain_rotated_nms(boxes, scores, thr, max_out, valid=valid)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(want[1].sum(1).min()) >= min(max_out, 50)

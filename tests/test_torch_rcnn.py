@@ -510,11 +510,12 @@ def test_rcnn_predict_matches_jax(rcnn_pair, arch):
 def test_registry_holds_the_fourteen_names():
     """The fourteen names of the earlier chassis, the six of deformable
     convolution and the point-set family, and the ablation chassis with its
-    two FCOS diagnosis detectors, the two proposal networks and FCOSV3."""
+    two FCOS diagnosis detectors, the two proposal networks, FCOSV3 and
+    RotatedRetinaNet."""
     assert sorted(META_ARCHS) == sorted(FOURTEEN + [
         "DeformableConvRetinaNet", "RepPointsDetector", "RepPointsCenterness", "RepPointsV2",
         "FCOSRepPoints", "ReppointsRetinaNet", "AblationMetaArch", "FCOSTopK", "FCOSAnchor",
-        "ProposalNetwork", "ProposalNetworkWithMasks", "FCOSV3"])
+        "ProposalNetwork", "ProposalNetworkWithMasks", "FCOSV3", "RotatedRetinaNet"])
 
 
 @pytest.mark.parametrize("arch", ["ProposalVisibleRCNN", "GeneralizedRCNN",
@@ -536,8 +537,6 @@ def test_rcnn_names_build_from_the_yaml(arch):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"MODEL.PROPOSAL_GENERATOR.NAME": "RRPN"}, "item 10"),
-    ({"MODEL.ROI_HEADS.NAME": "RROIHeads"}, "rotated"),
     ({"TPU.INT8_PREDICT": True}, "INT8_PREDICT"),
 ])
 def test_unported_rcnn_options_raise(overrides, match):

@@ -204,12 +204,14 @@ def test_unported_trainer_options_raise(synth, overrides, match):
 
 
 def test_rotated_evaluator_type_raises(synth):
+    """An "rcoco" dataset is evaluated by the rotated evaluator, which takes
+    XYWHA detections: an axis-aligned detector's raise."""
     cfg = make_cfg(torch_get_cfg, synth / "unported", **{"SOLVER.MAX_ITER": 1})
     trainer = ttrainer.BaseTrainer(cfg, device="cpu")
     meta = tcatalog.MetadataCatalog.get(NAME)
     meta.set(evaluator_type="rcoco")
     try:
-        with pytest.raises(NotImplementedError, match="rcoco"):
+        with pytest.raises(ValueError, match="rcoco evaluator takes rotated"):
             trainer.test()
     finally:
         meta.set(evaluator_type="coco")
