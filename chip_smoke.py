@@ -10,6 +10,7 @@
     python3 chip_smoke.py proposal syncbn   # the proposal networks and SyncBN
     python3 chip_smoke.py fcosv3 # FCOSV3 and the masks data path
     python3 chip_smoke.py rotated_retinanet rotated_rcnn   # the rotated boxes
+    python3 chip_smoke.py cornernet   # CornerNet and the corner-pool kernel
 
 Builds the port's CUDA kernels from ``slenderobjdet_torch/ops/csrc`` (at
 first use, into ``build/torch_kernels/``), then, each phase failing the run
@@ -240,6 +241,29 @@ if it fails:
    without cv2): train, ``--resume`` bit-equal, evaluation and
    ``--eval-only`` by the rotated evaluator (SCORE_THRESH_TEST 0; the
    R-CNN's -1, its random softmax being 0 for every class).
+
+32. CornerNet (``cornernet*`` phases; configs/corner/corner_net_hourglass.yaml:
+   Hourglass-104, 2 stacks, trainable BN, FrozenBN heads, nothing cut,
+   bf16, seeded, ``shape_cornernet``): the corner-pool kernel
+   (``ops/csrc/corner_pool.cu``) at the heads' shapes, (8, 128, H/4, W/4)
+   for both buckets, bf16 and fp32, both corners: forward bit for bit
+   against the ``torch.cummax`` composition, backward against its fp32
+   autograd (fp32 within 1e-4; bf16 within one bf16 rounding of every
+   value), both timed beside their bounds; the NMS kernel on the model's
+   own 400 pair candidates an image; 3 predict calls of B=8 a bucket with
+   exactly 2 corner pools and 1 NMS each, equal bit for bit to the same
+   weights on the plain corner pool; predict ms and img/s and the device
+   ms of trunk, heads, corner pools and postprocess. ``cornernet_train``:
+   one step's gradients (kernel bf16 within 1.5 x the plain-pool bf16
+   model's distance from fp32); at B=2 in fp32, ``TPU.REMAT_BACKBONE`` on
+   against off from the same weights (loss and running statistics bit
+   for bit, gradients within 5e-4 / 1e-4); then the step without remat at
+   the largest of B = 8, 4, 2 that fits (11 steps) and with remat at the
+   largest of B = 16, 8, 4, 2 (4 steps), the loss falling and 4 + 4
+   corner pools read in every step, the warm-up's included; img/s and
+   peak memory. ``cornernet_trainer``:
+   ``train_net_torch.main`` with remat at that batch: train, ``--resume``
+   bit-equal (BN statistics and ADAM moments), evaluate, ``--eval-only``.
 
 Every kernel's time stands beside its bound, the least time the card could
 take: the larger of its bytes (inputs read once, outputs written once) over
@@ -1798,12 +1822,14 @@ def phase_retinanet_trainer(kernels, dev, smi):
 
 
 def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
-                   loss_key="loss_box_reg", overrides=None, polygons=False, rotated=False):
+                   loss_key="loss_box_reg", overrides=None, polygons=False, rotated=False,
+                   batch=16, test_launches=None):
     """``train_net_torch.main`` on ``yaml`` over the synthetic dataset: 4
     iterations with a checkpoint at 2 and the evaluation, then ``--resume``
     to 8 from exactly the saved state, then ``--eval-only``. Every step must
-    launch ``step_launches`` and every test batch 1 stem, 13 bottleneck and
-    ``predict_nms`` NMS kernels; ``metrics.json`` must log ``loss_key``. A
+    take ``batch`` images and launch ``step_launches``, and every test batch
+    ``test_launches`` (by default 1 stem, 13 bottleneck and ``predict_nms``
+    NMS kernels); ``metrics.json`` must log ``loss_key``. A
     model's running statistic (RepPoints' ``loss_normalizer``) rides in the
     checkpoint and must have moved off its initial value. ``polygons``: the
     synthetic annotations carry segmentations (``synthetic_dataset``).
@@ -1828,6 +1854,8 @@ def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
         make(name)
         n_test = len(make(name + "_test", repeat=4)["images"])
         nms_key = "rotated_nms" if rotated else "nms"
+        if test_launches is None:
+            test_launches = {"fused_stem": 1, "fused_bottleneck": 13, nms_key: predict_nms}
         n_test_batches = n_test // 8
         out = os.path.join(tmp, "output")
 
@@ -1838,8 +1866,8 @@ def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
             if [r["step"] for r in watch.steps] != list(range(first, last)):
                 raise AssertionError(f"steps taken: {[r['step'] for r in watch.steps]}")
             for r in watch.steps:
-                if r["image"] not in [((16, *hw, 3), "uint8") for hw in LOADER_SHAPES] \
-                        or r["gt"] != (16, 100, 4):
+                if r["image"] not in [((batch, *hw, 3), "uint8") for hw in LOADER_SHAPES] \
+                        or r["gt"] != (batch, 100, 4):
                     raise AssertionError(f"step {r['step']}: batch {r['image']}, gt {r['gt']}")
                 if r["launches"] != step_launches:
                     raise AssertionError(f"step {r['step']} launched {r['launches']}")
@@ -1860,9 +1888,8 @@ def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         losses = check_steps(0, 4)
         want = {k: 4 * v for k, v in step_launches.items()}
-        want[nms_key] = want.get(nms_key, 0) + predict_nms * n_test_batches
-        want["fused_stem"] += n_test_batches
-        want["fused_bottleneck"] += 13 * n_test_batches
+        for k, v in test_launches.items():
+            want[k] = want.get(k, 0) + v * n_test_batches
         if {k: counts[k] for k in want} != want:
             raise AssertionError(f"{family} trainer launched {counts}, expected {want}")
         for k in want:
@@ -1879,7 +1906,7 @@ def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
             raise AssertionError(f"metrics.json: {logged}")
         timing = results[name + "_test"]["_timing"]
         log(f"{family} trainer: 4 steps and {n_test_batches} test batches launched {counts}; "
-            f"every step {step_launches}, every test batch {predict_nms} {nms_key}; total "
+            f"every step {step_launches}, every test batch {test_launches}; total "
             f"losses {[round(v, 4) for v in losses]}; peak memory {peak:.2f} GiB; whole main "
             f"(build, 4 steps, 2 saves, evaluation) {wall:.1f} s")
         log(f"time {family} trainer eval ({smi}): {timing['images']} timed images of {n_test}, "
@@ -1909,7 +1936,7 @@ def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
         log(f"{family} trainer --resume: starts at iteration 4 with the saved state bit for "
             f"bit ({len(saved['model'])} model tensors, {len(saved['optimizer']['state'])} "
             f"momentum buffers); losses of steps 4-7 {[round(v, 4) for v in resumed]}; steps "
-            f"6-7 through the trainer {span / 2 * 1e3:.1f} ms/step, {16 * 2 / span:.2f} img/s")
+            f"6-7 through the trainer {span / 2 * 1e3:.1f} ms/step, {batch * 2 / span:.2f} img/s")
 
         # ---- evaluate only
         _build.reset_launch_counts()
@@ -1920,8 +1947,7 @@ def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
         missing = [k for k in STATS_NAMES if k not in res["bbox"]]
         if missing or not (rotated or "AR@100" in res["ar"]):
             raise AssertionError(f"--eval-only: bbox lacks {missing}; ar {sorted(res.get('ar', {}))}")
-        want = {nms_key: predict_nms * n_test_batches, "fused_stem": n_test_batches,
-                "fused_bottleneck": 13 * n_test_batches}
+        want = {k: v * n_test_batches for k, v in test_launches.items()}
         if {k: counts[k] for k in want} != want:
             raise AssertionError(f"--eval-only launched {counts}, expected {want}")
         timing = res["_timing"]
@@ -4896,6 +4922,465 @@ def phase_rotated_rcnn_trainer(kernels, dev, smi):
                    overrides={"MODEL.ROI_HEADS.SCORE_THRESH_TEST": -1.0})
 
 
+# ------------------------------------------------------------ CornerNet
+CORNER_YAML = "configs/corner/corner_net_hourglass.yaml"
+CORNER_HW = LOADER_SHAPES           # both buckets, 896 x 1408 and 1408 x 896
+CORNER_PREDICT = {"corner_pool": 2, "nms": 1}   # the last stack's TL and BR heads, one NMS
+CORNER_STEP = {"corner_pool": 8}    # four heads: 4 forward and 4 backward wrapper calls
+CORNER_TAG_STD = 0.3                # the tags' spread at the top corners (shape_cornernet)
+CORNER_HEAT_STD = 0.5               # the raised classes' heat logit spread over an image
+CORNER_HEAT_CLASSES = 4             # the classes whose heat is raised
+CORNER_HEAT_RAISE = 1.0             # by this much above the prior, on average
+CORNER_BATCHES = (8, 4, 2)          # the step without remat: the largest that fits
+CORNER_REMAT_BATCHES = (16, 8, 4, 2)   # with TPU.REMAT_BACKBONE
+CORNER_OPS_FWD = 3                  # fp32 operations an output element: two maxima, one add
+CORNER_OPS_BWD = 4                  # an input element: two comparisons, two adds
+
+
+def corner_cfg(dtype="bfloat16", remat=False, batch=None):
+    """The CornerNet yaml, nothing cut, WARMUP_ITERS 0 (full LR from step 0,
+    a test setting), ``TPU.REMAT_BACKBONE`` as given."""
+    cfg = flagship_cfg(False, dtype, CORNER_YAML)
+    cfg.defrost()
+    cfg.SOLVER.WARMUP_ITERS = 0
+    cfg.TPU.REMAT_BACKBONE = remat
+    if batch is not None:
+        cfg.SOLVER.IMS_PER_BATCH = batch
+    cfg.freeze()
+    return cfg
+
+
+@contextlib.contextmanager
+def plain_corner_pool():
+    """CornerNet's heads on the plain ``torch.cummax`` compositions (the
+    kernel's oracle) instead of the kernel, for a comparison."""
+    from slenderobjdet_torch.models.meta_arch import corner_net
+    from slenderobjdet_torch.ops import corner_pool
+
+    saved = corner_net.tl_pool, corner_net.br_pool
+    corner_net.tl_pool, corner_net.br_pool = corner_pool.plain_tl_pool, corner_pool.plain_br_pool
+    try:
+        yield
+    finally:
+        corner_net.tl_pool, corner_net.br_pool = saved
+
+
+def top_corners(logit, k=100):
+    """The (y, x) of each image's ``k`` highest 3 x 3 peaks of ``logit``
+    (B, H, W): (B, k) each."""
+    b, h, w = logit.shape
+    pooled = torch.nn.functional.max_pool2d(logit[:, None], 3, stride=1, padding=1)[:, 0]
+    peaks = torch.where(logit == pooled, logit, float("-inf")).reshape(b, h * w)
+    loc = torch.topk(peaks, k, dim=1).indices
+    return loc // w, loc % w
+
+
+def shape_cornernet(model, images):
+    """Seeded random weights made to give detections, as trained ones do,
+    whatever the seed. A random head puts each side's top corners in a class
+    of its own, often at the image's border, with tags far apart, so no TL x
+    BR pair forms; so, from the heads' outputs on ``images``, after the
+    BatchNorm running statistics are recomputed over them
+    (``precise_bn_stats``; the drawn ones leave the trunk's activations
+    unnormalised through its ~100 layers): the first CORNER_HEAT_CLASSES
+    classes share class 0's heat filter, scaled to a spread of
+    CORNER_HEAT_STD about a logit CORNER_HEAT_RAISE above the prior's, with
+    the sign on each side (of the four pairs) that puts the most BR corners
+    below and right of the TL ones; the other classes sit at the prior; the
+    tags are centred on 0 at each side's top corners with a spread of
+    CORNER_TAG_STD there, so that some pairs' tags lie within 0.5 of each
+    other and some do not."""
+    from slenderobjdet_torch.models.layers import precise_bn_stats, prior_bias
+    from slenderobjdet_torch.models.meta_arch.corner_net import HEAT_PRIOR
+
+    precise_bn_stats(model, [images])
+    n, prior = CORNER_HEAT_CLASSES, prior_bias(HEAT_PRIOR)
+    with torch.no_grad():
+        outs = model(torch.as_tensor(images, device=model.pixel_mean.device))
+        for i, sides in enumerate(outs):
+            heads = [getattr(model, f"{side}_head{i}") for side in ("tl", "br")]
+            maps, scales = [], []
+            for head, (heat, _, _) in zip(heads, sides):
+                y = heat[..., 0].float() - head.heat_out.bias[0].float()
+                scales.append(CORNER_HEAT_STD / y.std())
+                maps.append(y * scales[-1])
+
+            def below_right(signs):
+                (ty, tx), (by, bx) = (top_corners(s * m) for s, m in zip(signs, maps))
+                return float(((by[:, None, :] > ty[:, :, None])
+                              & (bx[:, None, :] > tx[:, :, None])).float().mean())
+
+            signs = max(((1, 1), (1, -1), (-1, 1), (-1, -1)), key=below_right)
+            for head, (_, tag, _), sign, m, c in zip(heads, sides, signs, maps, scales):
+                out = head.heat_out
+                out.weight[:n] = out.weight[0] * (sign * c)
+                out.weight[n:] = 0
+                out.bias[:n] = prior + CORNER_HEAT_RAISE - float((sign * m).mean())
+                out.bias[n:] = prior
+                ys, xs = top_corners(sign * m)
+                t = torch.gather(tag.float().flatten(1), 1, ys * tag.shape[2] + xs)
+                out, scale = head.tag_out, CORNER_TAG_STD / t.std()
+                out.bias.copy_((out.bias.float() - t.mean()) * scale)
+                out.weight.mul_(scale)
+
+
+def corner_pool_check(kernels, smi, dev):
+    """The corner-pool kernel at the heads' shapes, (8, 128, H / 4, W / 4)
+    for both buckets, bf16 and fp32, both corners, on ReLU outputs (the
+    heads pool ReLU outputs: ties at zero): the forward bit for bit against
+    the plain ``torch.cummax`` composition; the backward against the plain
+    version's autograd in fp32 on the same values (with the same support;
+    fp32 within FP32_TOL of the largest, bf16 within one bf16 rounding of
+    each value, and the plain bf16 autograd's own error stated); then the
+    kernel's forward and backward, the plain forward and the plain forward
+    + backward timed, each beside its bound (bytes: a, b and out; a, b, g,
+    g_a and g_b)."""
+    from slenderobjdet_torch.ops import corner_pool as cp
+
+    gen = torch.Generator(device=dev).manual_seed(53)
+    for h, w in CORNER_HW:
+        shape = (8, 128, h // 4, w // 4)
+        for dtype in (torch.bfloat16, torch.float32):
+            def draw():
+                return torch.relu(torch.randn(shape, device=dev, generator=gen)).to(
+                    dtype).contiguous(memory_format=torch.channels_last)
+
+            a, b = draw(), draw()
+            g = torch.randn(shape, device=dev, generator=gen).to(dtype).contiguous(
+                memory_format=torch.channels_last)
+            for corner in ("tl", "br"):
+                plain = getattr(cp, f"plain_{corner}_pool")
+                got = cp.launch_corner_pool(a, b, corner)
+                if not torch.equal(got, plain(a, b)):
+                    raise AssertionError(f"corner_pool {corner} {dtype} {h}x{w}: forward differs")
+                grads = cp.launch_corner_pool_backward(a, b, g, corner)
+
+                def plain_grads(cast):
+                    ta = a.to(cast, copy=True).requires_grad_()
+                    tb = b.to(cast, copy=True).requires_grad_()
+                    (plain(ta, tb) * g.to(cast)).sum().backward()
+                    return ta.grad.float(), tb.grad.float()
+
+                err = plain_err = 0.0
+                for k, r, p in zip(grads, plain_grads(torch.float32), plain_grads(dtype)):
+                    if not torch.equal(k != 0, r != 0):
+                        raise AssertionError(f"corner_pool {corner} {dtype}: gradient support")
+                    diff = (k.float() - r).abs()
+                    err = max(err, float(diff.max() / r.abs().max()))
+                    plain_err = max(plain_err, float((p - r).abs().max() / r.abs().max()))
+                    if dtype == torch.bfloat16 and not bool(
+                            (diff <= 2 ** -8 * r.abs() + 1e-6 * r.abs().max()).all()):
+                        raise AssertionError(f"corner_pool {corner} bf16: a gradient is more "
+                                             f"than one bf16 rounding from fp32")
+                if dtype == torch.float32 and err > FP32_TOL:
+                    raise AssertionError(f"corner_pool {corner} fp32 gradient err {err}")
+                ms = cuda_ms(lambda: cp.launch_corner_pool(a, b, corner), 10)
+                bwd_ms = cuda_ms(lambda: cp.launch_corner_pool_backward(a, b, g, corner), 10)
+                plain_ms = cuda_ms(lambda: plain(a, b), 3)
+
+                def plain_step():
+                    ta, tb = a.detach().requires_grad_(), b.detach().requires_grad_()
+                    (plain(ta, tb) * g).sum().backward()
+
+                plain_both_ms = cuda_ms(plain_step, 3)
+                n, size = a.numel(), a.element_size()
+                b_ms, b_by = bound_ms(3 * n * size, CORNER_OPS_FWD * n, PEAK_FP32_FLOPS)
+                bb_ms, bb_by = bound_ms(5 * n * size, CORNER_OPS_BWD * n, PEAK_FP32_FLOPS)
+                key = f"{corner}_{str(dtype).split('.')[-1]}_{h}x{w}"
+                log(f"corner_pool {key} ({smi}): forward == plain bit for bit; gradient err vs "
+                    f"fp32 plain {err:.3e} (plain {str(dtype).split('.')[-1]} autograd "
+                    f"{plain_err:.3e}), same support; kernel forward {ms:.4f} ms (bound "
+                    f"{b_ms:.4f}, {b_by}, {b_ms / ms:.3f} of it), backward {bwd_ms:.4f} ms "
+                    f"(bound {bb_ms:.4f}, {bb_ms / bwd_ms:.3f}); plain (torch.cummax "
+                    f"composition) forward {plain_ms:.4f} ms, forward + backward "
+                    f"{plain_both_ms:.4f} ms")
+                entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": None, "max_abs_err": 0.0, "grad_err": err,
+                         "plain_grad_err": plain_err, "backward_ms": bwd_ms,
+                         "backward_bound_ms": bb_ms, "plain_forward_backward_ms": plain_both_ms}
+                kernels["corner_pool"][f"at_{key}"] = entry
+                if key == f"tl_bfloat16_{CORNER_HW[0][0]}x{CORNER_HW[0][1]}":
+                    kernels["corner_pool"].update({k: entry[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")})
+                del got, grads
+            del a, b, g
+            torch.cuda.empty_cache()
+
+
+def phase_cornernet(kernels, dev, smi):
+    """CornerNet Hourglass-104 (the corner yaml, nothing cut, bf16, seeded,
+    ``shape_cornernet``): the corner-pool kernel at the heads' shapes
+    (``corner_pool_check``); the NMS kernel against ``batched_nms`` on the
+    model's own 400 pair candidates an image (B=8, 80 classes, thr 0.5, 100
+    slots); 3 predict calls of B=8 a bucket, each launching exactly 2 corner
+    pools and 1 NMS, outputs (8, 100, ...) finite, with valid detections,
+    and equal to the same weights' predict on the plain corner pool; predict
+    ms and img/s at B=8, and the device ms of trunk, heads, the corner pools
+    and the postprocess."""
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.ops import _build
+    from slenderobjdet_torch.ops.corner_pool import br_pool, tl_pool
+
+    corner_pool_check(kernels, smi, dev)
+    model = build_model(corner_cfg(), device=dev, generator=torch.Generator().manual_seed(54))
+    reqs = {hw: requests(3, 8, seed=55 + i, hw=hw) for i, hw in enumerate(CORNER_HW)}
+    shape_cornernet(model, reqs[CORNER_HW[0]][0]["image"])
+    last = len(model.in_features) - 1
+    with torch.inference_mode():
+        images = torch.as_tensor(reqs[CORNER_HW[0]][0]["image"], device=dev)
+        (tl, br), = model(images, stacks=[last])
+        boxes, scores, classes, valid = model.candidates(tl, br)
+        if tuple(boxes.shape) != (8, 400, 4):
+            raise AssertionError(f"CornerNet candidates {tuple(boxes.shape)}")
+        nms_check(kernels, smi, "cornernet", "predict_B8", boxes, scores, valid, 0.5,
+                  model.max_dets, classes=classes)
+
+    per_call, n_valid = [], []
+    for hw in CORNER_HW:
+        for r in reqs[hw]:
+            _build.reset_launch_counts()
+            out = model.predict(r)
+            torch.cuda.synchronize()
+            per_call.append({k: v for k, v in _build.launch_counts().items() if v})
+            with plain_corner_pool():
+                ref = model.predict(r)
+            check_outputs(out, 8)
+            if not all(torch.equal(out[k], ref[k]) for k in out):
+                raise AssertionError(f"cornernet predict at {hw}: the kernel's detections "
+                                     f"differ from the plain corner pool's")
+            n_valid.append(out["valid"].sum(1).tolist())
+    log(f"cornernet predict launches a call of B=8 at {list(CORNER_HW)} x 3: {per_call}; "
+        f"valid detections an image {n_valid}; every output equal to the plain corner "
+        f"pool's, bit for bit")
+    if any(c != CORNER_PREDICT for c in per_call):
+        raise AssertionError(f"cornernet predict launched {per_call}, expected {CORNER_PREDICT}")
+    if sum(map(sum, n_valid)) <= 0:
+        raise AssertionError("cornernet: no valid detections")
+    for k in CORNER_PREDICT:
+        kernels[k].setdefault("launches_by_path", {})["cornernet_predict"] = sum(
+            c[k] for c in per_call)
+    kernels["corner_pool"]["launches"] += sum(c["corner_pool"] for c in per_call)
+
+    req = reqs[CORNER_HW[0]][0]
+    ms = cuda_ms(lambda: model.predict(req), 3)
+    with plain_corner_pool():
+        plain_ms = cuda_ms(lambda: model.predict(req), 3)
+    with torch.inference_mode():
+        x = ((images.float() - model.pixel_mean) / model.pixel_std).to(model.dtype)
+        x = x.permute(0, 3, 1, 2)
+        trunk_ms = cuda_ms(lambda: model.backbone(x), 3)
+        f = model.backbone(x)[model.in_features[last]]
+        heads = (getattr(model, f"tl_head{last}"), getattr(model, f"br_head{last}"))
+        heads_ms = cuda_ms(lambda: [h(f) for h in heads], 3)
+        pools = [(h.pool_conv1(f), h.pool_conv2(f)) for h in heads]
+        pool_ms = cuda_ms(lambda: (tl_pool(*pools[0]), br_pool(*pools[1])), 10)
+        scale = torch.as_tensor(req["scale"], device=dev)
+        orig = torch.as_tensor(req["orig_size"], device=dev)
+        post_ms = cuda_ms(lambda: model.detections(tl, br, scale, orig), 3)
+    h, w = CORNER_HW[0]
+    log(f"time cornernet predict ({smi}): B=8 {h}x{w}: {ms:.2f} ms, {8e3 / ms:.2f} img/s "
+        f"(on the plain corner pool {plain_ms:.2f} ms, {8e3 / plain_ms:.2f} img/s); device ms "
+        f"of the parts: trunk {trunk_ms:.2f}, the last stack's two heads {heads_ms:.2f} (of "
+        f"which the two corner pools {pool_ms:.3f}), postprocess {post_ms:.2f}")
+    kernels["corner_pool"]["predict"] = {"ms": ms, "plain_pool_ms": plain_ms, "trunk_ms": trunk_ms,
+                                         "heads_ms": heads_ms, "pools_ms": pool_ms,
+                                         "postprocess_ms": post_ms}
+
+
+def corner_step_launches(label, step, batch):
+    """One train step with the launch counts set to 0 just before it and
+    read just after; returns (metrics, corner-pool launches). The step must
+    launch exactly CORNER_STEP."""
+    from slenderobjdet_torch.ops import _build
+
+    _build.reset_launch_counts()
+    metrics = step(batch)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _build.launch_counts().items() if v}
+    if counts != CORNER_STEP:
+        raise AssertionError(f"cornernet {label} step launched {counts}, expected {CORNER_STEP}")
+    return metrics, counts["corner_pool"]
+
+
+def corner_steps(label, step, batch, steps, smi):
+    """``steps`` train steps on one batch, each launching exactly
+    CORNER_STEP; returns (losses, ms a step after the first two, peak GiB,
+    the corner-pool launches read)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    totals, times, launched = [], [], 0
+    for i in range(steps):
+        t0 = time.perf_counter()
+        metrics, n = corner_step_launches(f"{label} {i}", step, batch)
+        times.append(time.perf_counter() - t0)
+        launched += n
+        metrics = {k: float(v) for k, v in metrics.items()}
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"cornernet {label} step {i}: non-finite {metrics}")
+        totals.append(metrics["total_loss"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = float(np.mean(times[2:] if len(times) > 2 else times[1:])) * 1e3
+    n = batch["image"].shape[0]
+    log(f"train cornernet {label} ({smi}): B={n} {batch['image'].shape[1:3]}: totals "
+        f"{[round(t, 3) for t in totals]}; {ms:.1f} ms/step, {n * 1e3 / ms:.2f} img/s, peak "
+        f"{peak:.2f} GiB; every step {CORNER_STEP}; last step loss_heat "
+        f"{metrics['loss_heat']:.3f} loss_pull {metrics['loss_pull']:.4f} loss_push "
+        f"{metrics['loss_push']:.4f} loss_offset {metrics['loss_offset']:.4f}")
+    return totals, ms, peak, launched
+
+
+def largest_step(label, cfg_of, sizes, seed):
+    """The model, its train step and a batch at the largest of ``sizes``
+    whose step fits on the card (an out-of-memory step is dropped and the
+    next size tried; the first step is the one timed as warm-up), and the
+    corner-pool launches read over every step taken here, those of an
+    attempt that ran out of memory included."""
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.ops import _build
+    from slenderobjdet_torch.solver import build_optimizer
+
+    launched = 0
+    for n in sizes:
+        cfg = cfg_of(n)
+        model = build_model(cfg, generator=torch.Generator().manual_seed(seed))
+        step = make_train_step(model, build_optimizer(cfg, model), cfg)
+        batch = train_batch(n, seed + 1, hw=CORNER_HW[0])
+        try:
+            _, warm = corner_step_launches(f"{label} warm-up", step, batch)
+            return model, step, batch, launched + warm
+        except torch.cuda.OutOfMemoryError:
+            launched += _build.launch_counts()["corner_pool"]
+            log(f"cornernet step at B={n}: out of device memory; trying the next size")
+        del model, step, batch
+        torch.cuda.empty_cache()
+    raise AssertionError(f"no CornerNet step of {sizes} fits")
+
+
+def phase_cornernet_train(kernels, dev, smi, report):
+    """The CornerNet train step at full width (896 x 1408, 100 padded gt,
+    bf16, the yaml's ADAM at 2.5e-4 with WARMUP_ITERS 0). At B=2 from one
+    set of weights: the gradients of a trunk, two head and a heat-output
+    weight from the kernel model no further from an fp32 model's than
+    GRAD_FACTOR x the same weights' bf16 model on the plain corner pool; and
+    the fp32 loss and backward (called after ``loss`` returned, as
+    ``TrainStep`` does) with ``TPU.REMAT_BACKBONE`` against without it, on
+    cuDNN's deterministic algorithms: the same loss and running statistics
+    bit for bit, every gradient within 5e-4 / 1e-4 (rtol / atol, the CPU
+    test's). Then, without remat, the largest of CORNER_BATCHES that fits:
+    TRAIN_STEPS + 1 steps; with remat, the largest of CORNER_REMAT_BATCHES:
+    4 steps; each step launching exactly 4 + 4 corner-pool wrappers, the
+    loss falling in both; img/s and peak memory of both, left in
+    ``report``."""
+    from slenderobjdet_torch.models import build_model
+
+    names = ["backbone.hg0.HourglassBlock_0.HourglassBlock_0.Residual_0.ConvBNRelu_0.conv.weight",
+             "tl_head1.pool_conv1.conv.weight", "br_head0.pool_conv2.conv.weight",
+             "tl_head1.heat_out.weight"]
+    small = train_batch(2, 57, hw=CORNER_HW[0])
+    weights, grads, fp32 = None, {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    for key, dtype, remat in (("kernel", "bfloat16", False), ("plain", "bfloat16", False),
+                              ("fp32", "float32", False), ("fp32_remat", "float32", True)):
+        m = build_model(corner_cfg(dtype, remat=remat),
+                        generator=torch.Generator().manual_seed(56))
+        if weights is None:
+            weights = {k: v.clone() for k, v in m.state_dict().items()}
+        m.load_state_dict(weights)
+        torch.backends.cudnn.deterministic = dtype == "float32"
+        try:
+            with contextlib.ExitStack() as stack:
+                if key == "plain":
+                    stack.enter_context(plain_corner_pool())
+                total, _ = m.loss(small)
+                total.backward()              # after loss returned, as TrainStep does
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        params = dict(m.named_parameters())
+        grads[key] = {n: params[n].grad.detach().float().clone() for n in names}
+        if dtype == "float32":
+            fp32[key] = {"total": total.detach().clone(),
+                         "grads": {n: p.grad.detach().clone() for n, p in params.items()
+                                   if p.grad is not None},
+                         "buffers": {n: b.detach().clone() for n, b in m.named_buffers()}}
+        log(f"train cornernet grads {key}: total loss {float(total.detach()):.4f}")
+        del m, params, total
+        torch.cuda.empty_cache()
+    del weights
+    for n in names:
+        gk, gp, g32 = grads["kernel"][n], grads["plain"][n], grads["fp32"][n]
+        e_k, e_p = ratio(gk, g32), ratio(gp, g32)
+        log(f"grad {n}: max|g| {float(gk.abs().max()):.3e}, err ratio vs fp32: kernel bf16 "
+            f"{e_k:.3e}, plain corner pool bf16 {e_p:.3e} (kernel <= {GRAD_FACTOR} x plain)")
+        if not (float(gk.abs().max()) > 0 and e_k <= GRAD_FACTOR * e_p):
+            raise AssertionError(f"grad {n}: kernel err {e_k}, plain {e_p}")
+    del grads
+    off, on = fp32["fp32"], fp32["fp32_remat"]
+    if not torch.equal(off["total"], on["total"]):
+        raise AssertionError(f"cornernet remat: loss {float(on['total'])} against "
+                             f"{float(off['total'])} without it")
+    if sorted(off["grads"]) != sorted(on["grads"]) or sorted(off["buffers"]) != sorted(
+            on["buffers"]):
+        raise AssertionError("cornernet remat: other gradients or buffers than without it")
+    worst, worst_name = 0.0, None
+    for n, g in off["grads"].items():
+        excess = float(((on["grads"][n] - g).abs() - 5e-4 * g.abs()).max())
+        if excess > worst or worst_name is None:
+            worst, worst_name = excess, n
+    stats_equal = all(torch.equal(on["buffers"][n], b) for n, b in off["buffers"].items())
+    running = [n for n in off["buffers"] if n.endswith("running_var")]
+    moved = sum(not torch.equal(off["buffers"][n], torch.ones_like(off["buffers"][n]))
+                for n in running)
+    grad_ratio = max(ratio(on["grads"][n], g) for n, g in off["grads"].items())
+    log(f"train cornernet remat (fp32, B=2, cuDNN deterministic): loss equal bit for bit "
+        f"({float(off['total']):.4f}); {len(off['grads'])} gradients, the largest "
+        f"|diff| - 5e-4 |g| {worst:.3e} ({worst_name}; atol 1e-4), largest max|diff| / "
+        f"max|g| {grad_ratio:.3e}; running statistics equal bit for bit: {stats_equal}, "
+        f"{moved} of {len(running)} running variances moved from 1")
+    if worst > 1e-4 or not stats_equal or moved != len(running):
+        raise AssertionError(f"cornernet remat: gradient excess {worst} at {worst_name}, "
+                             f"statistics equal {stats_equal}, moved {moved}/{len(running)}")
+    del fp32, off, on
+    torch.cuda.empty_cache()
+
+    for remat, sizes, steps in ((False, CORNER_BATCHES, TRAIN_STEPS + 1),
+                                (True, CORNER_REMAT_BATCHES, 4)):
+        label = "with remat" if remat else "without remat"
+        model, step, batch, warm = largest_step(
+            label, lambda n, r=remat: corner_cfg(remat=r, batch=n), sizes, 58)
+        totals, ms, peak, launched = corner_steps(label, step, batch, steps, smi)
+        if not totals[-1] < totals[0]:
+            raise AssertionError(f"cornernet {label}: total {totals[-1]} after {steps - 1} "
+                                 f"steps is not below step 0's {totals[0]}")
+        n = batch["image"].shape[0]
+        report["remat" if remat else "plain"] = {"batch": n, "ms": ms, "img_s": n * 1e3 / ms,
+                                                 "peak_gib": peak}
+        kernels["corner_pool"]["launches"] += warm + launched
+        del model, step, batch
+        torch.cuda.empty_cache()
+    kernels["corner_pool"].setdefault("launches_by_path", {})["cornernet_train_step"] = \
+        CORNER_STEP["corner_pool"]
+    kernels["corner_pool"]["train"] = dict(report)
+    log(f"time cornernet train ({smi}): without remat B={report['plain']['batch']} "
+        f"{report['plain']['img_s']:.2f} img/s, peak {report['plain']['peak_gib']:.2f} GiB; "
+        f"TPU.REMAT_BACKBONE B={report['remat']['batch']} {report['remat']['img_s']:.2f} "
+        f"img/s, peak {report['remat']['peak_gib']:.2f} GiB")
+
+
+def phase_cornernet_trainer(kernels, dev, smi, report):
+    """``train_net_torch.main`` on the corner yaml over the synthetic
+    dataset (``family_trainer``) with ``TPU.REMAT_BACKBONE`` on and
+    SOLVER.IMS_PER_BATCH the largest the remat step reached (``report``,
+    from ``phase_cornernet_train``; the largest size tried without it): 4 steps with a
+    save at 2 and 4 and the evaluation, each step launching 4 + 4 corner
+    pools and each test batch 2 and 1 NMS; ``--resume`` to 8 bit-equal, the
+    BatchNorm statistics and ADAM's moments included; ``--eval-only``."""
+    n = report.get("remat", {}).get("batch", CORNER_REMAT_BATCHES[0])
+    family_trainer(kernels, smi, "cornernet", CORNER_YAML, 59, CORNER_STEP, predict_nms=1,
+                   loss_key="loss_heat", batch=n, test_launches=CORNER_PREDICT,
+                   overrides={"SOLVER.IMS_PER_BATCH": n, "TPU.REMAT_BACKBONE": True})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -4939,6 +5424,9 @@ def main() -> int:
                         "replaces": "slenderobjdet_tpu/ops/rotated.py:114", "launches": 0},
         "rotated_nms": {"name": "rotated_nms", "route": "cuda", "source": f"{src}/rotated.cu",
                         "replaces": "slenderobjdet_tpu/ops/rotated.py:128", "launches": 0},
+        "corner_pool": {"name": "corner_pool", "route": "cuda",
+                        "source": f"{src}/corner_pool.cu",
+                        "replaces": "slenderobjdet_tpu/ops/corner_pool.py:47", "launches": 0},
     }
     failed = []
     only = tuple(sys.argv[1:])      # name prefixes: a partial run, for development
@@ -5040,6 +5528,13 @@ def main() -> int:
     run("rotated_rcnn_train", phase_rotated_rcnn_train, kernels, dev, smi)
     torch.cuda.empty_cache()
     run("rotated_rcnn_trainer", phase_rotated_rcnn_trainer, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("cornernet", phase_cornernet, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    corner = {}
+    run("cornernet_train", phase_cornernet_train, kernels, dev, smi, corner)
+    torch.cuda.empty_cache()
+    run("cornernet_trainer", phase_cornernet_trainer, kernels, dev, smi, corner)
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

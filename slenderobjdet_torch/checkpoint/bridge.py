@@ -9,7 +9,8 @@ the FPN's ``top_p6`` / ``top_p7`` on ``res5``; Faster R-CNN with
 ``roi_box/head/fc{i}``, ``roi_box/outputs/{cls_score,bbox_pred}``; the
 proposal networks' ``PPGHead`` ``conv`` / ``offsets`` / ``in_object_logits``,
 ``PointsProposalHead`` ``tower{i}`` / ``gn{i}`` / ``objectness`` /
-``deltas`` and ``RepPointsInitHead``; FrozenBN, BN and GN trunks) into a
+``deltas`` and ``RepPointsInitHead``; CornerNet's Hourglass and corner
+heads; FrozenBN, BN and GN trunks) into a
 torch ``state_dict``:
 
 - conv kernels HWIO -> OIHW (``transpose(3, 2, 0, 1)``), ``kernel`` ->
@@ -45,6 +46,13 @@ torch ``state_dict``:
   ``offset_conv`` under a ``DFConv2d`` is a conv like any other;
 - the detector-level ``buffers/loss_normalizer`` (RepPoints' EMA) ->
   ``loss_normalizer``;
+- CornerNet's Hourglass and heads: a ``ConvBNRelu`` (``ConvBNRelu_{i}``,
+  ``out_conv{s}``, ``inter_a{s}``, ``inter_b{s}``, the heads' ``pool_conv1``,
+  ``pool_conv2``, ``pool_out``, ``skip``, ``feat``) holds ``Conv_0`` ->
+  ``conv`` and its norm ``BatchNorm_0`` (params and mean / var buffers) or
+  ``FrozenBatchNorm_0`` -> ``norm``; ``Residual_{i}``, ``hg{s}``, the
+  nested ``HourglassBlock_0``, ``inter_res{s}``, ``tl_head{i}``,
+  ``br_head{i}`` and ``{heat,tag,offset}_{conv,out}`` keep their names;
 - every other ``kernel`` / ``bias`` keeps its path, ``kernel`` as ``weight``.
 
 It raises on any leaf it cannot place. ``load_flax_variables`` also checks
@@ -78,16 +86,19 @@ _POSITIONAL_NORM = re.compile(r"(FrozenBatchNorm|BatchNorm|GroupNorm32)_(\d+)")
 _BN_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
-def _place_norm(mods, path, basic_blocks):
+def _place_norm(mods, path, basic_blocks, conv_bn_nodes):
     """``mods`` with an unnamed norm (``FrozenBatchNorm_i``, ``BatchNorm_i``
     or ``GroupNorm32_i``, numbered by Flax per class in creation order)
-    renamed to the port's module: in a residual block ``norm1``, ``norm2``,
-    ``norm3`` (bottleneck blocks only) and ``shortcut_norm``; the ResNet's
-    own (``_0`` outside a block) ``stem_norm``."""
+    renamed to the port's module: a ``ConvBNRelu``'s ``norm``; in a residual
+    block ``norm1``, ``norm2``, ``norm3`` (bottleneck blocks only) and
+    ``shortcut_norm``; the ResNet's own (``_0`` outside a block)
+    ``stem_norm``."""
     m = _POSITIONAL_NORM.fullmatch(mods[-1]) if mods else None
     if m is None:
         return mods
     idx = int(m.group(2))
+    if tuple(mods[:-1]) in conv_bn_nodes and idx == 0:
+        return mods[:-1] + ["norm"]
     parent = mods[-2] if len(mods) > 1 else ""
     names = (_BASIC_NORMS if tuple(mods[:-1]) in basic_blocks else _BOTTLENECK_NORMS)
     if _BLOCK.fullmatch(parent) and idx < len(names):
@@ -97,14 +108,16 @@ def _place_norm(mods, path, basic_blocks):
     raise KeyError(f"unplaced norm {'/'.join(path)}")
 
 
-def _torch_name(collection: str, path, basic_blocks, bn_nodes) -> str:
+def _torch_name(collection: str, path, basic_blocks, bn_nodes, conv_bn_nodes) -> str:
     *mods, leaf = path
     if collection == "buffers" and not mods and leaf == "loss_normalizer":
         return leaf
     is_bn = collection == "buffers" and tuple(mods) in bn_nodes
     if mods and mods[-1] == "GroupNorm_0":          # GroupNorm32's inner nn.GroupNorm
         mods, leaf = mods[:-1], {"scale": "weight", "bias": "bias"}[leaf]
-    mods = _place_norm(mods, path, basic_blocks)
+    if mods and mods[-1] == "Conv_0":               # a ConvBNRelu's conv
+        mods = mods[:-1] + ["conv"]
+    mods = _place_norm(mods, path, basic_blocks, conv_bn_nodes)
     if collection == "buffers":
         if is_bn and leaf in ("mean", "var"):
             return ".".join(mods + [_BN_LEAVES[leaf]])
@@ -142,10 +155,13 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     for p, _ in _leaves(variables.get("buffers", {})):
         leaves[p[:-1]].add(p[-1])
     bn_nodes = {node for node, names in leaves.items() if {"mean", "var"} <= names}
+    # a ConvBNRelu: a node whose conv is Flax's auto-named Conv_0
+    conv_bn_nodes = {p[:-2] for p, _ in _leaves(variables.get("params", {}))
+                     if len(p) >= 2 and p[-2] == "Conv_0"}
     out: Dict[str, torch.Tensor] = {}
     for collection, tree in variables.items():
         for path, value in _leaves(tree):
-            name = _torch_name(collection, path, basic, bn_nodes)
+            name = _torch_name(collection, path, basic, bn_nodes, conv_bn_nodes)
             a = np.asarray(value, dtype=np.float32)
             if a.ndim == 4 and name.endswith(".weight"):
                 a = a.transpose(3, 2, 0, 1)

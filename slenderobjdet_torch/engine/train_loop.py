@@ -79,7 +79,9 @@ class TrainStep:
     ``loss_localization_init``, ``loss_localization_refine``, ``num_pos``,
     ``loss_normalizer``; the ablation chassis: ``loss_cls``,
     ``loss_loc_init``, ``loss_loc_refine``, ``num_pos`` and, for LRTB,
-    ``centerness_loss``; FCOSAnchor: FCOS's and ``shape_loss``).
+    ``centerness_loss``; FCOSAnchor: FCOS's and ``shape_loss``; CornerNet:
+    ``loss_heat``, ``loss_pull``, ``loss_push``, ``loss_offset``,
+    ``num_pos``).
     ``count`` is the number of updates made so far; it starts at 0, so the
     first update uses ``schedule(0)`` as optax does."""
 

@@ -9,6 +9,7 @@ import torch
 from torch import nn
 
 from .meta_arch.ablation import AblationMetaArch
+from .meta_arch.corner_net import CornerNet
 from .meta_arch.fcos import FCOS, FCOSTopK, FCOSV3
 from .meta_arch.fcos_anchor import FCOSAnchor
 from .meta_arch.proposal_network import ProposalNetworkWithMasks
@@ -60,7 +61,7 @@ def _proposal_network(cfg) -> nn.Module:
 # line, so the three names share one class, as in the JAX package; so do
 # GeneralizedRCNN and ProposalVisibleRCNN. AblationMetaArch picks its head
 # (LRTBHead, LRTBTopkHead, PointSetHead, AnchorHead) by
-# MODEL.META_ARCH.NAME. Not ported yet: CornerNet (ROADMAP.md queue 1).
+# MODEL.META_ARCH.NAME. Every name of the JAX package's registry is here.
 META_ARCHS = {
     "FCOS": FCOS,
     "FCOSV2": FCOS,
@@ -89,6 +90,7 @@ META_ARCHS = {
     "AblationMetaArch": AblationMetaArch,
     "ProposalNetwork": _proposal_network,
     "ProposalNetworkWithMasks": _proposal_network,
+    "CornerNet": CornerNet,
 }
 
 

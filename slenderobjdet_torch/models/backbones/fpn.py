@@ -10,6 +10,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..layers import Conv2d, get_norm
+from .hourglass import build_hourglass_backbone
 from .resnet import RESNET_STRIDES, resnet_from_cfg, resnet_output_channels
 
 
@@ -129,6 +130,7 @@ BACKBONES = {
     "build_retinanet_resnet_fpn_backbone_use_p5":
         build_retinanet_resnet_fpn_backbone_use_p5,
     "build_resnet_backbone": build_resnet_backbone,
+    "build_hourglass_backbone": build_hourglass_backbone,
 }
 
 

@@ -21,6 +21,11 @@ statistic.
 ``MODEL.RESNETS.DEFORM_ON_PER_STAGE`` makes a stage's conv2 a ``DFConv2d``
 (modulated with ``DEFORM_MODULATED``) where it has stride 1, groups 1 and
 dilation 1; such a block takes the plain path.
+
+``TPU.REMAT_BACKBONE`` recomputes every residual block's activations in the
+backward instead of storing them (``layers.rematerialized``; the stem is
+stored), as the JAX package's ``nn.remat`` does; the modules, and so the
+state dict, are the same with the flag on or off.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from torch import nn
 
 from ...ops.fused_bottleneck import fused_bottleneck
 from ...ops.fused_stem import fused_stem, stem_eligible
-from ..layers import Conv2d, DFConv2d, get_norm
+from ..layers import Conv2d, DFConv2d, get_norm, rematerialized
 
 # depth -> (block type, stage block counts)
 RESNET_SPECS = {
@@ -150,10 +155,12 @@ class ResNet(nn.Module):
                  stride_in_1x1: bool = True, res5_dilation: int = 1,
                  deform_on_per_stage: Sequence[bool] = (False,) * 4,
                  deform_modulated: bool = False,
-                 fused_blocks: bool = False, fused_stem: bool = False):
+                 fused_blocks: bool = False, fused_stem: bool = False,
+                 remat: bool = False):
         super().__init__()
         block_type, stage_blocks = RESNET_SPECS[depth]
         self.norm = norm
+        self.remat = remat
         self.out_features = tuple(out_features)
         self.strides = {f: RESNET_STRIDES[f] for f in self.out_features}
         self.fused_stem = fused_stem
@@ -207,7 +214,8 @@ class ResNet(nn.Module):
         features: Dict[str, torch.Tensor] = {}
         for name, blocks in self.stages:
             for block in blocks:
-                out = getattr(self, block)(out)
+                m = getattr(self, block)
+                out = rematerialized(m, out) if self.remat else m(out)
             if name in self.out_features:
                 features[name] = out
         return features
@@ -241,4 +249,5 @@ def resnet_from_cfg(cfg) -> ResNet:
         deform_modulated=r.DEFORM_MODULATED,
         fused_blocks=r.FUSED_BLOCKS,
         fused_stem=r.FUSED_STEM,
+        remat=cfg.TPU.REMAT_BACKBONE,
     )

@@ -15,6 +15,11 @@ statistics are reduced over the processes (``parallel.multihost.
 sum_over_processes``), so that "BN" and "SyncBN" are one module whose
 statistics are those of the global batch, as under the JAX package's
 sharded jit. ``precise_bn_stats`` enters the context without the reduction.
+
+``rematerialized`` runs a block whose activations the backward recomputes
+(``TPU.REMAT_BACKBONE``, the JAX package's ``nn.remat``): it carries the
+forward's statistics mode into the recompute and keeps the recompute from
+updating running statistics a second time.
 """
 
 from __future__ import annotations
@@ -29,12 +34,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.deform_conv import deform_apply, deform_conv2d_batched, kernel_base_offsets
 from ..parallel.multihost import sum_over_processes
 
-# None: running statistics; True / False: batch statistics, reduced over the
-# process group or not
+# mode None: running statistics; True / False: batch statistics, reduced
+# over the process group or not. update False: a recompute, which leaves the
+# running statistics as they are.
 _BATCH_STATS = threading.local()
 
 
@@ -49,6 +56,40 @@ def batch_statistics(sync: bool = True):
         yield
     finally:
         _BATCH_STATS.mode = prev
+
+
+@contextlib.contextmanager
+def _statistics_state(mode, update: bool):
+    prev = (getattr(_BATCH_STATS, "mode", None), getattr(_BATCH_STATS, "update", True))
+    _BATCH_STATS.mode, _BATCH_STATS.update = mode, update
+    try:
+        yield
+    finally:
+        _BATCH_STATS.mode, _BATCH_STATS.update = prev
+
+
+def rematerialized(fn, *args):
+    """``fn(*args)``, whose activations autograd recomputes in the backward
+    instead of storing them (``torch.utils.checkpoint``, non-reentrant); a
+    plain call where no gradient is recorded.
+
+    The recompute runs when the backward reaches it: after ``loss`` has left
+    ``batch_statistics()``, and on CUDA in autograd's own thread. So the
+    statistics mode of the forward is captured here and set around both
+    runs, and only the first run updates the running statistics: the
+    recompute normalises by the same batch statistics and counts nothing
+    twice."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    mode = getattr(_BATCH_STATS, "mode", None)
+    runs = []
+
+    def run(*inner):
+        with _statistics_state(mode, update=not runs):
+            runs.append(None)
+            return fn(*inner)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def uses_batch_statistics(loss):
@@ -162,17 +203,21 @@ class BatchNorm(nn.Module):
         var = (sum_over_processes(sq) if sync else sq) / n
         return mean, var, n
 
+    @torch.no_grad()
+    def _update_running(self, mean, var, n):
+        m = self.momentum
+        unbiased = var * (n / torch.clamp(n - 1, min=1))
+        self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+        self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         sync = getattr(_BATCH_STATS, "mode", None)
         if sync is None:
             mean, var = self.running_mean, self.running_var
         else:
             mean, var, n = self._batch_moments(x, sync)
-            with torch.no_grad():
-                m = self.momentum
-                unbiased = var * (n / torch.clamp(n - 1, min=1))
-                self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
-                self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
+            if getattr(_BATCH_STATS, "update", True):
+                self._update_running(mean, var, n)
         shape = (1, -1) + (1,) * (x.ndim - 2)
         inv = self.weight * torch.rsqrt(var + self.eps)
         return (x * inv.to(x.dtype).view(shape)
@@ -294,15 +339,17 @@ def init_detector_weights(model: nn.Module, generator: torch.Generator) -> None:
     classification bias to its focal prior afterwards. A deformable conv's
     (K, Cin, Cout) weight is drawn from normal(0, 0.01) wherever it sits, and
     a ``DFConv2d``'s ``offset_conv`` starts at zero, so that its samples
-    start on the plain conv's grid."""
+    start on the plain conv's grid (a conv of another name or parent is
+    drawn like any other)."""
     def normal(t, std):
         t.copy_(torch.randn(t.shape, generator=generator) * std)
 
+    dcn_offsets = {id(m.offset_conv) for m in model.modules() if isinstance(m, DFConv2d)}
     for name, m in model.named_modules():
         if isinstance(m, DeformConvLayer):
             normal(m.weight, 0.01)
             m.bias.zero_()
-        elif name.endswith("offset_conv") and isinstance(m, nn.Conv2d):
+        elif id(m) in dcn_offsets:
             m.weight.zero_()
             m.bias.zero_()
         elif isinstance(m, nn.Conv2d):

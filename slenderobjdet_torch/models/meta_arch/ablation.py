@@ -327,13 +327,8 @@ class AblationMetaArch(RepPointsModule):
     # ------------------------------------------------------------ weights
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """``init_detector_weights``, ``offset_conv`` (which that function
-        zeroes, as a ``DFConv2d``'s) drawn from normal(0, 0.01) as the JAX
-        head draws it, and the cls bias at the focal prior."""
+        """``init_detector_weights`` and the cls bias at the focal prior."""
         init_detector_weights(self, generator)
-        conv = getattr(self.head, "offset_conv", None)
-        if conv is not None:
-            conv.weight.copy_(torch.randn(conv.weight.shape, generator=generator) * 0.01)
         self.head.cls_out.bias.fill_(prior_bias(self.head.prior_prob))
 
     # ------------------------------------------------------------ helpers

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("nms.cu", "fused_stem.cu", "fused_bottleneck.cu",
-           "dma_streams_probe.cu", "bw_probe.cu", "rotated.cu")
+           "dma_streams_probe.cu", "bw_probe.cu", "rotated.cu", "corner_pool.cu")
 HEADERS = ("hopper.cuh",)     # included by the sources, not compiled alone
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libslenderobjdet_kernels.so"
@@ -36,7 +36,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 LAUNCHES: Dict[str, int] = {"nms": 0, "fused_stem": 0, "fused_bottleneck": 0,
                             "fused_kernel_probe": 0, "dma_streams_probe": 0,
-                            "bw_probe": 0, "rotated_iou": 0, "rotated_nms": 0}
+                            "bw_probe": 0, "rotated_iou": 0, "rotated_nms": 0,
+                            "corner_pool": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -58,6 +59,8 @@ _SIGNATURES = {
     "rotated_iou_launch": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
     "rotated_nms_smem_bytes": [_I],
     "rotated_nms_launch": [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P],
+    "corner_pool_forward_launch": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "corner_pool_backward_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

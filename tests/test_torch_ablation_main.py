@@ -135,7 +135,7 @@ def test_deform_convs_run_in_float32_whatever_the_compute_dtype(monkeypatch):
 # ------------------------------------------------------- registry, build
 def test_registry_holds_twenty_three_names():
     assert {"AblationMetaArch", "FCOSTopK", "FCOSAnchor"} <= set(META_ARCHS)
-    assert len(META_ARCHS) == 27
+    assert len(META_ARCHS) == 28
 
 
 @pytest.mark.parametrize("yaml_name,head,adaption,anchors", [

@@ -243,7 +243,7 @@ def test_fcosv3_without_a_center_mask_is_fcos(v3):
 
 
 def test_registry_and_bridge_carry_fcosv3(v3):
-    assert len(META_ARCHS) == 27 and META_ARCHS["FCOSV3"] is tfcos.FCOSV3
+    assert len(META_ARCHS) == 28 and META_ARCHS["FCOSV3"] is tfcos.FCOSV3
     model = port_v3(v3["variables"])
     leaves = jax.tree_util.tree_leaves(v3["variables"])
     assert len(flax_to_state_dict(v3["variables"])) == len(leaves) == len(model.state_dict())

@@ -24,13 +24,14 @@ RETINA_CONFIG = ROOT / "configs/retina/retinanet_R_50_FPN_1x.yaml"
 RCNN_CONFIG = ROOT / "configs/faster/faster_rcnn_R_50_FPN_1x.yaml"
 REPPOINTS_CONFIG = ROOT / "configs/rep-points/rep_points_detector_R_50_FPN_1x.yaml"
 V3_CONFIG = ROOT / "configs/fcos/fcosv3_R_50_FPN_1x.yaml"
+CORNER_CONFIG = ROOT / "configs/corner/corner_net_hourglass.yaml"
 
 
 def test_port_imports_no_jax():
     """Importing the port (its train step, probe tools and host-side data
     modules included) and building the flagship model, RetinaNet, Faster
-    R-CNN, RepPoints and FCOSV3 leaves jax, flax and the JAX package out of
-    sys.modules (a fresh interpreter)."""
+    R-CNN, RepPoints, FCOSV3 and CornerNet (at DEPTH_BLOCK 2) leaves jax,
+    flax and the JAX package out of sys.modules (a fresh interpreter)."""
     code = f"""
 import sys
 sys.path.insert(0, {str(ROOT)!r})
@@ -46,7 +47,7 @@ from slenderobjdet_torch.models.meta_arch import hybrids, rcnn, reppoints, retin
 from slenderobjdet_torch.models.meta_arch import proposal_network
 from slenderobjdet_torch.models.proposal_generator import ppg, rpg
 from slenderobjdet_torch.models import sampling
-from slenderobjdet_torch.ops import deform_conv, roi_align
+from slenderobjdet_torch.ops import corner_pool, deform_conv, roi_align
 from slenderobjdet_torch.structures import borders, native
 from slenderobjdet_torch.data import recordpack
 from slenderobjdet_torch.data.datasets import objects365
@@ -54,15 +55,16 @@ from slenderobjdet_torch.utils import smart_path
 from slenderobjdet_torch.tools import coco_to_pack
 names = []
 for config in ({str(CONFIG)!r}, {str(RETINA_CONFIG)!r}, {str(RCNN_CONFIG)!r},
-               {str(REPPOINTS_CONFIG)!r}, {str(V3_CONFIG)!r}):
+               {str(REPPOINTS_CONFIG)!r}, {str(V3_CONFIG)!r}, {str(CORNER_CONFIG)!r}):
     cfg = get_cfg()
     cfg.merge_from_file(config)
     cfg.MODEL.RESNETS.DEPTH = 18
+    cfg.MODEL.HOURGLASS.DEPTH_BLOCK = 2
     model = build_model(cfg, device="cpu")
     make_train_step(model, build_optimizer(cfg, model), cfg)
     names.append(type(model).__name__)
 assert names == ["FCOS", "RetinaNet", "ProposalVisibleRCNN", "RepPointsDetector",
-                 "FCOSV3"], names
+                 "FCOSV3", "CornerNet"], names
 borders.BorderMasks([[[0.0, 0.0, 9.0, 0.0, 9.0, 5.0]]]).masks((8, 12))
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'slenderobjdet_tpu')]
@@ -100,7 +102,7 @@ def test_unported_options_raise(key, value):
 
 
 def test_unknown_meta_architecture_lists_available():
-    cfg = _flagship(**{"MODEL.META_ARCHITECTURE": "CornerNet"})
+    cfg = _flagship(**{"MODEL.META_ARCHITECTURE": "CenterNet"})
     with pytest.raises(KeyError, match="FCOSV2.*RetinaNet"):
         build_model(cfg, device="cpu")
 
@@ -706,3 +708,64 @@ def test_rotated_kernels_match_plain_on_gpu(classes, n, max_out, thr):
     want = rotated.plain_rotated_nms(boxes, scores, thr, max_out, valid=valid)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int(want[1].sum(1).min()) >= min(max_out, 50)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("corner", ["tl", "br"])
+@pytest.mark.parametrize("shape", [(2, 24, 19, 27), (1, 128, 28, 44)])
+def test_corner_pool_kernel_matches_plain_on_gpu(shape, corner, dtype):
+    """The corner-pool kernel (one wrapper call forward, one backward)
+    against the plain ``torch.cummax`` composition on the card: the forward
+    bit for bit on ReLU outputs (ties at zero) and on integers (ties
+    anywhere); the gradients, through the ``autograd.Function``, on inputs
+    without ties (a permutation of integers along each scanned line, exact
+    in bf16), so that no tie rule decides, against the plain version's
+    autograd in fp32 on the same values, with the same support: fp32
+    within 1e-4 of the largest; bf16 within one bf16 rounding of each
+    value (the kernel sums in fp32 and rounds once; the plain version's
+    bf16 autograd rounds every addition and lies a few hundredths of the
+    largest from fp32 at the heads' shapes, ``chip_smoke.py``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from slenderobjdet_torch.ops import corner_pool as cp
+
+    dev = torch.device("cuda")
+    B, C, H, W = shape
+    gen = torch.Generator().manual_seed(11 + C)
+    plain = cp.plain_tl_pool if corner == "tl" else cp.plain_br_pool
+    pool = cp.tl_pool if corner == "tl" else cp.br_pool
+
+    def on_card(t):
+        return t.to(dtype).to(dev).contiguous(memory_format=torch.channels_last)
+
+    for a, b in ((torch.relu(torch.randn(shape, generator=gen)),
+                  torch.relu(torch.randn(shape, generator=gen))),
+                 (torch.randint(0, 8, shape, generator=gen).float(),
+                  torch.randint(0, 8, shape, generator=gen).float())):
+        a, b = on_card(a), on_card(b)
+        _build.reset_launch_counts()
+        got = pool(a, b)
+        assert _build.launch_counts()["corner_pool"] == 1
+        assert got.dtype == dtype and torch.equal(got, plain(a, b))
+
+    # no ties: a is a permutation of 0..H-1 down each column, b of 0..W-1
+    # along each row
+    a = torch.argsort(torch.rand(B, C, W, H, generator=gen), -1).transpose(2, 3).float()
+    b = torch.argsort(torch.rand(B, C, H, W, generator=gen), -1).float()
+    g = on_card(torch.randn(shape, generator=gen))
+    grads = []
+    for fn, cast in ((pool, on_card), (plain, lambda t: on_card(t).float())):
+        ta, tb = cast(a).requires_grad_(), cast(b).requires_grad_()
+        _build.reset_launch_counts()
+        (fn(ta, tb) * g.to(ta.dtype)).sum().backward()
+        grads.append((ta.grad, tb.grad))
+        if fn is pool:
+            assert _build.launch_counts()["corner_pool"] == 2
+    for got, want in zip(*grads):
+        assert got.dtype == dtype and torch.equal(got != 0, want != 0)
+        diff = (got.float() - want).abs()
+        if dtype == torch.float32:
+            assert float(diff.max() / want.abs().max()) <= 1e-4
+        else:
+            assert bool((diff <= 2 ** -8 * want.abs() + 1e-6 * want.abs().max()).all())

@@ -207,7 +207,7 @@ def assert_buffers_close(model, params, want_buffers, tol=STAT_RATIO):
 
 # ------------------------------------------------------------ registry
 def test_registry_dispatches_as_jax():
-    assert len(META_ARCHS) == 27
+    assert len(META_ARCHS) == 28
     for arch in ("ProposalNetwork", "ProposalNetworkWithMasks"):
         for generator, cls in (("RepPointsGenerator", RepPointsGenerator),
                                ("PointsProposalGenerator", tppg.PointsProposalGenerator),

@@ -510,12 +510,13 @@ def test_rcnn_predict_matches_jax(rcnn_pair, arch):
 def test_registry_holds_the_fourteen_names():
     """The fourteen names of the earlier chassis, the six of deformable
     convolution and the point-set family, and the ablation chassis with its
-    two FCOS diagnosis detectors, the two proposal networks, FCOSV3 and
-    RotatedRetinaNet."""
+    two FCOS diagnosis detectors, the two proposal networks, FCOSV3,
+    RotatedRetinaNet and CornerNet."""
     assert sorted(META_ARCHS) == sorted(FOURTEEN + [
         "DeformableConvRetinaNet", "RepPointsDetector", "RepPointsCenterness", "RepPointsV2",
         "FCOSRepPoints", "ReppointsRetinaNet", "AblationMetaArch", "FCOSTopK", "FCOSAnchor",
-        "ProposalNetwork", "ProposalNetworkWithMasks", "FCOSV3", "RotatedRetinaNet"])
+        "ProposalNetwork", "ProposalNetworkWithMasks", "FCOSV3", "RotatedRetinaNet",
+        "CornerNet"])
 
 
 @pytest.mark.parametrize("arch", ["ProposalVisibleRCNN", "GeneralizedRCNN",

@@ -457,7 +457,7 @@ def test_moment_transform_raises_at_construction():
     assert torch_build_model(cfg, device="cpu").transform_method == "minmax"
 
 
-@pytest.mark.parametrize("arch", ["NoSuchArch", "CornerNet"])
+@pytest.mark.parametrize("arch", ["NoSuchArch", "CenterNet"])
 def test_unported_names_still_raise(arch):
     with pytest.raises(KeyError, match="RepPointsV2"):
         torch_build_model(tiny_cfg(torch_get_cfg, arch), device="cpu")

@@ -115,7 +115,7 @@ def test_slender_centerness_targets_match_jax():
 
 # ------------------------------------------------------- registry and build
 def test_registry_holds_the_six_new_names():
-    assert set(NEW_NAMES) <= set(META_ARCHS) and len(META_ARCHS) == 27
+    assert set(NEW_NAMES) <= set(META_ARCHS) and len(META_ARCHS) == 28
 
 
 @pytest.mark.parametrize("arch", NEW_NAMES)

@@ -653,15 +653,17 @@ def test_registry_holds_the_eleven_names():
     family's (tests/test_torch_reppoints_variants.py) and the ablation
     chassis's and its two FCOS diagnosis detectors' (tests/test_torch_ablation.py,
     tests/test_torch_fcos_anchor.py), the proposal networks'
-    (tests/test_torch_proposal.py), FCOSV3 (tests/test_torch_fcosv3.py) and
-    RotatedRetinaNet (tests/test_torch_rotated_retinanet.py)."""
+    (tests/test_torch_proposal.py), FCOSV3 (tests/test_torch_fcosv3.py),
+    RotatedRetinaNet (tests/test_torch_rotated_retinanet.py) and CornerNet
+    (tests/test_torch_cornernet.py)."""
     chassis = ELEVEN + ["DeformableConvRetinaNet"]
     assert set(chassis) <= set(META_ARCHS) and len(set(chassis)) == 12
     assert set(META_ARCHS) - set(chassis) == {
         "ProposalVisibleRCNN", "GeneralizedRCNN", "ProposalVisibleRCNNWithAnchor",
         "RepPointsDetector", "RepPointsCenterness", "RepPointsV2", "FCOSRepPoints",
         "ReppointsRetinaNet", "FCOSTopK", "FCOSAnchor", "AblationMetaArch",
-        "ProposalNetwork", "ProposalNetworkWithMasks", "FCOSV3", "RotatedRetinaNet"}
+        "ProposalNetwork", "ProposalNetworkWithMasks", "FCOSV3", "RotatedRetinaNet",
+        "CornerNet"}
 
 
 @pytest.mark.parametrize("arch", ELEVEN)
@@ -707,7 +709,7 @@ def test_retina_yamls_build_on_the_cpu(yaml_name, arch):
 
 
 def test_build_model_lists_what_is_available():
-    cfg = tiny_cfg(torch_get_cfg, "CornerNet")
+    cfg = tiny_cfg(torch_get_cfg, "CenterNet")
     with pytest.raises(KeyError, match="NearestRetinaNet") as err:
         torch_build_model(cfg, device="cpu")
     assert all(name in str(err.value) for name in ELEVEN)
