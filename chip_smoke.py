@@ -221,16 +221,18 @@ if it fails:
    27 anchors a cell, 708,939 at 896x1408) and the rotated Faster R-CNN
    (configs/rotated/faster_rcnn_rotated_R_50_FPN_1x.yaml: RRPN over 945,252
    anchors, RROIHeads), nothing cut, bf16, flags on and off, seeded. Each:
-   head outputs against fp32; the ``rotated_iou`` kernel at its train
-   shapes (100 padded gt x all anchors; the ROI sampling's 100 x 1,100)
-   against the plain IoU, max |diff| <= 1e-6 and the matcher's labels equal
-   but where an IoU lies within 1e-6 of a threshold (counted); the
-   ``rotated_nms`` kernel on the model's own offset candidates
-   (RotatedRetinaNet B=8 5,000 -> 100 at both buckets; the RRPN's B=8 5,000
-   and B=16 10,000 -> 1,000; the box head's B=8 1,000 -> 100) identical to
-   the plain loop; kernel and plain timed, the bound from the fp32
-   operations the kernel reports; 3 predict calls of B=8 at 896x1408 and
-   3 at 1408x896 with exact launches (1 + 13 + 1 rotated NMS; R-CNN 2),
+   head outputs against fp32; the corner kernel bit for bit against
+   ``rotated_to_corners``; the ``rotated_iou`` kernel at its train shapes
+   (100 padded gt x all anchors; the ROI sampling's 100 x 1,100) bit for
+   bit against the plain IoU (``torch.equal``); the ``rotated_nms``
+   kernels on the model's own offset candidates (RotatedRetinaNet B=8
+   5,000 -> 100 at both buckets; the RRPN's B=8 5,000 and B=16 10,000 ->
+   1,000; the box head's B=8 1,000 -> 100) identical to the plain loop;
+   the kernels alone (queued) and the wrapper calls timed, the NMS's by
+   kernel from the profiler, the bounds reckoned here from the inputs
+   (``iou_bound``; for NMS the pairs greedy NMS needs, ``greedy_pairs``);
+   3 predict calls of B=8 at 896x1408 and 3 at 1408x896 with exact
+   launches (1 + 13 + 1 rotated NMS; R-CNN 2),
    outputs (B, 100, 5) finite, fused against unfused detections class by
    class (``comparable_retinanet``; R-CNN on shared proposals); 11 + 4
    train steps at B=16 with 100 padded rotated gt, flags on and off, every
@@ -4489,8 +4491,14 @@ ROTATED_RETINANET_YAML = "configs/rotated/rotated_retinanet_R_50_FPN_1x.yaml"
 ROTATED_RCNN_YAML = "configs/rotated/faster_rcnn_rotated_R_50_FPN_1x.yaml"
 ROTATED_HW = LOADER_SHAPES              # both buckets, 896 x 1408 and 1408 x 896
 ROTATED_ANGLES = np.array([-45, -30, -15, 0, 15, 30, 45, 60, 90], np.float32)
-ROTATED_IOU_TOL = 1e-6       # rotated_iou kernel vs plain, max |diff|
-ROTATED_BAND = 1e-6          # an IoU this near a threshold may label either way
+# The operations a pair needs, for the bounds (``iou_bound``): the
+# extent test (4 gaps, 3 maxima, the margin's maximum and product, the
+# comparison) and, for a pair not apart, a clip: four half-planes of a
+# 6-vertex ring with 2 crossings (2 + 5 x 6 + 8 x 2 = 48 each), an 8-vertex
+# shoelace (4 x 8 + 2) and the IoU (2 adds, a maximum, a division, a
+# comparison).
+ROTATED_EXTENT_OPS = 10
+ROTATED_CLIP_OPS = 4 * 48 + 34 + 5
 ROTATED_RETINANET_PREDICT = {"fused_stem": 1, "fused_bottleneck": 13, "rotated_nms": 1}
 ROTATED_RETINANET_STEP = {"fused_stem": 1, "fused_bottleneck": 13, "rotated_iou": 16}
 ROTATED_RCNN_PREDICT = {"fused_stem": 1, "fused_bottleneck": 13, "rotated_nms": 2}
@@ -4540,80 +4548,190 @@ def rotated_synthetic_dataset(name, tmpdir, seed=10, repeat=1):
     return gt
 
 
-def rotated_iou_check(kernels, smi, family, gt, anchors, thresholds, labels, key,
-                      low_quality=True):
-    """The IoU kernel at a main-path shape (one image's 100 padded gt
-    against all its anchors) against the plain version on the same input:
-    max |diff| <= ROTATED_IOU_TOL, and the matcher's labels from the two
-    matrices equal except where an IoU lies within ROTATED_BAND of a
-    threshold (counted); then the kernel and the plain version timed, and
-    the bound from the fp32 operations the kernel reports."""
-    from slenderobjdet_torch.models.matchers import iou_matcher
-    from slenderobjdet_torch.ops.rotated import launch_rotated_iou, plain_pairwise_rotated_iou
+def check_corners(boxes, what):
+    """The corner kernel bit for bit against ``rotated_to_corners``."""
+    from slenderobjdet_torch.ops.rotated import _corners_and_areas, rotated_to_corners
 
-    dev = gt.device
-    work = torch.zeros(1, dtype=torch.int64, device=dev)
-    got = launch_rotated_iou(gt, anchors, work=work)
-    want = plain_pairwise_rotated_iou(gt, anchors)
+    boxes = boxes.float()
+    got = _corners_and_areas(boxes)
+    want = (rotated_to_corners(boxes).reshape(*boxes.shape[:-1], 8), boxes[..., 2] * boxes[..., 3])
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        bad = int((got[0] != want[0]).sum())
+        raise AssertionError(f"rotated corners {what}: {bad} coordinates differ from "
+                             f"rotated_to_corners")
+
+
+def iou_bound(n_bytes, rows, cols):
+    """(ms, by, operations, pairs, pairs clipped): the bound of the IoU of
+    ``rows`` (R, 5) x ``cols`` (C, 5): ROTATED_EXTENT_OPS a pair plus
+    ROTATED_CLIP_OPS a pair whose extents are not apart (``extents_apart``)
+    and whose row is not a point (``is_point``)."""
+    from slenderobjdet_torch.ops.rotated import extents_apart, is_point, rotated_to_corners
+
+    c2 = rotated_to_corners(cols.float())[None]
+    near = 0
+    for r0 in range(0, rows.shape[0], 10):
+        c1 = rotated_to_corners(rows[r0:r0 + 10].float())[:, None]
+        near += int((~extents_apart(c1, c2) & ~is_point(c1)).sum())
+    pairs = rows.shape[0] * cols.shape[0]
+    ops = pairs * ROTATED_EXTENT_OPS + near * ROTATED_CLIP_OPS
+    return (*bound_ms(n_bytes, ops, PEAK_FP32_FLOPS), ops, pairs, near)
+
+
+def greedy_pairs(boxes, scores, valid, thr, got):
+    """(pairs, pairs clipped) that greedy NMS needs on these inputs: each
+    candidate against the kept boxes before it in sorted order, up to and
+    including the first that suppresses it, the candidates taken up to the
+    last kept box once ``max_out`` are kept, else up to the last
+    selectable one; clipped, those not ``extents_apart`` whose kept box is
+    not ``is_point``. The suppressions come from the plain IoU (the kept
+    box's polygon clipped by the candidate's box), and the candidates that
+    no kept box suppresses must be the kept ones, or it fails."""
+    from slenderobjdet_torch.ops import rotated as rot
+
+    B, N = scores.shape
+    max_out = got[0].shape[1]
+    scores = scores.float()
+    selectable = valid & (scores > rot.NEG_INF / 2)
+    live = torch.where(selectable, scores, torch.full_like(scores, -float("inf")))
+    order = torch.sort(live, dim=1, descending=True, stable=True).indices
+    pairs = near = 0
+    for b in range(B):
+        m = int(selectable[b].sum())
+        kept = got[0][b][got[1][b]].long()
+        if kept.numel() == 0:
+            if m:
+                raise AssertionError(f"greedy_pairs image {b}: {m} selectable, none kept")
+            continue
+        pos = torch.empty(N, dtype=torch.long, device=scores.device)
+        pos[order[b]] = torch.arange(N, device=scores.device)
+        p = pos[kept]
+        end = int(p[-1]) + 1 if kept.numel() == max_out else m
+        cand = order[b][:end]
+        c = rot.rotated_to_corners(boxes[b].float())
+        a = boxes[b, :, 2].float() * boxes[b, :, 3].float()
+        cc, ac = c[cand][None], a[cand][None]
+        later = p[:, None] < torch.arange(end, device=p.device)[None]
+        supp, skip, rows = [], [], max(1, rot.PLAIN_CHUNK // end)
+        for r0 in range(0, kept.numel(), rows):
+            k = kept[r0:r0 + rows]
+            ck = c[k][:, None]
+            inter = rot._pair_intersection_area(ck, cc)
+            iou = inter / torch.clamp(a[k][:, None] + ac - inter, min=1e-12)
+            supp.append(iou > thr)
+            skip.append(rot.extents_apart(ck, cc) | rot.is_point(ck))
+        supp = torch.cat(supp) & later
+        first = torch.where(supp.any(0), supp.to(torch.int8).argmax(0),
+                            torch.full((end,), kept.numel(), device=p.device))
+        tested = later & (torch.arange(kept.numel(), device=p.device)[:, None] <= first[None])
+        unsuppressed = (first == kept.numel()).nonzero()[:, 0]
+        if not torch.equal(unsuppressed, p.sort().values):
+            raise AssertionError(f"greedy_pairs image {b}: the candidates no kept box "
+                                 f"suppresses are not the kept ones")
+        pairs += int(tested.sum())
+        near += int((tested & ~torch.cat(skip)).sum())
+    return pairs, near
+
+
+def nms_kernel_ms(fn, iters=5):
+    """Device ms a call of the NMS's three kernels from the profiler's
+    CUDA times, or None where it shows none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    valid = gt[:, 2] * gt[:, 3] > 0
-    labels = [iou_matcher(anchors, gt, valid, thresholds, labels,
-                          allow_low_quality_matches=low_quality,
-                          pairwise_fn=lambda *_, m=m: m)[1] for m in (got, want)]
-    near = torch.zeros_like(want, dtype=torch.bool)
-    for t in thresholds:
-        near |= (want - t).abs() <= ROTATED_BAND
-    differ = labels[0] != labels[1]
-    unexplained = int((differ & ~near.any(0)).sum())
-    log(f"rotated_iou {family} {key}: {tuple(gt.shape)} x {tuple(anchors.shape)}, max |kernel "
-        f"- plain| {err:.3e} (<= {ROTATED_IOU_TOL}), {int((want > 0).sum())} pairs overlap; "
-        f"labels differ at {int(differ.sum())} anchors, IoUs within {ROTATED_BAND} of a "
-        f"threshold at {int(near.sum())} pairs, {unexplained} differences unexplained")
-    if err > ROTATED_IOU_TOL or unexplained:
-        raise AssertionError(f"rotated_iou {family} {key}: err {err}, {unexplained} labels")
-    ops = int(work.item())
-    del labels, near, differ, want
-    ms = cuda_ms(lambda: launch_rotated_iou(gt, anchors), 5)
-    plain_ms = cuda_ms(lambda: plain_pairwise_rotated_iou(gt, anchors), 1, warmup=0)
-    b_ms, b_by = bound_ms(nbytes(gt, anchors, got), ops, PEAK_FP32_FLOPS)
-    log(f"time rotated_iou {family} {key} ({smi}): kernel {ms:.4f} ms, plain {plain_ms:.2f} ms; "
-        f"{ops / (gt.shape[0] * anchors.shape[0]):.1f} fp32 operations a pair ({ops:.4e}); "
-        f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.4f} of bound")
-    entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": None, "max_abs_err": err, "pairs": gt.shape[0] * anchors.shape[0],
-             "fp32_ops": ops}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for part in ("sort", "bits", "walk"):
+            if f"rotated_nms_{part}_kernel" in e.key:
+                out[part] = out.get(part, 0.0) + e.device_time_total / 1e3 / iters
+    return out or None
+
+
+def rotated_iou_check(kernels, smi, family, gt, anchors, key):
+    """The IoU kernel at a main-path shape (one image's 100 padded gt
+    against all its anchors) against the plain version on the same input,
+    bit for bit, and the corner kernel against ``rotated_to_corners``; then
+    the kernel alone (queued, on prepared corners) and the wrapper call
+    timed, and the plain version; the bound from the inputs
+    (``iou_bound``)."""
+    from slenderobjdet_torch.ops import rotated as rot
+
+    check_corners(gt, f"{family} {key} gt")
+    check_corners(anchors, f"{family} {key} anchors")
+    got = rot.launch_rotated_iou(gt, anchors)
+    want = rot.plain_pairwise_rotated_iou(gt, anchors)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"rotated_iou {family} {key}: kernel != plain at "
+                             f"{int((got != want).sum())} pairs, max |diff| "
+                             f"{float((got - want).abs().max()):.3e}")
+    overlap = int((want > 0).sum())
+    del want
+    prepared = (*rot._corners_and_areas(gt), *rot._corners_and_areas(anchors), got)
+    kernel_ms = cuda_ms(lambda: rot.iou_from_corners(*prepared), 20, queued=True)
+    call_ms = cuda_ms(lambda: rot.launch_rotated_iou(gt, anchors), 20)
+    plain_ms = cuda_ms(lambda: rot.plain_pairwise_rotated_iou(gt, anchors), 1, warmup=0)
+    b_ms, b_by, ops, pairs, near = iou_bound(nbytes(gt, anchors, got), gt, anchors)
+    log(f"rotated_iou {family} {key}: {tuple(gt.shape)} x {tuple(anchors.shape)}, kernel == "
+        f"plain, {overlap} pairs overlap, {near} of {pairs} pairs clipped; corners == "
+        f"rotated_to_corners")
+    log(f"time rotated_iou {family} {key} ({smi}): kernel {kernel_ms:.4f} ms, call "
+        f"{call_ms:.4f} ms, plain {plain_ms:.2f} ms; bound {b_ms:.4f} ms ({b_by}; {ops:.4e} "
+        f"operations needed), {b_ms / kernel_ms:.4f} of bound")
+    entry = {"ms": kernel_ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": None, "max_abs_err": 0.0, "pairs": pairs,
+             "pairs_clipped": near, "ops_needed": ops}
     kernels["rotated_iou"][f"at_{family}_{key}"] = entry
     return entry
 
 
 def rotated_nms_check(kernels, smi, family, key, boxes, scores, valid, thr, max_out):
-    """The NMS kernel on a model's own (offset) candidates against the plain
-    greedy loop: identical keep lists, or it fails; then both timed, and the
-    bound from the kernel's reported fp32 operations."""
-    from slenderobjdet_torch.ops.rotated import launch_rotated_nms, plain_rotated_nms
+    """The NMS kernels on a model's own (offset) candidates against the
+    plain greedy loop: identical keep lists, or it fails; then the kernels
+    alone (queued, on prepared inputs), each kernel's share (profiler) and
+    the wrapper call timed, and the plain loop; the bound from the inputs:
+    the (kept box, candidate) pairs greedy NMS needs (``greedy_pairs``)."""
+    from slenderobjdet_torch.ops import rotated as rot
 
-    work = torch.zeros(1, dtype=torch.int64, device=boxes.device)
-    got = launch_rotated_nms(boxes, scores, thr, max_out, valid=valid, work=work)
-    want = plain_rotated_nms(boxes, scores, thr, max_out, valid=valid)
+    check_corners(boxes, f"{family} {key}")
+    got = rot.launch_rotated_nms(boxes, scores, thr, max_out, valid=valid)
+    want = rot.plain_rotated_nms(boxes, scores, thr, max_out, valid=valid)
     torch.cuda.synchronize()
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise AssertionError(f"rotated_nms kernel != plain on {family}'s {key} candidates: "
                              f"{int((got[0] != want[0]).sum())} indices differ")
-    ops = int(work.item())
     kept = got[1].sum(1).tolist()
-    ms = cuda_ms(lambda: launch_rotated_nms(boxes, scores, thr, max_out, valid=valid), 5)
-    plain_ms = cuda_ms(lambda: plain_rotated_nms(boxes, scores, thr, max_out, valid=valid), 1,
-                       warmup=0)
-    b_ms, b_by = bound_ms(nbytes(boxes, scores, valid, *got), ops, PEAK_FP32_FLOPS)
     B, N = scores.shape
+    inputs = rot.nms_kernel_inputs(boxes, scores, max_out, valid)
+    kernel = lambda: rot.nms_from_inputs(inputs, thr)
+    kernel_ms = cuda_ms(kernel, 5, queued=True)
+    call_ms = cuda_ms(lambda: rot.launch_rotated_nms(boxes, scores, thr, max_out,
+                                                     valid=valid), 5)
+    parts = nms_kernel_ms(kernel)
+    plain_ms = cuda_ms(lambda: rot.plain_rotated_nms(boxes, scores, thr, max_out, valid=valid),
+                       1, warmup=0)
+    pairs, near = greedy_pairs(boxes, scores, valid, thr, got)
+    ops = pairs * ROTATED_EXTENT_OPS + near * ROTATED_CLIP_OPS
+    b_ms, b_by = bound_ms(nbytes(boxes, scores, valid, *got), ops, PEAK_FP32_FLOPS)
     log(f"rotated_nms {family} {key} ({smi}): kernel == plain at B={B} N={N} thr {thr} "
-        f"max_out {max_out}, {float(valid.float().mean()):.3f} valid, kept an image "
-        f"{min(kept)}-{max(kept)}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms; {ops:.4e} fp32 "
-        f"operations; bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.4f} of bound")
-    entry = {"batch": B, "candidates": N, "max_out": max_out, "thr": thr, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-             "max_abs_err": 0.0, "kept": sum(kept), "fp32_ops": ops}
+        f"max_out {max_out}, {float(valid.float().mean()):.3e} valid, kept an image "
+        f"{min(kept)}-{max(kept)}; (kept, candidate) pairs greedy NMS needs {pairs}, "
+        f"{near} clipped")
+    log(f"time rotated_nms {family} {key} ({smi}): kernel {kernel_ms:.4f} ms, call "
+        f"{call_ms:.4f} ms, plain {plain_ms:.2f} ms; by kernel (profiler) "
+        + (", ".join(f"{k} {v:.4f}" for k, v in parts.items()) if parts else "not measured")
+        + f"; bound {b_ms:.4f} ms ({b_by}; {ops:.4e} operations needed), "
+        f"{b_ms / kernel_ms:.4f} of bound")
+    entry = {"batch": B, "candidates": N, "max_out": max_out, "thr": thr, "ms": kernel_ms,
+             "call_ms": call_ms, "parts_ms": parts, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": None, "max_abs_err": 0.0, "kept": sum(kept),
+             "pairs": pairs, "pairs_clipped": near, "ops_needed": ops,
+             "scratch_bytes": inputs["scratch"].numel()}
     kernels["rotated_nms"][f"at_{family}_{key}"] = entry
     return entry
 
@@ -4706,7 +4824,7 @@ def phase_rotated_retinanet(kernels, dev, smi):
             raise AssertionError(f"{anchors.shape[0]} rotated anchors at {hw}")
         gt = torch.as_tensor(rotated_train_batch(1, 33, hw)["gt_rboxes"][0], device=dev)
         e = rotated_iou_check(kernels, smi, "rotated_retinanet", gt, anchors,
-                              model.iou_thresholds, model.iou_labels, "train_100x708939")
+                              "train_100x708939")
         kernels["rotated_iou"].update({k: e[k] for k in ("ms", "plain_ms", "bound_ms",
                                                          "bound_by", "library_ms",
                                                          "max_abs_err")})
@@ -4861,13 +4979,11 @@ def phase_rotated_rcnn(kernels, dev, smi):
             del logits, deltas, boxes, scores, ok, levels
         torch.cuda.empty_cache()
         gt = torch.as_tensor(rotated_train_batch(1, 41, hw)["gt_rboxes"][0], device=dev)
-        rotated_iou_check(kernels, smi, "rotated_rcnn", gt, anchors, rpn.iou_thresholds,
-                          rpn.iou_labels, "rrpn_train_100x945252")
+        rotated_iou_check(kernels, smi, "rotated_rcnn", gt, anchors, "rrpn_train_100x945252")
         logits, deltas, feats, sizes = rpn_outputs(reqs[hw][0]["image"])
         props, _, prop_valid = rpn.proposals(anchors, counts, logits, deltas, sizes, train=False)
         rotated_iou_check(kernels, smi, "rotated_rcnn", gt, torch.cat([props[0], gt]),
-                          roi.iou_thresholds, roi.iou_labels, "roi_sampling_100x1100",
-                          low_quality=False)
+                          "roi_sampling_100x1100")
         shape_rcnn_classifier(models, feats, props, prop_valid)
         boxes, scores, classes, valid, _ = roi.candidates(model.roi_box, feats, props, prop_valid)
         rotated_nms_check(kernels, smi, "rotated_rcnn", "box_head_B8",

@@ -56,8 +56,10 @@ _SIGNATURES = {
                           _I, _I, _I, _I, _I, _P],
     "dma_streams_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bw_probe_launch": [_I, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rotated_iou_launch": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
+    "rotated_corners_launch": [_P, _I, _P, _P, _P],
+    "rotated_iou_launch": [_P, _P, _P, _P, _I, _I, _P, _P],
     "rotated_nms_smem_bytes": [_I],
+    "rotated_nms_scratch_bytes": [_I, _I],
     "rotated_nms_launch": [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P],
     "corner_pool_forward_launch": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "corner_pool_backward_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

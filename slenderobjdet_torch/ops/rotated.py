@@ -13,10 +13,13 @@ coordinates (y down): detectron2's RotatedBoxes convention.
 - ``plain_pairwise_rotated_iou`` and ``plain_rotated_nms``: the plain
   versions of the IoU matrix and of greedy NMS (``max_out`` argmax steps,
   ties to the lowest index, the ``NEG_INF / 2`` liveness test).
+- ``extents_apart`` and ``is_point``: the rules by which the kernels skip
+  a pair without clipping it (the plain clip's intersection is then
+  exactly +0).
 - ``pairwise_rotated_iou`` and ``rotated_nms``: on CPU tensors the plain
-  versions; on CUDA tensors one launch of the kernels of ``csrc/rotated.cu``
-  (``launch_rotated_iou``, ``launch_rotated_nms``), which give the plain
-  versions' results bit for bit from the same corners and areas.
+  versions; on CUDA tensors the kernels of ``csrc/rotated.cu``
+  (``launch_rotated_iou``, ``launch_rotated_nms``; one wrapper call counts
+  one launch), which give the plain versions' results bit for bit.
 - ``get_rotated_deltas`` / ``apply_rotated_deltas``: Box2BoxTransformRotated
   (the angle difference floor-modded into [-180, 180)).
 """
@@ -152,50 +155,96 @@ def plain_rotated_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: 
     return torch.where(keep_valid, keep_idx, 0), keep_valid
 
 
+# ------------------------------------------------ pairs that cannot overlap
+MARGIN_SCALE = 2.0 ** -17   # m = MARGIN_SCALE * the pair's largest |coordinate|
+SIDE_SCALE = 2.0 ** -16     # a regular box's edges: larger component >= SIDE_SCALE * M
+
+
+def box_extents(corners: torch.Tensor):
+    """(..., 4, 2) corners -> the axis-aligned extent (x0, x1, y0, y1) as
+    (..., 4) and the margin scale (...,): the largest |coordinate| where the
+    box is regular (finite corners, every edge's larger component at least
+    ``SIDE_SCALE`` times it, the first turn counter-clockwise), else +inf."""
+    lo, hi = corners.amin(-2), corners.amax(-2)
+    box = torch.stack([lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]], -1)
+    mag = box.abs().amax(-1)
+    edges = torch.roll(corners, -1, dims=-2) - corners
+    shortest = edges.abs().amax(-1).amin(-1)
+    turn = (edges[..., 0, 0] * edges[..., 1, 1]) - (edges[..., 0, 1] * edges[..., 1, 0])
+    regular = (torch.isfinite(corners).flatten(-2).all(-1) & (shortest >= SIDE_SCALE * mag)
+               & (turn > 0))
+    return box, torch.where(regular, mag, torch.full_like(mag, math.inf))
+
+
+def extents_apart(c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
+    """Whether boxes ``c1`` and ``c2`` ((..., 4, 2) corners, broadcast)
+    cannot overlap: one of the four gaps between their extents exceeds
+    ``MARGIN_SCALE`` times the larger of their scales (``box_extents``).
+    The plain clip then returns an intersection of exactly +0: the margin
+    is derived in ``csrc/rotated.cu``, whose kernels skip such pairs by this
+    rule. The plain versions do not call it."""
+    (b1, s1), (b2, s2) = box_extents(c1), box_extents(c2)
+    margin = MARGIN_SCALE * torch.maximum(s1, s2)
+    gap = torch.maximum(torch.maximum(b2[..., 0] - b1[..., 1], b1[..., 0] - b2[..., 1]),
+                        torch.maximum(b2[..., 2] - b1[..., 3], b1[..., 2] - b2[..., 3]))
+    return gap > margin
+
+
+def is_point(corners: torch.Tensor) -> torch.Tensor:
+    """Whether the four corners (..., 4, 2) are one point (a padded row of
+    zeros): clipped by any box, such a polygon has an intersection of
+    exactly +0 (its ring holds copies of the point or nothing), so the
+    kernels do not clip it either."""
+    return (corners == corners[..., :1, :]).all(-1).all(-1)
+
+
+# ------------------------------------------------------------ the kernels
 def _corners_and_areas(boxes: torch.Tensor):
-    """The kernels' inputs, formed by the plain version's own operations:
-    (..., 8) float32 corners and (...,) areas."""
-    boxes = boxes.to(torch.float32)
-    corners = rotated_to_corners(boxes).reshape(*boxes.shape[:-1], 8).contiguous()
-    return corners, (boxes[..., 2] * boxes[..., 3]).contiguous()
+    """The kernels' inputs: (..., 8) float32 corners and (...,) areas,
+    formed on the card by ``rotated_corners_kernel``, which repeats the
+    plain ``rotated_to_corners`` and ``w * h`` operation for operation."""
+    boxes = boxes.to(torch.float32).contiguous()
+    corners = torch.empty((*boxes.shape[:-1], 8), dtype=torch.float32, device=boxes.device)
+    areas = torch.empty(boxes.shape[:-1], dtype=torch.float32, device=boxes.device)
+    rc = _build.library().rotated_corners_launch(
+        boxes.data_ptr(), boxes.numel() // 5, corners.data_ptr(), areas.data_ptr(),
+        _build.stream_ptr(boxes))
+    _build.check(rc, "rotated_corners_launch")
+    return corners, areas
 
 
-def launch_rotated_iou(boxes1: torch.Tensor, boxes2: torch.Tensor,
-                       work: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One launch of the IoU kernel on CUDA tensors: (N, 5), (M, 5) -> (N, M)
-    float32. ``work``, a CUDA int64 tensor of one element, receives the fp32
-    operations the kernel took (counting slows it: leave it out when
-    timing)."""
-    _build.require_cuda("rotated_iou", boxes1, boxes2,
-                        *([] if work is None else [work]))
+def iou_from_corners(c1: torch.Tensor, a1: torch.Tensor, c2: torch.Tensor,
+                     a2: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """One launch of the IoU kernel on prepared CUDA inputs: corners (N, 8)
+    and (M, 8), areas (N,) and (M,) float32, contiguous, into ``out`` (N, M)."""
+    n, m = c1.shape[0], c2.shape[0]
+    if n and m:
+        rc = _build.library().rotated_iou_launch(
+            c1.data_ptr(), a1.data_ptr(), c2.data_ptr(), a2.data_ptr(), n, m,
+            out.data_ptr(), _build.stream_ptr(c1))
+        _build.check(rc, "rotated_iou_launch")
+        _build.LAUNCHES["rotated_iou"] += 1
+    return out
+
+
+def launch_rotated_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """The IoU kernel on CUDA tensors: (N, 5), (M, 5) -> (N, M) float32, the
+    corners formed first (two launches of the corner kernel)."""
+    _build.require_cuda("rotated_iou", boxes1, boxes2)
     if boxes1.dim() != 2 or boxes2.dim() != 2 or boxes1.shape[1] != 5 \
             or boxes2.shape[1] != 5:
         raise ValueError(f"rotated_iou: boxes {tuple(boxes1.shape)} and "
                          f"{tuple(boxes2.shape)}, expected (N, 5) and (M, 5)")
-    c1, a1 = _corners_and_areas(boxes1)
-    c2, a2 = _corners_and_areas(boxes2)
-    n, m = boxes1.shape[0], boxes2.shape[0]
-    out = torch.empty((n, m), dtype=torch.float32, device=boxes1.device)
-    if n == 0 or m == 0:
-        return out
-    rc = _build.library().rotated_iou_launch(
-        c1.data_ptr(), a1.data_ptr(), c2.data_ptr(), a2.data_ptr(), n, m, out.data_ptr(),
-        None if work is None else work.data_ptr(), _build.stream_ptr(boxes1))
-    _build.check(rc, "rotated_iou_launch")
-    _build.LAUNCHES["rotated_iou"] += 1
-    return out
+    out = torch.empty((boxes1.shape[0], boxes2.shape[0]), dtype=torch.float32,
+                      device=boxes1.device)
+    return iou_from_corners(*_corners_and_areas(boxes1), *_corners_and_areas(boxes2), out)
 
 
-def launch_rotated_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
-                       max_out: int, valid: Optional[torch.Tensor] = None,
-                       work: Optional[torch.Tensor] = None
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the NMS kernel on CUDA tensors: boxes (B, N, 5), scores
-    (B, N), valid (B, N) bool or None -> keep_idx (B, max_out) int32, keep_valid
-    (B, max_out) bool, equal to ``plain_rotated_nms``. ``work`` as in
-    ``launch_rotated_iou``."""
-    given = [t for t in (boxes, scores, valid, work) if t is not None]
-    _build.require_cuda("rotated_nms", *given)
+def nms_kernel_inputs(boxes: torch.Tensor, scores: torch.Tensor, max_out: int,
+                      valid: Optional[torch.Tensor] = None) -> dict:
+    """Everything one NMS launch takes, on CUDA tensors: corners, areas,
+    scores, valid, the outputs and the scratch (``torch.empty``), after the
+    checks ``launch_rotated_nms`` makes."""
     bsz, n = scores.shape
     if boxes.shape != (bsz, n, 5) or n < 1 or max_out < 1 or (
             valid is not None and (valid.shape != (bsz, n) or valid.dtype != torch.bool)):
@@ -206,19 +255,44 @@ def launch_rotated_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold:
             boxes.device).shared_memory_per_block_optin:
         raise ValueError(f"rotated_nms: N={n} candidates do not fit in shared memory "
                          f"(at most 16384 an image)")
+    scratch = lib.rotated_nms_scratch_bytes(bsz, n)
+    if scratch < 0:
+        raise ValueError(f"rotated_nms: B={bsz}, N={n} needs over 2 GiB of scratch")
     corners, areas = _corners_and_areas(boxes)
-    scores = scores.to(torch.float32).contiguous()
-    valid = None if valid is None else valid.contiguous()
-    keep_idx = torch.empty((bsz, max_out), dtype=torch.int32, device=boxes.device)
-    keep_valid = torch.empty((bsz, max_out), dtype=torch.bool, device=boxes.device)
-    rc = lib.rotated_nms_launch(
-        corners.data_ptr(), areas.data_ptr(), scores.data_ptr(),
-        None if valid is None else valid.data_ptr(), bsz, n,
-        ctypes.c_float(iou_threshold), max_out, keep_idx.data_ptr(), keep_valid.data_ptr(),
-        None if work is None else work.data_ptr(), _build.stream_ptr(boxes))
+    dev = boxes.device
+    return {"corners": corners, "areas": areas,
+            "scores": scores.to(torch.float32).contiguous(),
+            "valid": None if valid is None else valid.contiguous(),
+            "keep_idx": torch.empty((bsz, max_out), dtype=torch.int32, device=dev),
+            "keep_valid": torch.empty((bsz, max_out), dtype=torch.bool, device=dev),
+            "scratch": torch.empty(scratch, dtype=torch.uint8, device=dev)}
+
+
+def nms_from_inputs(inputs: dict, iou_threshold: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One wrapper-level launch of the NMS kernels (the sort, then the bits
+    and the walk a window) on ``nms_kernel_inputs``' tensors."""
+    bsz, max_out = inputs["keep_idx"].shape
+    valid = inputs["valid"]
+    rc = _build.library().rotated_nms_launch(
+        inputs["corners"].data_ptr(), inputs["areas"].data_ptr(), inputs["scores"].data_ptr(),
+        None if valid is None else valid.data_ptr(), bsz, inputs["scores"].shape[1],
+        ctypes.c_float(iou_threshold), max_out, inputs["keep_idx"].data_ptr(),
+        inputs["keep_valid"].data_ptr(), inputs["scratch"].data_ptr(),
+        _build.stream_ptr(inputs["scores"]))
     _build.check(rc, "rotated_nms_launch")
     _build.LAUNCHES["rotated_nms"] += 1
-    return keep_idx, keep_valid
+    return inputs["keep_idx"], inputs["keep_valid"]
+
+
+def launch_rotated_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+                       max_out: int, valid: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The NMS kernels on CUDA tensors: boxes (B, N, 5), scores (B, N), valid
+    (B, N) bool or None -> keep_idx (B, max_out) int32, keep_valid
+    (B, max_out) bool, equal to ``plain_rotated_nms``. One corner launch,
+    then ``nms_from_inputs``."""
+    _build.require_cuda("rotated_nms", *[t for t in (boxes, scores, valid) if t is not None])
+    return nms_from_inputs(nms_kernel_inputs(boxes, scores, max_out, valid), iou_threshold)
 
 
 def pairwise_rotated_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:

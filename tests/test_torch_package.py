@@ -666,24 +666,30 @@ def test_fcosv3_loss_on_the_card_matches_the_cpu():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("classes,n,max_out,thr", [(0, 3000, 100, 0.5), (80, 5000, 100, 0.5),
-                                                   (5, 10000, 1000, 0.7)])
-def test_rotated_kernels_match_plain_on_gpu(classes, n, max_out, thr):
-    """The rotated IoU kernel (one launch, every pair) against the plain
-    IoU on the card, bit for bit, and the rotated NMS kernel (one launch a
-    call) against the plain greedy loop: identical keep lists, with the
-    models' class / level offsets (4096 x group), at RotatedRetinaNet's
-    5,000 candidates and the RRPN's 10,000 with 1,000 slots; integer-pixel
-    boxes at 896 x 1408, angles from a small set, tied scores."""
+@pytest.mark.parametrize("classes,n,max_out,thr,bsz", [
+    (0, 3000, 100, 0.5, 2), (80, 5000, 100, 0.5, 2), (5, 10000, 1000, 0.7, 2),
+    (5, 10000, 1000, 0.7, 16),      # the RRPN's train call: five levels
+    (5, 16384, 1000, 0.7, 2)])      # the most candidates an image the sort takes
+def test_rotated_kernels_match_plain_on_gpu(classes, n, max_out, thr, bsz):
+    """The rotated IoU kernel (one wrapper call) against the plain IoU on
+    the card, bit for bit, on boxes at 896 x 1408 and on pairs placed within
+    a few margins of touching at the class offsets' coordinates (the pairs
+    the kernels skip by ``extents_apart`` and their neighbours); and the
+    rotated NMS kernels (one wrapper call) against the plain greedy loop:
+    identical keep lists, with the models' class / level offsets (4096 x
+    group), at RotatedRetinaNet's 5,000 candidates, the RRPN's 10,000 with
+    1,000 slots (B = 2 and the train call's B = 16) and 16,384; integer-pixel
+    boxes, angles from a small set, tied scores."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from slenderobjdet_torch.ops import rotated
 
     dev = torch.device("cuda")
-    rs = np.random.RandomState(9 + n)
+    rs = np.random.RandomState(9 + n + (bsz - 2))           # B = 2: the seed of before
+    near_rs = np.random.RandomState(7 + n + bsz)            # the near-touching pairs' draws
     angles = np.array([-90, -45, -30, 0, 15, 30, 45, 60, 90, 120], np.float32)
 
-    def rboxes(shape):
+    def rboxes(shape, rs=rs):
         return torch.tensor(np.stack(
             [rs.randint(0, 1408, shape), rs.randint(0, 896, shape), rs.randint(4, 300, shape),
              rs.randint(4, 120, shape), rs.choice(angles, shape)], -1).astype(np.float32),
@@ -696,11 +702,41 @@ def test_rotated_kernels_match_plain_on_gpu(classes, n, max_out, thr):
     assert _build.launch_counts()["rotated_iou"] == 1
     want = rotated.plain_pairwise_rotated_iou(gt, anchors)
     assert torch.equal(got, want) and int((want > 0).sum()) > 1000
-    boxes, scores = rboxes((2, n)), torch.tensor(
-        np.floor(rs.rand(2, n) * 64) / 64, dtype=torch.float32, device=dev)
-    valid = torch.tensor(rs.rand(2, n) < 0.9, device=dev)
+
+    # 200 boxes around each of 100 at class offsets, each moved from its
+    # centre along a random direction until the extents' gap is -4 to 4
+    # margins (2^-17 x the largest |coordinate|)
+    base = rboxes((100,), near_rs)
+    base[:, :2] += torch.tensor(near_rs.randint(0, 81, (100, 1)) * 4096.0,
+                                dtype=torch.float32, device=dev)
+    near = rboxes((100, 200), near_rs)
+    near[..., 4] = torch.tensor(near_rs.uniform(-180, 180, (100, 200)), dtype=torch.float32,
+                                device=dev)
+    near[..., :2] = base[:, None, :2]
+    ext = lambda b: rotated.box_extents(rotated.rotated_to_corners(b))[0].double()
+    e1, e2 = ext(base)[:, None], ext(near)
+    span = torch.stack([e1[..., 1] - e1[..., 0] + e2[..., 1] - e2[..., 0],
+                        e1[..., 3] - e1[..., 2] + e2[..., 3] - e2[..., 2]], -1) / 2
+    margin = 2.0 ** -17 * torch.maximum(e1.abs().amax(-1), e2.abs().amax(-1))
+    theta = torch.tensor(near_rs.uniform(0, 2 * np.pi, (100, 200)), device=dev)
+    u = torch.stack([theta.cos(), theta.sin()], -1)
+    gap = torch.tensor(near_rs.uniform(-4, 4, (100, 200)), device=dev) * margin
+    dist = ((span + gap[..., None]) / u.abs()).amin(-1)
+    near[..., :2] = (base[:, None, :2].double() + dist[..., None] * u).float()
+    near = near.reshape(-1, 5)
+    got = rotated.launch_rotated_iou(base, near)
+    want = rotated.plain_pairwise_rotated_iou(base, near)
+    skipped = rotated.extents_apart(rotated.rotated_to_corners(base)[:, None],
+                                    rotated.rotated_to_corners(near)[None])
+    own = skipped.view(100, 100, 200).diagonal(0, 0, 1)    # each box's own neighbours
+    assert torch.equal(got, want)
+    assert int(own.sum()) > 100 * 60 and int((want > 0).sum()) > 1000
+
+    boxes, scores = rboxes((bsz, n)), torch.tensor(
+        np.floor(rs.rand(bsz, n) * 64) / 64, dtype=torch.float32, device=dev)
+    valid = torch.tensor(rs.rand(bsz, n) < 0.9, device=dev)
     if classes:
-        groups = torch.tensor(rs.randint(0, classes, (2, n)), device=dev)
+        groups = torch.tensor(rs.randint(0, classes, (bsz, n)), device=dev)
         boxes = rotated.offset_boxes(boxes, groups)
     _build.reset_launch_counts()
     got = rotated.rotated_nms(boxes, scores, thr, max_out, valid=valid)
@@ -708,6 +744,58 @@ def test_rotated_kernels_match_plain_on_gpu(classes, n, max_out, thr):
     want = rotated.plain_rotated_nms(boxes, scores, thr, max_out, valid=valid)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int(want[1].sum(1).min()) >= min(max_out, 50)
+
+
+@pytest.mark.gpu
+def test_rotated_nms_crosses_windows_on_gpu():
+    """The rotated NMS kernels against the plain greedy loop where the walk
+    must go past its first window of sorted positions (2 max_out rounded
+    up to 64, at most 2,048) and end before max_out: 250 clusters of 20
+    near-identical boxes, 1,000 slots, thr 0.3. 200 clusters have their
+    head among the highest scores and members over the whole score range,
+    so that the first window's kept boxes remove positions in later
+    windows; 50 have only low scores, so that boxes are kept past the first
+    window. Identical keep lists, the slots past the last kept box 0 /
+    invalid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from slenderobjdet_torch.ops import rotated
+
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(23)
+    bsz, clusters, size, max_out, thr = 2, 250, 20, 1000, 0.3
+    n = clusters * size
+    cell = np.stack(np.meshgrid(np.arange(25), np.arange(10)), -1).reshape(-1, 2) * 200.0 + 100
+    centre = np.repeat(np.broadcast_to(cell, (bsz, clusters, 2)), size, axis=1)
+    shape = np.repeat(np.stack([rs.uniform(40, 100, (bsz, clusters)),
+                                rs.uniform(40, 100, (bsz, clusters)),
+                                rs.uniform(-90, 90, (bsz, clusters))], -1), size, axis=1)
+    boxes = np.concatenate([centre + rs.uniform(-1, 1, (bsz, n, 2)),
+                            shape[..., :2] + rs.uniform(-1, 1, (bsz, n, 2)),
+                            shape[..., 2:] + rs.uniform(-2, 2, (bsz, n, 1))], -1)
+    member = np.arange(n) % size
+    cluster = np.arange(n) // size
+    scores = rs.uniform(0, 0.9, (bsz, n))
+    scores[:, member == 0] = rs.uniform(0.9, 1.0, (bsz, clusters))
+    low = cluster >= 200
+    scores[:, low] = rs.uniform(0, 0.3, (bsz, int(low.sum())))
+    boxes = torch.tensor(boxes.astype(np.float32), device=dev)
+    scores = torch.tensor(scores.astype(np.float32), device=dev)
+    valid = torch.tensor(rs.rand(bsz, n) < 0.95, device=dev)
+    _build.reset_launch_counts()
+    got = rotated.rotated_nms(boxes, scores, thr, max_out, valid=valid)
+    assert _build.launch_counts()["rotated_nms"] == 1
+    want = rotated.plain_rotated_nms(boxes, scores, thr, max_out, valid=valid)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    kept = want[1].sum(1)
+    assert int(kept.max()) < max_out and int(kept.min()) >= 200
+    live = torch.where(valid, scores, torch.full_like(scores, -float("inf")))
+    order = torch.sort(live, dim=1, descending=True, stable=True).indices
+    for b in range(bsz):
+        pos = torch.empty_like(order[b])
+        pos[order[b]] = torch.arange(n, device=dev)
+        last = int(pos[want[0][b, int(kept[b]) - 1].long()])
+        assert last >= 2048, last
 
 
 @pytest.mark.gpu
