@@ -251,7 +251,8 @@ if it fails:
    for both buckets, bf16 and fp32, both corners: forward bit for bit
    against the ``torch.cummax`` composition, backward against its fp32
    autograd (fp32 within 1e-4; bf16 within one bf16 rounding of every
-   value), both timed beside their bounds; the NMS kernel on the model's
+   value), both timed beside their bounds, the wrapper calls beside their
+   kernels alone; the NMS kernel on the model's
    own 400 pair candidates an image; 3 predict calls of B=8 a bucket with
    exactly 2 corner pools and 1 NMS each, equal bit for bit to the same
    weights on the plain corner pool; predict ms and img/s and the device
@@ -263,7 +264,9 @@ if it fails:
    the largest of B = 8, 4, 2 that fits (11 steps) and with remat at the
    largest of B = 16, 8, 4, 2 (4 steps), the loss falling and 4 + 4
    corner pools read in every step, the warm-up's included; img/s and
-   peak memory. ``cornernet_trainer``:
+   peak memory; the first step's 8 corner-pool wrapper calls must copy no
+   input (channels last, g in the inputs' dtype: ``pool_inputs_recorded``).
+   ``cornernet_trainer``:
    ``train_net_torch.main`` with remat at that batch: train, ``--resume``
    bit-equal (BN statistics and ADAM moments), evaluate, ``--eval-only``.
 
@@ -5148,9 +5151,10 @@ def corner_pool_check(kernels, smi, dev):
     version's autograd in fp32 on the same values (with the same support;
     fp32 within FP32_TOL of the largest, bf16 within one bf16 rounding of
     each value, and the plain bf16 autograd's own error stated); then the
-    kernel's forward and backward, the plain forward and the plain forward
-    + backward timed, each beside its bound (bytes: a, b and out; a, b, g,
-    g_a and g_b)."""
+    wrapper calls (forward and backward) and their kernels alone
+    (``forward_into`` / ``backward_into``, queued, on prepared tensors and
+    scratch), the plain forward and the plain forward + backward timed,
+    each beside its bound (bytes: a, b and out; a, b, g, g_a and g_b)."""
     from slenderobjdet_torch.ops import corner_pool as cp
 
     gen = torch.Generator(device=dev).manual_seed(53)
@@ -5192,6 +5196,11 @@ def corner_pool_check(kernels, smi, dev):
                     raise AssertionError(f"corner_pool {corner} fp32 gradient err {err}")
                 ms = cuda_ms(lambda: cp.launch_corner_pool(a, b, corner), 10)
                 bwd_ms = cuda_ms(lambda: cp.launch_corner_pool_backward(a, b, g, corner), 10)
+                scratch = cp.forward_scratch(a)
+                kernel_ms = cuda_ms(lambda: cp.forward_into(a, b, got, scratch, corner), 10,
+                                    queued=True)
+                kernel_bwd_ms = cuda_ms(lambda: cp.backward_into(a, b, g, *grads, corner), 10,
+                                        queued=True)
                 plain_ms = cuda_ms(lambda: plain(a, b), 3)
 
                 def plain_step():
@@ -5205,20 +5214,22 @@ def corner_pool_check(kernels, smi, dev):
                 key = f"{corner}_{str(dtype).split('.')[-1]}_{h}x{w}"
                 log(f"corner_pool {key} ({smi}): forward == plain bit for bit; gradient err vs "
                     f"fp32 plain {err:.3e} (plain {str(dtype).split('.')[-1]} autograd "
-                    f"{plain_err:.3e}), same support; kernel forward {ms:.4f} ms (bound "
-                    f"{b_ms:.4f}, {b_by}, {b_ms / ms:.3f} of it), backward {bwd_ms:.4f} ms "
-                    f"(bound {bb_ms:.4f}, {bb_ms / bwd_ms:.3f}); plain (torch.cummax "
-                    f"composition) forward {plain_ms:.4f} ms, forward + backward "
-                    f"{plain_both_ms:.4f} ms")
+                    f"{plain_err:.3e}), same support; wrapper call forward {ms:.4f} ms "
+                    f"(kernel alone {kernel_ms:.4f}; bound {b_ms:.4f}, {b_by}, "
+                    f"{b_ms / ms:.3f} of it), backward {bwd_ms:.4f} ms (kernel alone "
+                    f"{kernel_bwd_ms:.4f}; bound {bb_ms:.4f}, {bb_ms / bwd_ms:.3f}); plain "
+                    f"(torch.cummax composition) forward {plain_ms:.4f} ms, forward + "
+                    f"backward {plain_both_ms:.4f} ms")
                 entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                          "library_ms": None, "max_abs_err": 0.0, "grad_err": err,
                          "plain_grad_err": plain_err, "backward_ms": bwd_ms,
+                         "kernel_ms": kernel_ms, "kernel_backward_ms": kernel_bwd_ms,
                          "backward_bound_ms": bb_ms, "plain_forward_backward_ms": plain_both_ms}
                 kernels["corner_pool"][f"at_{key}"] = entry
                 if key == f"tl_bfloat16_{CORNER_HW[0][0]}x{CORNER_HW[0][1]}":
                     kernels["corner_pool"].update({k: entry[k] for k in (
                         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")})
-                del got, grads
+                del got, grads, scratch
             del a, b, g
             torch.cuda.empty_cache()
 
@@ -5320,15 +5331,20 @@ def corner_step_launches(label, step, batch):
 
 def corner_steps(label, step, batch, steps, smi):
     """``steps`` train steps on one batch, each launching exactly
-    CORNER_STEP; returns (losses, ms a step after the first two, peak GiB,
-    the corner-pool launches read)."""
+    CORNER_STEP, the first one's corner-pool wrapper calls copying no input
+    (``pool_inputs_recorded``); returns (losses, ms a step after the first
+    two, peak GiB, the corner-pool launches read)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    totals, times, launched = [], [], 0
+    totals, times, launched, copying = [], [], 0, []
     for i in range(steps):
         t0 = time.perf_counter()
-        metrics, n = corner_step_launches(f"{label} {i}", step, batch)
+        with pool_inputs_recorded(copying) if i == 0 else contextlib.nullcontext():
+            metrics, n = corner_step_launches(f"{label} {i}", step, batch)
         times.append(time.perf_counter() - t0)
+        if i == 0 and (len(copying) != CORNER_STEP["corner_pool"] or any(copying)):
+            raise AssertionError(f"cornernet {label}: pool calls copying an input "
+                                 f"{copying}")
         launched += n
         metrics = {k: float(v) for k, v in metrics.items()}
         if not all(np.isfinite(v) for v in metrics.values()):
@@ -5339,10 +5355,39 @@ def corner_steps(label, step, batch, steps, smi):
     n = batch["image"].shape[0]
     log(f"train cornernet {label} ({smi}): B={n} {batch['image'].shape[1:3]}: totals "
         f"{[round(t, 3) for t in totals]}; {ms:.1f} ms/step, {n * 1e3 / ms:.2f} img/s, peak "
-        f"{peak:.2f} GiB; every step {CORNER_STEP}; last step loss_heat "
+        f"{peak:.2f} GiB; every step {CORNER_STEP}, step 0's pool calls copy no input; "
+        f"last step loss_heat "
         f"{metrics['loss_heat']:.3f} loss_pull {metrics['loss_pull']:.4f} loss_push "
         f"{metrics['loss_push']:.4f} loss_offset {metrics['loss_offset']:.4f}")
     return totals, ms, peak, launched
+
+
+@contextlib.contextmanager
+def pool_inputs_recorded(seen):
+    """Appends, for each corner-pool wrapper call made inside, whether the
+    wrapper copies an input: only a tensor that is not channels-last
+    contiguous (``_checked``'s ``.contiguous``) or a gradient in another
+    dtype than the inputs' (``g.to``) is copied."""
+    from slenderobjdet_torch.ops import corner_pool as cp
+
+    saved = cp.launch_corner_pool, cp.launch_corner_pool_backward
+
+    def copies(*tensors):
+        return not all(t.is_contiguous(memory_format=torch.channels_last) for t in tensors)
+
+    def forward(a, b, corner):
+        seen.append(copies(a, b))
+        return saved[0](a, b, corner)
+
+    def backward(a, b, g, corner):
+        seen.append(copies(a, b, g) or g.dtype != a.dtype)
+        return saved[1](a, b, g, corner)
+
+    cp.launch_corner_pool, cp.launch_corner_pool_backward = forward, backward
+    try:
+        yield
+    finally:
+        cp.launch_corner_pool, cp.launch_corner_pool_backward = saved
 
 
 def largest_step(label, cfg_of, sizes, seed):

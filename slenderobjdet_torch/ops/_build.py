@@ -61,9 +61,11 @@ _SIGNATURES = {
     "rotated_nms_smem_bytes": [_I],
     "rotated_nms_scratch_bytes": [_I, _I],
     "rotated_nms_launch": [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P],
-    "corner_pool_forward_launch": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "corner_pool_forward_scratch_bytes": [_I, _I, _I, _I, _I],
+    "corner_pool_forward_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "corner_pool_backward_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
+_RESTYPES = {"corner_pool_forward_scratch_bytes": ctypes.c_longlong}   # else int
 
 
 def reset_launch_counts() -> None:
@@ -134,7 +136,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         lib.kernels_error_string.argtypes = [ctypes.c_int]
         lib.kernels_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -15,6 +15,15 @@ them by the ``gpu`` cases of ``test_torch_package.py`` and by
   ReLU's gradient is 0 in both packages; the model's gradients are compared
   in ``test_torch_cornernet.py``.
 
+And the CPU models of the kernels' decompositions (``model_forward``:
+channel chunks, bands of rows with look-back carries, row segments;
+``model_backward``: a walk a line with deferred credit), at band, segment
+and chunk sizes that divide none of H, W and C, on integers full of ties,
+signed zeros and NaN: the forward bit for bit against the plain version
+(and JAX's where there is no NaN; and with one input -0.0 everywhere, so
+that the other's tie rule shows in the sign of every zero), the gradients exactly against the plain
+version's autograd (integer gradients: every sum is exact).
+
 Inputs come from numpy seeds inside each test. JAX takes NHWC, the port
 NCHW.
 """
@@ -98,3 +107,71 @@ def test_cpu_tensors_take_the_plain_version_and_the_kernel_refuses_them():
         tcp.launch_corner_pool(a, b, "tl")
     with pytest.raises(ValueError, match="CUDA"):
         tcp.launch_corner_pool_backward(a, b, a, "br")
+
+
+MODEL_SHAPE = (2, 7, 13, 11)                 # B, C, H, W
+MODEL_CUTS = [(3, 4, 3), (5, 16, 2), (13, 3, 16)]   # rows, segment, chunk
+
+
+def _ties_signed_zeros_and_nan(rng, dtype, nan=True):
+    """Integers 0-3 (ties everywhere), some -0.0 and, with ``nan``, NaN."""
+    x = torch.from_numpy(rng.integers(0, 4, MODEL_SHAPE).astype(np.float32))
+    x[torch.from_numpy(rng.random(MODEL_SHAPE) < 0.2) & (x == 0)] = -0.0
+    if nan:
+        x[torch.from_numpy(rng.random(MODEL_SHAPE) < 0.03)] = float("nan")
+    return x.to(dtype)
+
+
+def _signed_zeros(rng, dtype):
+    """-1, -0.0 and +0.0: the maxima are zeros of either sign, so each tie
+    decides a sign bit, which a sum with a constant -0.0 keeps."""
+    values = np.array([-1.0, -0.0, 0.0], dtype=np.float32)
+    return torch.from_numpy(rng.choice(values, MODEL_SHAPE)).to(dtype)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("corner", ["tl", "br"])
+def test_kernel_model_forward_equals_plain_and_jax(corner, dtype):
+    rng = np.random.default_rng(31)
+    plain = getattr(tcp, f"plain_{corner}_pool")
+    for nan in (True, False):
+        a, b = (_ties_signed_zeros_and_nan(rng, dtype, nan) for _ in range(2))
+        want = plain(a, b)
+        assert bool(want.isnan().any()) == nan
+        for rows, seg, chunk in MODEL_CUTS:
+            got = tcp.model_forward(a, b, corner, rows, seg, chunk,
+                                    gen=np.random.default_rng(rows))
+            assert torch.equal(got.isnan(), want.isnan())
+            assert torch.equal(_bits(got.nan_to_num()), _bits(want.nan_to_num()))
+    zero = torch.full(MODEL_SHAPE, -0.0, dtype=dtype)
+    for a, b in ((_signed_zeros(rng, dtype), zero), (zero, _signed_zeros(rng, dtype))):
+        want = _bits(plain(a, b))                      # one direction's maxima, sign bits kept
+        for rows, seg, chunk in MODEL_CUTS:
+            got = tcp.model_forward(a, b, corner, rows, seg, chunk,
+                                    gen=np.random.default_rng(rows))
+            assert torch.equal(_bits(got), want)
+    a, b = (_ties_signed_zeros_and_nan(rng, dtype, False).abs().float() for _ in range(2))
+    jfn = getattr(jcp, f"{corner}_pool")
+    want = np.asarray(jax.jit(jfn)(jnp.asarray(nhwc(a)), jnp.asarray(nhwc(b))))
+    got = tcp.model_forward(a, b, corner, *MODEL_CUTS[0], gen=np.random.default_rng(0))
+    np.testing.assert_array_equal(nhwc(got), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("corner", ["tl", "br"])
+def test_kernel_model_gradients_equal_plain_autograd(corner, dtype):
+    rng = np.random.default_rng(32)
+    plain = getattr(tcp, f"plain_{corner}_pool")
+    for nan in (True, False):
+        a, b = (_ties_signed_zeros_and_nan(rng, dtype, nan) for _ in range(2))
+        g = torch.from_numpy(rng.integers(-4, 5, MODEL_SHAPE).astype(np.float32))
+        ta, tb = a.float().requires_grad_(), b.float().requires_grad_()
+        (plain(ta, tb) * g).sum().backward()
+        ga, gb = tcp.model_backward(a, b, g.to(dtype), corner)
+        assert ga.dtype == dtype and gb.dtype == dtype
+        assert torch.equal(ga.float(), ta.grad) and torch.equal(gb.float(), tb.grad)
+        assert 0 < int((ta.grad != 0).sum()) < ta.numel()

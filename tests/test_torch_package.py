@@ -801,19 +801,30 @@ def test_rotated_nms_crosses_windows_on_gpu():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("corner", ["tl", "br"])
-@pytest.mark.parametrize("shape", [(2, 24, 19, 27), (1, 128, 28, 44)])
+@pytest.mark.parametrize("shape", [(2, 24, 19, 27), (1, 128, 28, 44), (3, 40, 37, 301),
+                                   (1, 128, 224, 352), (2, 13, 21, 45)])
 def test_corner_pool_kernel_matches_plain_on_gpu(shape, corner, dtype):
     """The corner-pool kernel (one wrapper call forward, one backward)
     against the plain ``torch.cummax`` composition on the card: the forward
     bit for bit on ReLU outputs (ties at zero) and on integers (ties
     anywhere); the gradients, through the ``autograd.Function``, on inputs
     without ties (a permutation of integers along each scanned line, exact
-    in bf16), so that no tie rule decides, against the plain version's
-    autograd in fp32 on the same values, with the same support: fp32
-    within 1e-4 of the largest; bf16 within one bf16 rounding of each
+    in bf16 up to 256; a wider line rounds to ties, which both sides give
+    the later element), so that no tie rule decides, against the plain
+    version's autograd in fp32 on the same values, with the same support:
+    fp32 within 1e-4 of the largest; bf16 within one bf16 rounding of each
     value (the kernel sums in fp32 and rounds once; the plain version's
     bf16 autograd rounds every addition and lies a few hundredths of the
-    largest from fp32 at the heads' shapes, ``chip_smoke.py``)."""
+    largest from fp32 at the heads' shapes, ``chip_smoke.py``); then NaN
+    (1% of a and b), taken when met: the forward's NaNs where the plain
+    version's are and every other value equal, the gradients as above but
+    against the plain autograd in fp64 (after a NaN a line credits one
+    element with hundreds of terms, and where they cancel the plain fp32
+    autograd's atomic sums land on 0 in some runs and not in others).
+    (3, 40, 37, 301) has a C that bf16's 16-channel chunks do not divide, a
+    W that no segment or vector width divides and bf16 lines wider than
+    256; (1, 128, 224, 352) is one image of the heads' width; (2, 13, 21,
+    45) has an odd C, which the kernels take one element at a time."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from slenderobjdet_torch.ops import corner_pool as cp
@@ -842,18 +853,29 @@ def test_corner_pool_kernel_matches_plain_on_gpu(shape, corner, dtype):
     a = torch.argsort(torch.rand(B, C, W, H, generator=gen), -1).transpose(2, 3).float()
     b = torch.argsort(torch.rand(B, C, H, W, generator=gen), -1).float()
     g = on_card(torch.randn(shape, generator=gen))
-    grads = []
-    for fn, cast in ((pool, on_card), (plain, lambda t: on_card(t).float())):
-        ta, tb = cast(a).requires_grad_(), cast(b).requires_grad_()
-        _build.reset_launch_counts()
-        (fn(ta, tb) * g.to(ta.dtype)).sum().backward()
-        grads.append((ta.grad, tb.grad))
-        if fn is pool:
-            assert _build.launch_counts()["corner_pool"] == 2
-    for got, want in zip(*grads):
-        assert got.dtype == dtype and torch.equal(got != 0, want != 0)
-        diff = (got.float() - want).abs()
-        if dtype == torch.float32:
-            assert float(diff.max() / want.abs().max()) <= 1e-4
-        else:
-            assert bool((diff <= 2 ** -8 * want.abs() + 1e-6 * want.abs().max()).all())
+
+    def check_gradients(a, b, ref=torch.float32):
+        grads = []
+        for fn, cast in ((pool, on_card), (plain, lambda t: on_card(t).to(ref))):
+            ta, tb = cast(a).requires_grad_(), cast(b).requires_grad_()
+            _build.reset_launch_counts()
+            (fn(ta, tb) * g.to(ta.dtype)).sum().backward()
+            grads.append((ta.grad, tb.grad))
+            if fn is pool:
+                assert _build.launch_counts()["corner_pool"] == 2
+        for got, want in zip(*grads):
+            assert got.dtype == dtype and torch.equal(got != 0, want != 0)
+            diff = (got.float() - want).abs()
+            if dtype == torch.float32:
+                assert float(diff.max() / want.abs().max()) <= 1e-4
+            else:
+                assert bool((diff <= 2 ** -8 * want.abs() + 1e-6 * want.abs().max()).all())
+
+    check_gradients(a, b)
+    a, b = (torch.relu(torch.randn(shape, generator=gen)) for _ in range(2))
+    for t in (a, b):
+        t[torch.rand(shape, generator=gen) < 0.01] = float("nan")
+    got, want = pool(on_card(a), on_card(b)), plain(on_card(a), on_card(b))
+    assert bool(got.isnan().any()) and torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    check_gradients(a, b, torch.float64)
