@@ -11,6 +11,7 @@
     python3 chip_smoke.py fcosv3 # FCOSV3 and the masks data path
     python3 chip_smoke.py rotated_retinanet rotated_rcnn   # the rotated boxes
     python3 chip_smoke.py cornernet   # CornerNet and the corner-pool kernel
+    python3 chip_smoke.py serving int8 tta   # the serving path
 
 Builds the port's CUDA kernels from ``slenderobjdet_torch/ops/csrc`` (at
 first use, into ``build/torch_kernels/``), then, each phase failing the run
@@ -270,6 +271,30 @@ if it fails:
    ``train_net_torch.main`` with remat at that batch: train, ``--resume``
    bit-equal (BN statistics and ADAM moments), evaluate, ``--eval-only``.
 
+33. Serving (``serving``; ``slenderobjdet_torch/serving.py``): the export
+   tool's path (``tools/export_serving.py``) on the flagship, bf16, flags
+   on, seeded weights made comparable (``one_detection_per_class``), at B=8,
+   896x1408: ``torch.export`` of predict with the kernels as registered
+   operators, reloaded, outputs bit-equal to the live model's and the same
+   launches (1 NMS, 1 stem, 13 bottleneck wrappers); export seconds, the
+   artifact's and the live model's predict ms (CUDA events, in turns); the
+   host cost of an operator call against a direct call of its wrapper, and
+   the live predict through the operators against the kernels called
+   directly (as before the operators), ten turns each; the
+   weight-only int8 artifact (``--quantize``) held to the live float model
+   class by class within the tool's ``--verify`` tolerances; a CornerNet
+   artifact at B=2 (reload bit-equal, 2 corner pools and 1 NMS launched)
+   and the rotated IoU and NMS operators in a program of their own.
+34. Int8 predict (``int8``; ``ops/quant.py``): FCOS predict under
+   ``TPU.INT8_PREDICT``, dynamic and static (the 58 scales of
+   configs/int8_scales/fcos_R_50_bench.json), against bf16 at B=8 and 32,
+   896x1408, flags on and off: the convs taken over, img/s, and the
+   scores' largest difference from bf16 on detections matched by class.
+35. Test-time augmentation (``tta``; ``engine/tta.py``):
+   ``train_net_torch.main --eval-only`` with ``TEST.AUG.ENABLED``
+   (MIN_SIZES 640 and 800, FLIP) on 8 synthetic images: four views an image
+   with 1 + 13 + 1 launches each, a finite AP, ms an image.
+
 Every kernel's time stands beside its bound, the least time the card could
 take: the larger of its bytes (inputs read once, outputs written once) over
 3.35 TB/s and its operations over the peak rate of their type (989 TFLOP/s
@@ -339,6 +364,19 @@ def loader_blocks(h, w):
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def timed_once(fn):
+    """``fn()`` and the device ms of that one call (CUDA events, no warm-up):
+    a plain version run once for the comparison is timed by the same call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def ratio(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -924,14 +962,16 @@ def phase_main_path(kernels, dev, model, plain, ref32):
 
 
 def phase_throughput(model, plain, family="FCOS", hw=(800, 1344)):
-    """predict img/s at B=8 and B=32, the fused and the unfused model in
-    turns; returns {(batch, "fused" or "unfused"): the last turn's img/s}."""
+    """predict img/s at B=8 (two turns each, 2 warm-up calls, 5 timed) and
+    B=32 (one turn each, 1 warm-up, 2 timed), the fused and the unfused
+    model in turns; returns {(batch, "fused" or "unfused"): the last turn's
+    img/s}."""
     rates = {}
-    for batch, iters in ((8, 5), (32, 3)):
+    turns = (("fused", model), ("unfused", plain))
+    for batch, iters, warm, order in ((8, 5, 2, turns + turns), (32, 2, 1, turns)):
         req = requests(1, batch, seed=4, hw=hw)[0]
-        for label, m in (("fused", model), ("unfused", plain),
-                         ("fused", model), ("unfused", plain)):
-            for _ in range(2):
+        for label, m in order:
+            for _ in range(warm):
                 m.predict(req)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1857,7 +1897,7 @@ def family_trainer(kernels, smi, family, yaml, seed, step_launches, predict_nms,
             return synthetic_dataset(dataset, tmp, seed=seed, repeat=repeat, polygons=polygons)
 
         make(name)
-        n_test = len(make(name + "_test", repeat=4)["images"])
+        n_test = len(make(name + "_test", repeat=2)["images"])
         nms_key = "rotated_nms" if rotated else "nms"
         if test_launches is None:
             test_launches = {"fused_stem": 1, "fused_bottleneck": 13, nms_key: predict_nms}
@@ -2048,8 +2088,8 @@ def nms_check(kernels, smi, family, key, boxes, scores, valid, thr, max_out, cou
             return launch_nms(boxes, scores, None, valid, thr, max_out, rounds=rounds)
 
     got = call()
-    want = batched_nms(boxes, scores, idxs, thr, max_out, valid=valid)
-    torch.cuda.synchronize()
+    want, plain_ms = timed_once(lambda: batched_nms(boxes, scores, idxs, thr, max_out,
+                                                    valid=valid))
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise AssertionError(f"NMS kernel != plain on {family}'s {key} candidates: "
                              f"{int((got[0] != want[0]).sum())} indices differ")
@@ -2059,7 +2099,6 @@ def nms_check(kernels, smi, family, key, boxes, scores, valid, thr, max_out, cou
     kept = got[1].sum(1).tolist()
     ms = cuda_ms(kernel, 20, queued=True)
     call_ms = cuda_ms(call, 20, queued=True)
-    plain_ms = cuda_ms(lambda: batched_nms(boxes, scores, idxs, thr, max_out, valid=valid), 1)
     out = (torch.empty(B, max_out, dtype=torch.int32), torch.empty(B, max_out, dtype=torch.bool))
     b_ms, b_by = bound_ms(nbytes(boxes, scores, valid, classes, *out),
                           work * NMS_OPS_PER_PAIR, PEAK_FP32_FLOPS)
@@ -4075,7 +4114,8 @@ FCOSV3_YAML = "configs/fcos/fcosv3_R_50_FPN_1x.yaml"
 FCOSV3_HW = LOADER_SHAPES[0]         # the loader's landscape bucket, 896 x 1408
 FCOSV3_STEP_LAUNCHES = {"fused_stem": 1, "fused_bottleneck": 13}
 FCOSV3_PREDICT_LAUNCHES = {"fused_stem": 1, "fused_bottleneck": 13, "nms": 1}
-FCOSV3_RENDER_IMAGES = 16            # images whose maps are rendered by both renderers
+FCOSV3_WAIT_ITERS = 6               # main's iterations for the loader-wait share
+FCOSV3_RENDER_IMAGES = 8            # images whose maps are rendered by both renderers
 MAP_ATOL = 1e-5      # C renderer vs numpy: border and center maps (tests/test_border_native.py)
 SIZE_ATOL = 1e-3     # and the size map
 
@@ -4296,10 +4336,10 @@ def phase_fcosv3_predict(kernels, dev, smi, model):
 def phase_fcosv3_trainer(kernels, dev, smi, report):
     """``train_net_torch.main`` on the FCOSV3 yaml over the synthetic dataset
     with polygons (``family_trainer``: train, ``--resume`` bit-equal,
-    evaluate); then 10 iterations of ``main`` each on the FCOS and the FCOSV3
-    yaml without evaluation, on the same images: img/s over steps 2-9 and
-    the share of them spent waiting for the loader (FCOSV3's renders the
-    centre map, FCOS's does not)."""
+    evaluate); then FCOSV3_WAIT_ITERS iterations of ``main`` each on the FCOS
+    and the FCOSV3 yaml without evaluation, on the same images: img/s from
+    step 2 on and the share of those steps spent waiting for the loader
+    (FCOSV3's renders the centre map, FCOS's does not)."""
     import os
     import tempfile
 
@@ -4314,17 +4354,19 @@ def phase_fcosv3_trainer(kernels, dev, smi, report):
         for family, yaml in (("FCOS", FCOS_YAML), ("FCOSV3", FCOSV3_YAML)):
             watch.clear()
             watch.sync_at[0] = 2
-            train_net_torch.main(trainer_args(name, os.path.join(tmp, family), max_iter=10,
+            n = FCOSV3_WAIT_ITERS
+            train_net_torch.main(trainer_args(name, os.path.join(tmp, family), max_iter=n,
                                               checkpoint_period=1000, yaml=yaml,
                                               overrides={"DATASETS.TEST": "()"}))
-            if [r["launches"] for r in watch.steps] != [FCOSV3_STEP_LAUNCHES] * 10:
+            if [r["launches"] for r in watch.steps] != [FCOSV3_STEP_LAUNCHES] * n:
                 raise AssertionError(f"{family} main launched "
                                      f"{[r['launches'] for r in watch.steps]}")
             span = watch.steps[-1]["t1"] - watch.steps[2]["t0"]
-            wait = sum(watch.waits[3:10])
-            report[f"{family}_main"] = {"img_s": 16 * 8 / span, "wait_share": wait / span,
-                                        "wait_ms": wait / 7 * 1e3}
-        log(f"time fcosv3 trainer ({smi}): steps 2-9 of train_net_torch.main, B=16, flags on: "
+            wait = sum(watch.waits[3:n])
+            report[f"{family}_main"] = {"img_s": 16 * (n - 2) / span, "wait_share": wait / span,
+                                        "wait_ms": wait / (n - 3) * 1e3}
+        log(f"time fcosv3 trainer ({smi}): steps 2-{FCOSV3_WAIT_ITERS - 1} of "
+            f"train_net_torch.main, B=16, flags on: "
             + "; ".join(f"{f} {v['img_s']:.2f} img/s, waiting for the loader "
                         f"{v['wait_ms']:.2f} ms/step, {v['wait_share']:.4f} of a step"
                         for f, v in ((f, report[f"{f}_main"]) for f in ("FCOS", "FCOSV3"))))
@@ -4667,8 +4709,7 @@ def rotated_iou_check(kernels, smi, family, gt, anchors, key):
     check_corners(gt, f"{family} {key} gt")
     check_corners(anchors, f"{family} {key} anchors")
     got = rot.launch_rotated_iou(gt, anchors)
-    want = rot.plain_pairwise_rotated_iou(gt, anchors)
-    torch.cuda.synchronize()
+    want, plain_ms = timed_once(lambda: rot.plain_pairwise_rotated_iou(gt, anchors))
     if not torch.equal(got, want):
         raise AssertionError(f"rotated_iou {family} {key}: kernel != plain at "
                              f"{int((got != want).sum())} pairs, max |diff| "
@@ -4678,7 +4719,6 @@ def rotated_iou_check(kernels, smi, family, gt, anchors, key):
     prepared = (*rot._corners_and_areas(gt), *rot._corners_and_areas(anchors), got)
     kernel_ms = cuda_ms(lambda: rot.iou_from_corners(*prepared), 20, queued=True)
     call_ms = cuda_ms(lambda: rot.launch_rotated_iou(gt, anchors), 20)
-    plain_ms = cuda_ms(lambda: rot.plain_pairwise_rotated_iou(gt, anchors), 1, warmup=0)
     b_ms, b_by, ops, pairs, near = iou_bound(nbytes(gt, anchors, got), gt, anchors)
     log(f"rotated_iou {family} {key}: {tuple(gt.shape)} x {tuple(anchors.shape)}, kernel == "
         f"plain, {overlap} pairs overlap, {near} of {pairs} pairs clipped; corners == "
@@ -4703,8 +4743,8 @@ def rotated_nms_check(kernels, smi, family, key, boxes, scores, valid, thr, max_
 
     check_corners(boxes, f"{family} {key}")
     got = rot.launch_rotated_nms(boxes, scores, thr, max_out, valid=valid)
-    want = rot.plain_rotated_nms(boxes, scores, thr, max_out, valid=valid)
-    torch.cuda.synchronize()
+    want, plain_ms = timed_once(lambda: rot.plain_rotated_nms(boxes, scores, thr, max_out,
+                                                              valid=valid))
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise AssertionError(f"rotated_nms kernel != plain on {family}'s {key} candidates: "
                              f"{int((got[0] != want[0]).sum())} indices differ")
@@ -4716,8 +4756,6 @@ def rotated_nms_check(kernels, smi, family, key, boxes, scores, valid, thr, max_
     call_ms = cuda_ms(lambda: rot.launch_rotated_nms(boxes, scores, thr, max_out,
                                                      valid=valid), 5)
     parts = nms_kernel_ms(kernel)
-    plain_ms = cuda_ms(lambda: rot.plain_rotated_nms(boxes, scores, thr, max_out, valid=valid),
-                       1, warmup=0)
     pairs, near = greedy_pairs(boxes, scores, valid, thr, got)
     ops = pairs * ROTATED_EXTENT_OPS + near * ROTATED_CLIP_OPS
     b_ms, b_by = bound_ms(nbytes(boxes, scores, valid, *got), ops, PEAK_FP32_FLOPS)
@@ -5542,6 +5580,392 @@ def phase_cornernet_trainer(kernels, dev, smi, report):
                    overrides={"SOLVER.IMS_PER_BATCH": n, "TPU.REMAT_BACKBONE": True})
 
 
+# ------------------------------------------------- serving, int8 and TTA
+SERVING_HW = LOADER_SHAPES[0]       # the loader's landscape bucket, 896 x 1408
+SERVING_BATCH = 8
+SERVING_SMALL_BATCH = 2             # the CornerNet artifact
+SERVING_PREDICT = {"nms": 1, "fused_stem": 1, "fused_bottleneck": 13}
+SERVING_DISPATCH_CALLS = 200        # calls a dispatch-cost timing averages
+SERVING_AB_TURNS = 10               # live predict, operators and direct calls in turns
+INT8_SCALES = "configs/int8_scales/fcos_R_50_bench.json"
+INT8_BATCHES = (8, 32)
+TTA_MIN_SIZES = (640, 800)
+TTA_IMAGES = 8
+
+
+def serving_args(out, *flags):
+    """The export tool's arguments for the flagship at B = 8 on the loader's
+    landscape bucket, bf16, the fused flags on."""
+    from slenderobjdet_torch.tools import export_serving
+
+    return export_serving.parse_args(
+        ["--config", FCOS_YAML, "--output", out, "--batch", str(SERVING_BATCH),
+         "--device", "cuda", *flags, "TPU.TEST_PAD_SHAPE", str(SERVING_HW),
+         "MODEL.RESNETS.FUSED_STEM", "True", "MODEL.RESNETS.FUSED_BLOCKS", "True",
+         "TPU.COMPUTE_DTYPE", "bfloat16"])
+
+
+def launches_of(fn, *args):
+    """The launch counts of one ``fn(*args)``, counted from 0."""
+    from slenderobjdet_torch.ops import _build
+
+    _build.reset_launch_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in _build.launch_counts().items() if v}
+
+
+def outputs_equal(a, b) -> bool:
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+
+
+def match_by_class(out, ref, batch):
+    """Detections of ``out`` against ``ref`` class by class (one detection a
+    class, ``one_detection_per_class``): the classes kept by one and not the
+    other, and the largest score and box differences of the others."""
+    missing, score, box = 0, 0.0, 0.0
+    for b in range(batch):
+        f, p = per_class(out, b), per_class(ref, b)
+        missing += len(set(f) ^ set(p))
+        for c in set(f) & set(p):
+            score = max(score, abs(f[c][0] - p[c][0]))
+            box = max(box, float(np.abs(f[c][1] - p[c][1]).max()))
+    return missing, score, box
+
+
+def export_and_reload(model, path, batch, hw, req):
+    """Export ``model.predict`` at (batch, hw), reload it, and hold the
+    artifact's outputs and launches to the live model's on ``req``; returns
+    the export seconds and the reloaded predict."""
+    from slenderobjdet_torch import serving
+
+    t0 = time.perf_counter()
+    serving.export_detector(model, path, batch_size=batch, image_hw=hw)
+    export_s = time.perf_counter() - t0
+    predict_fn = serving.load_detector(path)
+    live, live_counts = launches_of(model.predict, req)
+    got, got_counts = launches_of(predict_fn, req)
+    if got_counts != live_counts:
+        raise AssertionError(f"artifact launched {got_counts}, the live model {live_counts}")
+    if not outputs_equal(got, live):
+        raise AssertionError(f"artifact outputs differ from the live model's: "
+                             f"{[k for k in live if not torch.equal(got[k], live[k])]}")
+    return export_s, predict_fn, live_counts
+
+
+@contextlib.contextmanager
+def kernels_called_directly():
+    """The flagship's three kernels called through their launch functions,
+    not the registered operators: the live path as it was before them."""
+    from slenderobjdet_torch.models.backbones import resnet
+    from slenderobjdet_torch.models.meta_arch import fcos
+    from slenderobjdet_torch.ops import fused_bottleneck as fb
+    from slenderobjdet_torch.ops import fused_stem as fs
+    from slenderobjdet_torch.ops import nms as nms_mod
+
+    saved = resnet.fused_bottleneck, resnet.fused_stem, fcos.cuda_batched_nms
+    resnet.fused_bottleneck = fb._launch
+    resnet.fused_stem = fs.launch_stem
+    fcos.cuda_batched_nms = lambda boxes, scores, classes, thr, max_out, valid=None: \
+        nms_mod.launch_nms(boxes, scores, classes, valid, thr, max_out)
+    try:
+        yield
+    finally:
+        resnet.fused_bottleneck, resnet.fused_stem, fcos.cuda_batched_nms = saved
+
+
+def dispatch_cost_us(smi, dev):
+    """Host microseconds an operator call adds to a direct call of its
+    wrapper, on the predict path's small inputs (NMS at N = 5,000 and the
+    res5_1 block at B = 8): the host clock over ``SERVING_DISPATCH_CALLS``
+    calls each way, three turns each, the fastest turn of each."""
+    from slenderobjdet_torch.ops import fused_bottleneck as fb
+    from slenderobjdet_torch.ops import nms as nms_mod
+
+    rs = np.random.RandomState(7)
+    boxes, scores, classes, valid = nms_inputs(rs, "sparse", 8, 5000, dev)
+    x = torch.randn(8, 28, 44, 2048, device=dev).to(torch.bfloat16)
+    g = torch.Generator().manual_seed(3)
+    w = [torch.randn(s, generator=g).to(dev) * 0.02 for s in
+         ((2048, 512), (512,), (3, 3, 512, 512), (512,), (512, 2048), (2048,))]
+    pairs = {
+        "nms": (lambda: nms_mod.nms_op(boxes, scores, classes, valid, None, 0.6, 100),
+                lambda: nms_mod.launch_nms(boxes, scores, classes, valid, 0.6, 100)),
+        "fused_bottleneck": (
+            lambda: torch.ops.slenderobjdet.fused_bottleneck(x, *w, None, None),
+            lambda: fb._launch(x, *w, None, None)),
+    }
+    cost = {}
+    for name, (op, direct) in pairs.items():
+        times = {"op": [], "direct": []}
+        for label, fn in (("op", op), ("direct", direct)) * 3:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SERVING_DISPATCH_CALLS):
+                fn()
+            host = (time.perf_counter() - t0) / SERVING_DISPATCH_CALLS
+            torch.cuda.synchronize()
+            times[label].append(host * 1e6)
+        cost[name] = min(times["op"]) - min(times["direct"])
+        log(f"dispatch {name}: host us a call, operator {min(times['op']):.1f}, direct "
+            f"wrapper {min(times['direct']):.1f}, cost {cost[name]:.1f} us ({smi})")
+    return cost
+
+
+def phase_serving(kernels, dev, smi):
+    """The export tool's path at B = 8, 896 x 1408: an artifact of FCOS
+    predict bit-equal to the live model, the same launches, timed beside
+    it; the operators' dispatch cost, alone and in the live predict; the
+    weight-only int8 artifact within the tool's tolerances; a
+    CornerNet artifact at B = 2, and the rotated IoU and NMS operators in a
+    program of their own."""
+    import os
+    import tempfile
+
+    from slenderobjdet_torch import serving
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.ops.rotated import pairwise_rotated_iou, rotated_nms
+    from slenderobjdet_torch.tools import export_serving
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    args = serving_args(f"{tmp}/fcos")
+    cfg, model = export_serving.build(args)
+    gen = torch.Generator().manual_seed(21)
+    randomize_frozen_bn(model, gen)
+    with torch.no_grad():
+        classifier(model).bias.fill_(0.0)
+    one_detection_per_class(gen, model)
+    req = requests(1, SERVING_BATCH, seed=22, hw=SERVING_HW)[0]
+
+    export_s, predict_fn, counts = export_and_reload(model, args.output, SERVING_BATCH,
+                                                     SERVING_HW, req)
+    if counts != SERVING_PREDICT:
+        raise AssertionError(f"live predict launched {counts}, expected {SERVING_PREDICT}")
+    out = predict_fn(req)
+    check_outputs(out, SERVING_BATCH)
+    n_valid = int(out["valid"].sum())
+    if n_valid <= 0:
+        raise AssertionError("the artifact kept no detection")
+    sizes = {f: os.path.getsize(f"{args.output}/{f}") for f in serving.ARTIFACT_FILES}
+    if sorted(os.listdir(args.output)) != sorted(serving.ARTIFACT_FILES):
+        raise AssertionError(f"artifact files {sorted(os.listdir(args.output))}")
+    log(f"serving FCOS B={SERVING_BATCH} {SERVING_HW[0]}x{SERVING_HW[1]}: export "
+        f"{export_s:.2f} s, reload bit-equal to the live model, {n_valid} valid, "
+        f"launches {counts} both; files {sizes} bytes")
+    rates = {}
+    for label, fn in (("live", model.predict), ("artifact", predict_fn),
+                      ("artifact", predict_fn), ("live", model.predict)):
+        rates.setdefault(label, []).append(cuda_ms(lambda: fn(req), iters=5, warmup=2))
+    log(f"time serving predict B={SERVING_BATCH} {SERVING_HW[0]}x{SERVING_HW[1]} (CUDA "
+        f"events, 2 warm-up, 5 calls, two turns each): live "
+        f"{' / '.join(f'{t:.3f}' for t in rates['live'])} ms, artifact "
+        f"{' / '.join(f'{t:.3f}' for t in rates['artifact'])} ms ({smi})")
+    cost = dispatch_cost_us(smi, dev)
+    per_call = (cost["nms"] * SERVING_PREDICT["nms"]
+                + cost["fused_bottleneck"] * (SERVING_PREDICT["fused_bottleneck"]
+                                              + SERVING_PREDICT["fused_stem"])) / 1e3
+    log(f"dispatch cost of the registered operators a B={SERVING_BATCH} FCOS predict call "
+        f"(1 NMS, 1 stem and 13 blocks, the block's cost for the stem's): {per_call:.4f} ms "
+        f"beside {min(rates['live']):.3f} ms a call ({smi})")
+    turns = {}
+    for label in ("operators", "direct") * SERVING_AB_TURNS:
+        with contextlib.nullcontext() if label == "operators" else kernels_called_directly():
+            turns.setdefault(label, []).append(cuda_ms(lambda: model.predict(req), iters=5,
+                                                       warmup=1))
+    q = {k: np.percentile(v, (25, 50, 75)) for k, v in turns.items()}
+    log(f"time serving live predict B={SERVING_BATCH}, {SERVING_AB_TURNS} turns each of 5 "
+        f"calls: through the operators median {q['operators'][1]:.3f} ms (quartiles "
+        f"{q['operators'][0]:.3f}-{q['operators'][2]:.3f}), the kernels called directly, as "
+        f"before the operators, median {q['direct'][1]:.3f} ({q['direct'][0]:.3f}-"
+        f"{q['direct'][2]:.3f}): {q['operators'][1] - q['direct'][1]:+.3f} ms; turns "
+        f"{[round(t, 3) for t in turns['operators']]} / "
+        f"{[round(t, 3) for t in turns['direct']]} ({smi})")
+
+    qargs = serving_args(f"{tmp}/fcos_q", "--quantize")
+    t0 = time.perf_counter()
+    serving.export_detector(model, qargs.output, SERVING_BATCH, SERVING_HW, quantize=True)
+    q_export_s = time.perf_counter() - t0
+    q_fn = serving.load_detector(qargs.output)
+    q_out, q_counts = launches_of(q_fn, req)
+    if q_counts != SERVING_PREDICT:
+        raise AssertionError(f"the int8-weight artifact launched {q_counts}")
+    check_outputs(q_out, SERVING_BATCH)
+    missing, worst, box = match_by_class(q_out, out, SERVING_BATCH)
+    if missing or worst > 0.05 or box > 2.0:
+        raise AssertionError(f"--quantize against fp: {missing} classes kept by one only, "
+                             f"score difference {worst}, box {box}")
+    q_sizes = {f: os.path.getsize(f"{qargs.output}/{f}") for f in serving.ARTIFACT_FILES}
+    log(f"serving --quantize: export {q_export_s:.2f} s, files {q_sizes} bytes, "
+        f"detections class by class against the live fp model within the tool's "
+        f"tolerances (score 0.05, box 2.0): largest differences score {worst:.3e}, "
+        f"box {box:.3e}")
+    del model, predict_fn, q_fn
+    torch.cuda.empty_cache()
+
+    corner = build_model(corner_cfg(), device=dev, generator=torch.Generator().manual_seed(23))
+    creq = requests(1, SERVING_SMALL_BATCH, seed=24, hw=SERVING_HW)[0]
+    shape_cornernet(corner, creq["image"])
+    secs, _, cnt = export_and_reload(corner, f"{tmp}/corner", SERVING_SMALL_BATCH,
+                                     SERVING_HW, creq)
+    del corner
+    torch.cuda.empty_cache()
+    log(f"serving CornerNet B={SERVING_SMALL_BATCH}: export {secs:.2f} s, reload bit-equal, "
+        f"launches {cnt} both")
+    if cnt != CORNER_PREDICT:
+        raise AssertionError(f"the CornerNet artifact launched {cnt}")
+
+    class Rotated(torch.nn.Module):
+        """The rotated IoU of the box heads' sampling and the rotated NMS
+        of RotatedRetinaNet's predict."""
+
+        def forward(self, gt, boxes, scores):
+            keep_idx, keep_valid = rotated_nms(boxes, scores, 0.5, 100)
+            return pairwise_rotated_iou(gt, boxes[0]), keep_idx, keep_valid
+
+    rs = np.random.RandomState(26)
+
+    def rboxes(n):
+        return torch.as_tensor(np.concatenate(
+            [rs.uniform(0, 800, (n, 2)), rs.uniform(8, 200, (n, 2)),
+             rs.choice(ROTATED_ANGLES, (n, 1))], 1), dtype=torch.float32, device=dev)
+
+    args = (rboxes(100), rboxes(1100)[None], torch.rand(1, 1100, device=dev))
+    torch.export.save(torch.export.export(Rotated(), args, strict=False), f"{tmp}/rotated.pt2")
+    rotated_fn = torch.export.load(f"{tmp}/rotated.pt2").module()
+    got, cnt = launches_of(rotated_fn, *args)
+    want = Rotated()(*args)
+    if cnt != {"rotated_iou": 1, "rotated_nms": 1} or not all(
+            torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"the rotated program launched {cnt} or differs")
+    log("serving rotated_iou and rotated_nms operators: a program of 100 x 1,100 pairs and "
+        "NMS of 1,100 boxes, reloaded, bit-equal, 1 launch each")
+
+
+def count_int8_sites(model, req):
+    """The convs ``int8_predict_scope`` takes over in one predict call."""
+    from slenderobjdet_torch.ops import quant
+
+    taken = []
+    real = quant.intercept
+
+    def counting(mod, x):
+        out = real(mod, x)
+        if out is not None:
+            taken.append(quant.module_path(mod))
+        return out
+
+    quant.intercept = counting
+    try:
+        model.predict(req)
+    finally:
+        quant.intercept = real
+    return taken
+
+
+def phase_int8(kernels, dev, smi):
+    """FCOS predict under ``TPU.INT8_PREDICT``, dynamic and static (the JAX
+    package's 58 calibrated scales), at B = 8 and 32 on the loader's
+    landscape bucket, against bf16, the fused flags on and off: the convs
+    taken over, img/s, and the scores' largest difference from bf16 on
+    detections matched class by class."""
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.ops import quant
+
+    scales = quant.load_json_scales(INT8_SCALES)
+    gen = torch.Generator().manual_seed(27)
+    fused = build_model(flagship_cfg(True), device=dev, generator=gen)
+    randomize_frozen_bn(fused, gen)
+    with torch.no_grad():
+        classifier(fused).bias.fill_(0.0)
+    one_detection_per_class(gen, fused)
+    plain = build_model(flagship_cfg(False), device=dev)
+    plain.load_state_dict(fused.state_dict())
+    modes = {"bf16": (False, None), "int8 dynamic": (True, None),
+             "int8 static": (True, scales)}
+    for batch in INT8_BATCHES:
+        req = requests(1, batch, seed=28, hw=SERVING_HW)[0]
+        for flags, model in (("on", fused), ("off", plain)):
+            outs, ms = {}, {}
+            for mode, (on, sc) in list(modes.items()) + list(modes.items())[::-1]:
+                model.int8_predict = on
+                with quant.static_scales_scope(sc):
+                    if mode not in outs:
+                        outs[mode] = model.predict(req)
+                        sites = count_int8_sites(model, req) if on else []
+                        if on and batch == INT8_BATCHES[0]:
+                            log(f"int8 {mode} flags {flags}: {len(sites)} conv calls at "
+                                f"{len(set(sites))} sites taken over"
+                                + (f", {len(set(sites) & set(scales))} sites with static "
+                                   f"scales" if sc else ""))
+                        if on and not sites:
+                            raise AssertionError(f"int8 {mode} took over no conv")
+                    ms.setdefault(mode, []).append(
+                        cuda_ms(lambda: model.predict(req), iters=3, warmup=1))
+            model.int8_predict = False
+            for mode, out in outs.items():
+                check_outputs(out, batch)
+            base = outs["bf16"]
+            for mode in ("int8 dynamic", "int8 static"):
+                missing, worst, _ = match_by_class(outs[mode], base, batch)
+                best = min(ms[mode])
+                log(f"time int8 predict B={batch} {SERVING_HW[0]}x{SERVING_HW[1]} flags "
+                    f"{flags} {mode}: {best:.3f} ms, {batch * 1e3 / best:.2f} img/s against bf16 "
+                    f"{min(ms['bf16']):.3f} ms, {batch * 1e3 / min(ms['bf16']):.2f} img/s "
+                    f"({min(ms['bf16']) / best:.3f} x); scores' largest difference from bf16 "
+                    f"on matched detections {worst:.3e}, {missing} classes kept by one "
+                    f"only ({smi})")
+    del fused, plain
+
+
+def phase_tta(kernels, dev, smi):
+    """``train_net_torch.main --eval-only`` with ``TEST.AUG.ENABLED``
+    (MIN_SIZES 640 and 800, FLIP, the yaml's MAX_SIZE) on a synthetic set:
+    the evaluator's AP finite, ms an image."""
+    import tempfile
+
+    import train_net_torch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tta_")
+    name = "chip_smoke_tta"
+    synthetic_dataset(name + "_test", tmp, n_images=TTA_IMAGES, seed=29)
+    args = trainer_args(name, f"{tmp}/out", "--eval-only", overrides={
+        "TEST.AUG.ENABLED": True, "TEST.AUG.MIN_SIZES": TTA_MIN_SIZES,
+        "TEST.AUG.FLIP": True, "MODEL.FCOS.INFERENCE_TH": 0.0})
+    from slenderobjdet_torch.engine import trainer as trainer_mod
+    from slenderobjdet_torch.ops import _build
+
+    real = trainer_mod.tta_predict
+    secs = []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = real(*a, **kw)        # fetches the detections: the card is done
+        secs.append(time.perf_counter() - t0)
+        return out
+
+    trainer_mod.tta_predict = timed
+    _build.reset_launch_counts()
+    try:
+        results = train_net_torch.main(args)
+    finally:
+        trainer_mod.tta_predict = real
+    counts = _build.launch_counts()
+    ap = results[name + "_test"]["bbox"]["AP"]
+    views = TTA_IMAGES * len(TTA_MIN_SIZES) * 2
+    if not np.isfinite(ap):
+        raise AssertionError(f"TTA evaluation AP {ap}")
+    want = {"nms": views, "fused_stem": views, "fused_bottleneck": 13 * views}
+    if {k: counts[k] for k in want} != want or len(secs) != TTA_IMAGES:
+        raise AssertionError(f"TTA launched {counts} over {len(secs)} images; expected {want}")
+    log(f"tta: main --eval-only over {TTA_IMAGES} images x {views // TTA_IMAGES} views "
+        f"(MIN_SIZES {TTA_MIN_SIZES}, FLIP, MAX_SIZE 4000: buckets 640 / 896 x 4096): "
+        f"bbox AP {ap:.4f}; tta_predict {np.mean(secs[1:]) * 1e3:.1f} ms an image after the "
+        f"first ({secs[0] * 1e3:.1f} ms), launches {want} ({smi})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -5624,6 +6048,12 @@ def main() -> int:
     run("train", phase_train, dev, bare)
     torch.cuda.empty_cache()
     run("trainer", phase_trainer, kernels, dev, smi, bare)
+    torch.cuda.empty_cache()
+    run("serving", phase_serving, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("int8", phase_int8, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("tta", phase_tta, kernels, dev, smi)
     torch.cuda.empty_cache()
     if run("retinanet_build", lambda: models.extend(
             build_models(dev, RETINANET_YAML, RETINANET_CLS_BIAS))):

@@ -18,8 +18,9 @@ trainer does across processes. ``TEST.PRECISE_BN`` recomputes a trainable
 BatchNorm's running statistics before the evaluation, as the JAX trainer
 does (``models/layers.py:precise_bn_stats``). A dataset of evaluator_type
 "rcoco" is evaluated by ``RotatedCOCOEvaluator``, any other by
-``COCOEvaluator``. Not ported, raising NotImplementedError where it is asked
-for: test-time augmentation (``TEST.AUG.ENABLED``).
+``COCOEvaluator``. ``TEST.AUG.ENABLED`` evaluates each image through
+``engine/tta.py:tta_predict`` (multi-scale and flip views merged by a host
+NMS), except on an "rcoco" dataset, as the JAX trainer does.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ import numpy as np
 import torch
 
 from ..checkpoint.checkpointer import DetectionCheckpointer
-from ..data import build_detection_test_loader, build_detection_train_loader
+from ..data import (build_detection_test_loader, build_detection_train_loader,
+                    get_detection_dataset_dicts)
 from ..data.catalog import MetadataCatalog
 from ..evaluation import COCOEvaluator, inference_on_dataset
 from ..evaluation.rotated_evaluation import RotatedCOCOEvaluator
@@ -44,6 +46,7 @@ from ..parallel.multihost import (is_main_process, mean_over_processes, process_
 from ..solver import build_optimizer
 from .events import CommonMetricPrinter, EventStorage, JSONWriter
 from .train_loop import make_train_step, step_generator
+from .tta import tta_predict
 
 logger = logging.getLogger(__name__)
 
@@ -180,11 +183,6 @@ class BaseTrainer:
                                                        num_shards=1))
             n = max(1, cfg.TEST.PRECISE_BN.NUM_ITER)
             precise_bn_stats(self.model, (next(loader)["image"] for _ in range(n)))
-        if cfg.TEST.AUG.ENABLED:
-            raise NotImplementedError(
-                "TEST.AUG.ENABLED (test-time augmentation, engine/tta.py) is "
-                "not ported: it comes with serving, int8 and multi-node")
-
         def predict_fn(batch):
             # image_size: R-CNN clips proposals to the unpadded image
             return self.model.predict({
@@ -198,9 +196,34 @@ class BaseTrainer:
             )
             evaluator = (RotatedCOCOEvaluator if evaluator_type == "rcoco"
                          else COCOEvaluator)(dataset_name, cfg, output_dir=cfg.OUTPUT_DIR)
-            loader = build_detection_test_loader(cfg, dataset_name,
-                                                 batch_size=8)
-            results = inference_on_dataset(predict_fn, loader, evaluator)
+            if cfg.TEST.AUG.ENABLED and evaluator_type != "rcoco":
+                # multi-scale + flip TTA (reference train_net.py:128-142
+                # wraps the model in GeneralizedRCNNWithTTA for --eval-only)
+                results = self._test_with_tta(dataset_name, evaluator)
+            else:
+                loader = build_detection_test_loader(cfg, dataset_name,
+                                                     batch_size=8)
+                results = inference_on_dataset(predict_fn, loader, evaluator)
             logger.info("eval %s: %s", dataset_name, results.get("bbox"))
             all_results[dataset_name] = results
         return all_results if is_main_process() else {}
+
+    def _test_with_tta(self, dataset_name, evaluator) -> Dict:
+        """``tta_predict`` on every image of this process's strided share of
+        the dataset, one image a call; the evaluator gathers the shares."""
+        evaluator.reset()
+        predict_fns: Dict = {}
+        dicts = get_detection_dataset_dicts(dataset_name)
+        for d in dicts[process_index()::process_count()]:
+            merged = tta_predict(self.model, d, self.cfg, predict_fns=predict_fns)
+            n = len(merged["boxes"])
+            evaluator.process(
+                {"image_id": [d["image_id"]]},
+                {
+                    "boxes": merged["boxes"][None],
+                    "scores": merged["scores"][None],
+                    "classes": merged["classes"][None],
+                    "valid": np.ones((1, n), bool),
+                },
+            )
+        return evaluator.evaluate()

@@ -8,6 +8,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops import quant
 from .meta_arch.ablation import AblationMetaArch
 from .meta_arch.corner_net import CornerNet
 from .meta_arch.fcos import FCOS, FCOSTopK, FCOSV3
@@ -101,7 +102,12 @@ def build_model(cfg, device=None,
     when None). ``device`` None means the card: it raises a RuntimeError
     where there is none, and the CPU is taken only when asked for
     (``device="cpu"``). Unported names raise a KeyError listing the available
-    ones."""
+    ones. ``TPU.INT8_SCALES``, where set, becomes the process's default
+    static int8 scales (``ops.quant.set_default_scales``), as in the JAX
+    package, for every predict harness; each conv is named by its Flax path
+    (``ops.quant.name_sites``)."""
+    if cfg.TPU.INT8_SCALES:
+        quant.set_default_scales(quant.load_json_scales(cfg.TPU.INT8_SCALES))
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -116,6 +122,7 @@ def build_model(cfg, device=None,
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model.init_weights(generator)
+    quant.name_sites(model)
     model.eval()
     return model.to(device=device, memory_format=torch.channels_last)
 

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import quant
 from ..ops.deform_conv import deform_apply, deform_conv2d_batched, kernel_base_offsets
 from ..parallel.multihost import sum_over_processes
 
@@ -103,9 +104,14 @@ def uses_batch_statistics(loss):
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with float32 parameters that computes in the input's
-    dtype, as Flax's ``nn.Conv(dtype=..., param_dtype=float32)`` does."""
+    dtype, as Flax's ``nn.Conv(dtype=..., param_dtype=float32)`` does. Inside
+    ``ops.quant.int8_predict_scope`` an eligible conv runs the int8 path."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if quant.INTERCEPT is not None:
+            out = quant.INTERCEPT(self, x)
+            if out is not None:
+                return out
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 

@@ -37,6 +37,7 @@ from torch import nn
 
 from ...ops.deform_conv import deform_apply, deform_sample_batched, kernel_base_offsets
 from ...ops.losses import iou_loss_ltrb, optax_sigmoid_ce, sigmoid_focal_loss, smooth_l1_loss
+from ...ops.quant import int8_predict_scope
 from ...ops.topk import pair_top_k
 from ...parallel.multihost import (global_normalizer, global_sum, process_count,
                                    process_share)
@@ -266,9 +267,8 @@ class AblationMetaArch(RepPointsModule):
     losses and inference dispatch on ``MODEL.META_ARCH.NAME``."""
 
     def __init__(self, cfg):
-        for key in ("PACK_HEAD_LEVELS", "INT8_PREDICT"):
-            if getattr(cfg.TPU, key):
-                raise NotImplementedError(f"TPU.{key} is not ported")
+        if cfg.TPU.PACK_HEAD_LEVELS:
+            raise NotImplementedError("TPU.PACK_HEAD_LEVELS is not ported")
         p = cfg.MODEL.META_ARCH
         if p.NAME not in HEADS:
             raise ValueError(f"MODEL.META_ARCH.NAME {p.NAME!r} is none of {HEADS}")
@@ -300,6 +300,7 @@ class AblationMetaArch(RepPointsModule):
             strides=tuple(self_strides), num_anchors=num_anchors)
         super().__init__(backbone, head, p.IN_FEATURES, cfg.MODEL.PIXEL_MEAN,
                          cfg.MODEL.PIXEL_STD, dtype)
+        self.int8_predict = cfg.TPU.INT8_PREDICT
         self.head_name = p.NAME
         self.strides = self_strides
         self.anchor_spec = anchor_spec
@@ -514,7 +515,9 @@ class AblationMetaArch(RepPointsModule):
         (B, D), classes (B, D) int32 and valid (B, D) bool."""
         dev = self.pixel_mean.device
         images = torch.as_tensor(batch["image"], device=dev)
-        return self.postprocess(self(images), tuple(images.shape[1:3]),
+        with int8_predict_scope(self.int8_predict):
+            outputs = self(images)
+        return self.postprocess(outputs, tuple(images.shape[1:3]),
                                 torch.as_tensor(batch["scale"], device=dev),
                                 torch.as_tensor(batch["orig_size"], device=dev))
 

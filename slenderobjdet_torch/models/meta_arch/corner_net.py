@@ -37,6 +37,7 @@ from torch import nn
 
 from ...ops.corner_pool import br_pool, tl_pool
 from ...ops.nms import cuda_batched_nms
+from ...ops.quant import int8_predict_scope
 from ...ops.topk import pair_top_k
 from ...parallel.multihost import global_normalizer, process_share
 from ...structures import boxes as box_ops
@@ -147,8 +148,7 @@ class CornerNet(nn.Module):
 
     def __init__(self, cfg):
         super().__init__()
-        if cfg.TPU.INT8_PREDICT:
-            raise NotImplementedError("TPU.INT8_PREDICT is not ported")
+        self.int8_predict = cfg.TPU.INT8_PREDICT
         c = cfg.MODEL.CORNER_NET
         self.dtype = (torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16"
                       else torch.float32)
@@ -253,7 +253,8 @@ class CornerNet(nn.Module):
         scores (B, D), classes (B, D) int32 and valid (B, D) bool."""
         dev = self.pixel_mean.device
         images = torch.as_tensor(batch["image"], device=dev)
-        (tl, br), = self(images, stacks=[len(self.in_features) - 1])
+        with int8_predict_scope(self.int8_predict):
+            (tl, br), = self(images, stacks=[len(self.in_features) - 1])
         return self.detections(tl, br, torch.as_tensor(batch["scale"], device=dev),
                                torch.as_tensor(batch["orig_size"], device=dev))
 

@@ -34,6 +34,7 @@ from torch import nn
 
 from ...ops.losses import iou_loss_ltrb, optax_sigmoid_ce, sigmoid_focal_loss
 from ...ops.nms import cuda_batched_nms
+from ...ops.quant import int8_predict_scope
 from ...ops.topk import pair_top_k
 from ...parallel.multihost import global_normalizer
 from ...structures import boxes as box_ops
@@ -281,13 +282,8 @@ class FCOS(FCOSModule):
         returns each detection's source location as a degenerate (x, y, x, y)
         box under ``"anchors"``."""
         f = cfg.MODEL.FCOS
-        unported = {
-            "TPU.PACK_HEAD_LEVELS": cfg.TPU.PACK_HEAD_LEVELS,
-            "TPU.INT8_PREDICT": cfg.TPU.INT8_PREDICT,
-        }
-        for key, value in unported.items():
-            if value:
-                raise NotImplementedError(f"{key} is not ported")
+        if cfg.TPU.PACK_HEAD_LEVELS:
+            raise NotImplementedError("TPU.PACK_HEAD_LEVELS is not ported")
         dtype = (torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16"
                  else torch.float32)
         backbone = build_backbone(cfg)
@@ -318,6 +314,7 @@ class FCOS(FCOSModule):
         self.pre_nms_top_n = f.PRE_NMS_TOP_N
         self.nms_thresh = f.NMS_TH
         self.max_dets = cfg.TEST.DETECTIONS_PER_IMAGE
+        self.int8_predict = cfg.TPU.INT8_PREDICT
 
     # ------------------------------------------------------------ weights
     @torch.no_grad()
@@ -414,7 +411,8 @@ class FCOS(FCOSModule):
         anchors (B, D, 4)."""
         dev = self.pixel_mean.device
         images = torch.as_tensor(batch["image"], device=dev)
-        logits_l, reg_l, ctr_l = self(images)
+        with int8_predict_scope(self.int8_predict):
+            logits_l, reg_l, ctr_l = self(images)
         return self.postprocess(
             logits_l, reg_l, ctr_l, tuple(images.shape[1:3]),
             torch.as_tensor(batch["scale"], device=dev),

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.losses import optax_sigmoid_ce, sigmoid_focal_loss
+from ...ops.quant import int8_predict_scope
 from ...ops.topk import pair_top_k
 from ...parallel.multihost import global_normalizer, global_quotient
 from ..anchors import AnchorGeneratorSpec, fcos_locations
@@ -116,9 +117,8 @@ class FCOSAnchor(RepPointsModule):
     from ``MODEL.ANCHOR_GENERATOR``."""
 
     def __init__(self, cfg):
-        for key in ("PACK_HEAD_LEVELS", "INT8_PREDICT"):
-            if getattr(cfg.TPU, key):
-                raise NotImplementedError(f"TPU.{key} is not ported")
+        if cfg.TPU.PACK_HEAD_LEVELS:
+            raise NotImplementedError("TPU.PACK_HEAD_LEVELS is not ported")
         f = cfg.MODEL.FCOS
         dtype = (torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16"
                  else torch.float32)
@@ -131,6 +131,7 @@ class FCOSAnchor(RepPointsModule):
                               num_levels=len(strides))
         super().__init__(build_backbone(cfg), head, f.IN_FEATURES, cfg.MODEL.PIXEL_MEAN,
                          cfg.MODEL.PIXEL_STD, dtype)
+        self.int8_predict = cfg.TPU.INT8_PREDICT
         self.strides = strides
         self.anchor_spec = anchor_spec
         self.num_anchors = num_anchors
@@ -221,7 +222,9 @@ class FCOSAnchor(RepPointsModule):
         valid (B, D) bool in original image coordinates."""
         dev = self.pixel_mean.device
         images = torch.as_tensor(batch["image"], device=dev)
-        return self.postprocess(self(images), tuple(images.shape[1:3]),
+        with int8_predict_scope(self.int8_predict):
+            outputs = self(images)
+        return self.postprocess(outputs, tuple(images.shape[1:3]),
                                 torch.as_tensor(batch["scale"], device=dev),
                                 torch.as_tensor(batch["orig_size"], device=dev))
 

@@ -12,7 +12,8 @@
   their (global) count.
 - Predict: a level's top 1000 scores, their ltrb boxes, class-agnostic NMS
   at ``MODEL.RPN.NMS_THRESH``, rescaled and clipped; class 0, also under the
-  proposal keys. ``TPU.INT8_PREDICT`` raises: it is not ported.
+  proposal keys. ``TPU.INT8_PREDICT`` runs the network of ``predict`` under
+  ``ops.quant.int8_predict_scope``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.losses import iou_loss_ltrb, optax_sigmoid_ce
+from ...ops.quant import int8_predict_scope
 from ...ops.topk import top_k_by_index
 from ...parallel.multihost import global_normalizer
 from ...structures import boxes as box_ops
@@ -70,8 +72,6 @@ class ProposalNetworkWithMasks(RepPointsModule):
     """Proposal-only detector over the points proposal head."""
 
     def __init__(self, cfg):
-        if cfg.TPU.INT8_PREDICT:
-            raise NotImplementedError("TPU.INT8_PREDICT is not ported")
         dtype = (torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16"
                  else torch.float32)
         pg = cfg.MODEL.PROPOSAL_GENERATOR
@@ -80,6 +80,7 @@ class ProposalNetworkWithMasks(RepPointsModule):
         backbone = build_backbone(cfg)
         super().__init__(backbone, PointsProposalHead(cfg.MODEL.FPN.OUT_CHANNELS),
                          in_features, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, dtype)
+        self.int8_predict = cfg.TPU.INT8_PREDICT
         self.nms_thresh = cfg.MODEL.RPN.NMS_THRESH
         self.max_dets = cfg.TEST.DETECTIONS_PER_IMAGE
         self.strides = [backbone.strides[f] for f in self.in_features]
@@ -131,7 +132,8 @@ class ProposalNetworkWithMasks(RepPointsModule):
         """As ``RepPointsGenerator.predict``."""
         dev = self.pixel_mean.device
         images = torch.as_tensor(batch["image"], device=dev)
-        logits_l, regs_l = self(images)
+        with int8_predict_scope(self.int8_predict):
+            logits_l, regs_l = self(images)
         return self.postprocess(logits_l, regs_l, tuple(images.shape[1:3]),
                                 torch.as_tensor(batch["scale"], device=dev),
                                 torch.as_tensor(batch["orig_size"], device=dev))

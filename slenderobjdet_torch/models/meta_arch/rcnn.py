@@ -19,7 +19,8 @@ the reference's ``configs/rotated/Base-RRCNN-FPN.yaml``) swaps in the XYWHA
 machinery wholesale: ``RotatedRPN`` with a 5-delta RPN head,
 ``RotatedROIHeads``, ``gt_rboxes`` as the ground truth and XYWHA
 detections and proposals (cx, cy, w, h over the scale, the angle as it
-is). ``TPU.INT8_PREDICT`` raises.
+is). ``TPU.INT8_PREDICT`` runs the network of ``predict`` (trunk, FPN, RPN
+head and box features) under ``ops.quant.int8_predict_scope``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 from torch import nn
 
+from ...ops.quant import int8_predict_scope
 from ..backbones.fpn import build_backbone
 from ..layers import init_detector_weights, uses_batch_statistics
 from ..proposal_generator.rpn import RPN, StandardRPNHead
@@ -70,8 +72,6 @@ class ProposalVisibleRCNN(RCNNModule):
     ``anchors``)."""
 
     def __init__(self, cfg, with_anchor: bool = False):
-        if cfg.TPU.INT8_PREDICT:
-            raise NotImplementedError("TPU.INT8_PREDICT is not ported")
         dtype = (torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16"
                  else torch.float32)
         backbone = build_backbone(cfg)
@@ -87,6 +87,7 @@ class ProposalVisibleRCNN(RCNNModule):
                                                    box_dim=5 if rotated else 4),
                          rpn_in, roi_in, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
                          dtype)
+        self.int8_predict = cfg.TPU.INT8_PREDICT
         self.roi_box = roi_heads.build_module(channels, dtype)
         self.rpn = rpn
         self.roi_heads = roi_heads
@@ -121,13 +122,17 @@ class ProposalVisibleRCNN(RCNNModule):
     def rpn_anchors(self, image_hw) -> Tuple[torch.Tensor, list]:
         """The RPN's anchors (N, 4), or (N, 5) rotated, on the model's
         device and the per-level counts, for a padded image shape (kept for
-        the shapes seen)."""
+        the shapes seen, except while ``torch.export`` traces, whose tensors
+        must not outlive the trace)."""
         dev = self.pixel_mean.device
         key = (tuple(int(v) for v in image_hw), str(dev))
-        if key not in self._anchors:
-            anchors, counts = self.rpn.anchor_spec.anchors(key[0])
-            self._anchors[key] = (torch.as_tensor(anchors, device=dev), counts)
-        return self._anchors[key]
+        if key in self._anchors:
+            return self._anchors[key]
+        anchors, counts = self.rpn.anchor_spec.anchors(key[0])
+        entry = (torch.as_tensor(anchors, device=dev), counts)
+        if not torch.compiler.is_compiling():
+            self._anchors[key] = entry
+        return entry
 
     def _image_sizes(self, batch, images) -> torch.Tensor:
         if "image_size" in batch:
@@ -182,7 +187,8 @@ class ProposalVisibleRCNN(RCNNModule):
         scores (the RPN's logits) and validity."""
         dev = self.pixel_mean.device
         images = torch.as_tensor(batch["image"], device=dev)
-        logits_l, deltas_l, roi_feats = self(images)
+        with int8_predict_scope(self.int8_predict):
+            logits_l, deltas_l, roi_feats = self(images)
         anchors, counts = self.rpn_anchors(images.shape[1:3])
         proposals, prop_scores, prop_valid, *prop_anchors = self.rpn.proposals(
             anchors, counts, torch.cat(logits_l, dim=1), torch.cat(deltas_l, dim=1),

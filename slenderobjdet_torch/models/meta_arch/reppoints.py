@@ -45,6 +45,7 @@ from torch import nn
 from ...ops.deform_conv import deform_sample_batched
 from ...ops.losses import sigmoid_focal_loss, smooth_l1_loss
 from ...ops.nms import cuda_batched_nms
+from ...ops.quant import int8_predict_scope
 from ...ops.topk import pair_top_k
 from ...parallel.multihost import global_sum, process_count, process_share
 from ...structures import boxes as box_ops
@@ -323,9 +324,8 @@ class RepPointsDetector(RepPointsModule):
             prior_prob=rp.PRIOR_PROB, full_stride_points=False)
 
     def __init__(self, cfg):
-        for key in ("PACK_HEAD_LEVELS", "INT8_PREDICT"):
-            if getattr(cfg.TPU, key):
-                raise NotImplementedError(f"TPU.{key} is not ported")
+        if cfg.TPU.PACK_HEAD_LEVELS:
+            raise NotImplementedError("TPU.PACK_HEAD_LEVELS is not ported")
         s = self.settings(cfg)
         if s["transform_method"] != "minmax":
             raise NotImplementedError(
@@ -343,6 +343,7 @@ class RepPointsDetector(RepPointsModule):
             prior_prob=s["prior_prob"])
         super().__init__(backbone, head, s["in_features"], cfg.MODEL.PIXEL_MEAN,
                          cfg.MODEL.PIXEL_STD, dtype)
+        self.int8_predict = cfg.TPU.INT8_PREDICT
         self.num_classes = s["num_classes"]
         self.focal_alpha = s["focal_alpha"]
         self.focal_gamma = s["focal_gamma"]
@@ -512,7 +513,8 @@ class RepPointsDetector(RepPointsModule):
         (B, D), classes (B, D) int32 and valid (B, D) bool."""
         dev = self.pixel_mean.device
         images = torch.as_tensor(batch["image"], device=dev)
-        outputs = self(images)
+        with int8_predict_scope(self.int8_predict):
+            outputs = self(images)
         return self.postprocess(
             self.score_logits(outputs), outputs[2], tuple(images.shape[1:3]),
             torch.as_tensor(batch["scale"], device=dev),

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ...ops.losses import sigmoid_focal_loss, smooth_l1_loss
+from ...ops.quant import int8_predict_scope
 from ...ops.rotated import (apply_rotated_deltas, get_rotated_deltas, offset_boxes,
                             pairwise_rotated_iou, rotated_nms)
 from ...ops.topk import pair_top_k
@@ -58,8 +59,6 @@ class RotatedRetinaNet(RetinaNetModule):
     5); ``predict`` returns XYWHA detections."""
 
     def __init__(self, cfg):
-        if cfg.TPU.INT8_PREDICT:
-            raise NotImplementedError("TPU.INT8_PREDICT is not ported")
         r = cfg.MODEL.RETINANET
         dtype = (torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16"
                  else torch.float32)
@@ -71,6 +70,7 @@ class RotatedRetinaNet(RetinaNetModule):
                            anchor_spec.num_cell_anchors[0], r.NUM_CONVS, r.PRIOR_PROB)
         super().__init__(backbone, head, in_features, cfg.MODEL.PIXEL_MEAN,
                          cfg.MODEL.PIXEL_STD, dtype)
+        self.int8_predict = cfg.TPU.INT8_PREDICT
         self.anchor_spec = anchor_spec
         self.num_classes = r.NUM_CLASSES
         self.focal_alpha = r.FOCAL_LOSS_ALPHA
@@ -94,13 +94,17 @@ class RotatedRetinaNet(RetinaNetModule):
 
     def anchors(self, image_hw) -> Tuple[torch.Tensor, list]:
         """The anchors (N, 5) on the model's device and the per-level counts
-        for a padded image shape (kept for the shapes seen)."""
+        for a padded image shape (kept for the shapes seen, except while
+        ``torch.export`` traces, whose tensors must not outlive the trace)."""
         dev = self.pixel_mean.device
         key = (tuple(int(v) for v in image_hw), str(dev))
-        if key not in self._anchor_cache:
-            anchors, counts = self.anchor_spec.anchors(key[0])
-            self._anchor_cache[key] = (torch.as_tensor(anchors, device=dev), counts)
-        return self._anchor_cache[key]
+        if key in self._anchor_cache:
+            return self._anchor_cache[key]
+        anchors, counts = self.anchor_spec.anchors(key[0])
+        entry = (torch.as_tensor(anchors, device=dev), counts)
+        if not torch.compiler.is_compiling():
+            self._anchor_cache[key] = entry
+        return entry
 
     @torch.no_grad()
     def label_batch(self, anchors, gt_rboxes, gt_classes, gt_valid):
@@ -155,7 +159,8 @@ class RotatedRetinaNet(RetinaNetModule):
         scores (B, D), classes (B, D) int32 and valid (B, D) bool."""
         dev = self.pixel_mean.device
         images = torch.as_tensor(batch["image"], device=dev)
-        logits_l, regs_l = self(images)
+        with int8_predict_scope(self.int8_predict):
+            logits_l, regs_l = self(images)
         boxes, scores, classes, valid = self.candidates(logits_l, regs_l,
                                                         tuple(images.shape[1:3]))
         keep_idx, keep_valid = rotated_nms(offset_boxes(boxes, classes), scores,

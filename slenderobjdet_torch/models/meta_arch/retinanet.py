@@ -27,6 +27,7 @@ from torch import nn
 
 from ...ops.losses import sigmoid_focal_loss, smooth_l1_loss
 from ...ops.nms import cuda_batched_nms
+from ...ops.quant import int8_predict_scope
 from ...ops.topk import pair_top_k
 from ...parallel.multihost import global_normalizer
 from ...structures import boxes as box_ops
@@ -158,9 +159,8 @@ class RetinaNet(RetinaNetModule):
                  with_anchor: bool = False):
         if assign_mode not in ("iou", "fcos", "nearest"):
             raise ValueError(assign_mode)
-        for key in ("PACK_HEAD_LEVELS", "INT8_PREDICT"):
-            if getattr(cfg.TPU, key):
-                raise NotImplementedError(f"TPU.{key} is not ported")
+        if cfg.TPU.PACK_HEAD_LEVELS:
+            raise NotImplementedError("TPU.PACK_HEAD_LEVELS is not ported")
         r = cfg.MODEL.RETINANET
         dtype = (torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16"
                  else torch.float32)
@@ -180,6 +180,7 @@ class RetinaNet(RetinaNetModule):
         )
         super().__init__(backbone, head, in_features, cfg.MODEL.PIXEL_MEAN,
                          cfg.MODEL.PIXEL_STD, dtype)
+        self.int8_predict = cfg.TPU.INT8_PREDICT
         self.assign_mode = assign_mode
         self.with_anchor = with_anchor
         self.strides = strides
@@ -312,7 +313,8 @@ class RetinaNet(RetinaNetModule):
         box."""
         dev = self.pixel_mean.device
         images = torch.as_tensor(batch["image"], device=dev)
-        logits_l, regs_l = self(images)
+        with int8_predict_scope(self.int8_predict):
+            logits_l, regs_l = self(images)
         return self.postprocess(
             logits_l, regs_l, tuple(images.shape[1:3]),
             torch.as_tensor(batch["scale"], device=dev),

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
-The sources under ``csrc/`` are compiled by ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``: no PyTorch headers, so a
-build takes seconds. The library is built at first use into
+The sources under ``csrc/`` are compiled by ``nvcc``, one process a source,
+all started together, and linked into one shared library with a plain C
+interface, loaded with ``ctypes``: no PyTorch headers, so a build takes
+seconds. The library is built at first use into
 ``build/torch_kernels/<hash>/`` at the repository root (listed in
 ``.gitignore``), keyed by a hash of the sources, the headers they include
 and the compiler command, so an edit to any of them rebuilds it and an
@@ -21,7 +22,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -88,11 +89,13 @@ def nvcc_path() -> str:
     return found
 
 
-def nvcc_command(output: str, nvcc: str = "nvcc") -> List[str]:
-    """The compiler command that builds the kernel library into ``output``."""
-    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-o", output,
-            *[str(CSRC / s) for s in SOURCES]]
+def nvcc_commands(output: str, nvcc: str = "nvcc") -> Tuple[List[List[str]], List[str]]:
+    """The commands that build the kernel library into ``output``: one
+    compile a source into an object beside ``output``, then the link."""
+    objects = [f"{output}.{Path(s).stem}.o" for s in SOURCES]
+    compiles = [[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-c", "-o", obj, str(CSRC / s)] for s, obj in zip(SOURCES, objects)]
+    return compiles, [nvcc, *ARCH_FLAGS, "-shared", "-o", output, *objects]
 
 
 def hashed_files() -> List[Path]:
@@ -101,7 +104,8 @@ def hashed_files() -> List[Path]:
 
 
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(nvcc_command("out")).encode())
+    compiles, link = nvcc_commands("out")
+    h = hashlib.sha256(" ".join(sum(compiles, []) + link).encode())
     for path in hashed_files():
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -119,12 +123,25 @@ def build() -> Path:
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = nvcc_command(str(tmp), nvcc_path())
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"kernel build failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
+    compiles, link = nvcc_commands(str(tmp), nvcc_path())
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in compiles]
+    try:
+        for cmd, proc in zip([*compiles, link], [*procs, None]):
+            if proc is None:
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n{out}")
+        os.replace(tmp, path)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for cmd in compiles:
+            Path(cmd[cmd.index("-o") + 1]).unlink(missing_ok=True)
     return path
 
 

@@ -234,12 +234,33 @@ def launch_corner_pool_backward(a: torch.Tensor, b: torch.Tensor, g: torch.Tenso
     return ga, gb
 
 
+# The forward as a registered operator, which ``torch.export`` records as
+# one node: the plain version on CPU tensors, the kernel on CUDA tensors
+# (which raises where the build or the launch fails).
+@torch.library.custom_op("slenderobjdet::corner_pool", mutates_args=(), device_types="cpu",
+                         schema="(Tensor a, Tensor b, str corner) -> Tensor")
+def _pool_plain(a, b, corner):
+    return (plain_tl_pool if corner == "tl" else plain_br_pool)(a, b)
+
+
+@_pool_plain.register_kernel("cuda")
+def _pool_kernel(a, b, corner):
+    return launch_corner_pool(a, b, corner)
+
+
+@_pool_plain.register_fake
+def _pool_fake(a, b, corner):
+    if a.device.type == "cuda":         # the kernel writes channels last
+        return torch.empty_like(a, memory_format=torch.channels_last)
+    return torch.empty_like(a)
+
+
 class _CornerPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, corner):
         ctx.corner = corner
         ctx.save_for_backward(a, b)
-        return launch_corner_pool(a, b, corner)
+        return torch.ops.slenderobjdet.corner_pool(a, b, corner)
 
     @staticmethod
     def backward(ctx, g):
@@ -248,16 +269,23 @@ class _CornerPool(torch.autograd.Function):
         return ga, gb, None
 
 
+def _pool(a: torch.Tensor, b: torch.Tensor, corner: str) -> torch.Tensor:
+    """Where a gradient is recorded, the plain composition on CPU tensors and
+    the kernels' ``autograd.Function`` on CUDA tensors; otherwise the
+    operator ``slenderobjdet::corner_pool``, as an exported program calls it."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        if a.device.type == "cpu":
+            return (plain_tl_pool if corner == "tl" else plain_br_pool)(a, b)
+        return _CornerPool.apply(a, b, corner)
+    return torch.ops.slenderobjdet.corner_pool(a, b, corner)
+
+
 def tl_pool(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Top-left corner pooling, ``top_pool(a) + left_pool(b)``: the kernel
     on CUDA tensors, the plain version on CPU tensors."""
-    if a.device.type == "cpu":
-        return plain_tl_pool(a, b)
-    return _CornerPool.apply(a, b, "tl")
+    return _pool(a, b, "tl")
 
 
 def br_pool(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Bottom-right corner pooling, ``bottom_pool(a) + right_pool(b)``."""
-    if a.device.type == "cpu":
-        return plain_br_pool(a, b)
-    return _CornerPool.apply(a, b, "br")
+    return _pool(a, b, "br")

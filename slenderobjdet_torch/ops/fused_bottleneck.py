@@ -3,11 +3,12 @@
 
 - ``reference_bottleneck``: the plain PyTorch version (``F.conv2d``), the
   kernels' oracle.
-- ``fused_bottleneck``: a ``torch.autograd.Function`` around the CUDA
-  kernels of ``csrc/fused_bottleneck.cu``; CPU tensors take
-  ``reference_bottleneck``. Its backward is autograd of
-  ``reference_bottleneck`` on the saved inputs, as the JAX package's
-  ``custom_vjp`` differentiates the XLA composition.
+- ``fused_bottleneck``: the registered operator
+  ``slenderobjdet::fused_bottleneck`` (the CUDA kernels of
+  ``csrc/fused_bottleneck.cu``; CPU tensors take ``reference_bottleneck``),
+  inside a ``torch.autograd.Function`` where a gradient is recorded. Its
+  backward is autograd of ``reference_bottleneck`` on the saved inputs, as
+  the JAX package's ``custom_vjp`` differentiates the XLA composition.
 - The host-side plan of a CUDA call: ``bottleneck_plan`` picks the kernel
   by dtype and shape (bf16 blocks with channels in multiples of 64, all of
   R-50's: three wgmma implicit-GEMM launches; the rest: the on-chip block
@@ -274,13 +275,36 @@ def reference_grads(reference, saved, needs, g):
                  for t in leaves)
 
 
+# The block as a registered operator, which ``torch.export`` records as one
+# node: ``reference_bottleneck`` on CPU tensors, the kernels on CUDA tensors
+# (which raise where the build or a launch fails). The weights' re-layout
+# (``pack_conv_weights``) runs inside the CUDA implementation, so an exported
+# program carries the weights as the model holds them.
+@torch.library.custom_op(
+    "slenderobjdet::fused_bottleneck", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor w3, "
+           "Tensor b3, Tensor? wsc, Tensor? bsc) -> Tensor")
+def _bottleneck_plain(x, w1, b1, w2, b2, w3, b3, wsc, bsc):
+    return reference_bottleneck(x, w1, b1, w2, b2, w3, b3, wsc, bsc)
+
+
+@_bottleneck_plain.register_kernel("cuda")
+def _bottleneck_kernel(x, w1, b1, w2, b2, w3, b3, wsc, bsc):
+    return _launch(x, w1, b1, w2, b2, w3, b3, wsc, bsc)
+
+
+@_bottleneck_plain.register_fake
+def _bottleneck_fake(x, w1, b1, w2, b2, w3, b3, wsc, bsc):
+    bsz, h, w, _ = x.shape
+    return x.new_empty((bsz, h, w, w3.shape[1]))     # NHWC, as both write it
+
+
 class _FusedBottleneck(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, w3, b3, wsc, bsc):
         ctx.save_for_backward(x, w1, b1, w2, b2, w3, b3, wsc, bsc)
-        if x.device.type == "cpu":
-            return reference_bottleneck(x, w1, b1, w2, b2, w3, b3, wsc, bsc)
-        return _launch(x, w1, b1, w2, b2, w3, b3, wsc, bsc)
+        return torch.ops.slenderobjdet.fused_bottleneck(x, w1, b1, w2, b2, w3, b3,
+                                                        wsc, bsc)
 
     @staticmethod
     def backward(ctx, g):
@@ -291,8 +315,13 @@ class _FusedBottleneck(torch.autograd.Function):
 def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wsc=None, bsc=None):
     """Fused bottleneck forward through the CUDA kernel for CUDA tensors (CPU
     tensors take ``reference_bottleneck``); differentiable, with the
-    gradients of ``reference_bottleneck``."""
-    return _FusedBottleneck.apply(x, w1, b1, w2, b2, w3, b3, wsc, bsc)
+    gradients of ``reference_bottleneck``. Where no gradient is recorded it
+    calls the operator ``slenderobjdet::fused_bottleneck`` directly, as an
+    exported program does."""
+    args = (x, w1, b1, w2, b2, w3, b3, wsc, bsc)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+        return _FusedBottleneck.apply(*args)
+    return torch.ops.slenderobjdet.fused_bottleneck(*args)
 
 
 # ------------------------------------------------------------------ probe

@@ -3,10 +3,12 @@
 
 - ``reference_stem``: the plain PyTorch version (``F.conv2d`` +
   ``F.max_pool2d``), the kernel's oracle.
-- ``fused_stem``: a ``torch.autograd.Function`` around the CUDA kernels of
-  ``csrc/fused_stem.cu``; CPU tensors take ``reference_stem``. Its backward
-  is autograd of ``reference_stem`` on the saved inputs, as the JAX
-  package's ``custom_vjp`` differentiates the XLA composition.
+- ``fused_stem``: the registered operator ``slenderobjdet::fused_stem``
+  (the CUDA kernels of ``csrc/fused_stem.cu``; CPU tensors take
+  ``reference_stem``), inside a ``torch.autograd.Function`` where a
+  gradient is recorded. Its backward is autograd of ``reference_stem`` on
+  the saved inputs, as the JAX package's ``custom_vjp`` differentiates the
+  XLA composition.
 - ``stem_eligible``: the static gate the backbone checks.
 - The host-side plan of a CUDA call: ``stem_plan`` picks the kernel by dtype
   and width (bf16 with 64 output channels, every ResNet's stem: the
@@ -166,13 +168,33 @@ def launch_stem(x, w, scale, bias, route=None):
     return out
 
 
+# The stem as a registered operator, which ``torch.export`` records as one
+# node: ``reference_stem`` on CPU tensors, the kernel on CUDA tensors (which
+# raises where the build or the launch fails). The weights are folded and
+# laid out inside the CUDA implementation.
+@torch.library.custom_op("slenderobjdet::fused_stem", mutates_args=(),
+                         device_types="cpu",
+                         schema="(Tensor x, Tensor w, Tensor scale, Tensor bias) -> Tensor")
+def _stem_plain(x, w, scale, bias):
+    return reference_stem(x, w, scale, bias)
+
+
+@_stem_plain.register_kernel("cuda")
+def _stem_kernel(x, w, scale, bias):
+    return launch_stem(x, w, scale, bias)
+
+
+@_stem_plain.register_fake
+def _stem_fake(x, w, scale, bias):
+    b, h, wd, _ = x.shape
+    return x.new_empty((b, h // 4, wd // 4, w.shape[-1]))     # NHWC, as both write it
+
+
 class _FusedStem(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, scale, bias):
         ctx.save_for_backward(x, w, scale, bias)
-        if x.device.type == "cpu":
-            return reference_stem(x, w, scale, bias)
-        return launch_stem(x, w, scale, bias)
+        return torch.ops.slenderobjdet.fused_stem(x, w, scale, bias)
 
     @staticmethod
     def backward(ctx, g):
@@ -183,5 +205,8 @@ class _FusedStem(torch.autograd.Function):
 def fused_stem(x, w, scale, bias):
     """Fused stem forward through the CUDA kernel for CUDA tensors (CPU
     tensors take ``reference_stem``); differentiable, with the gradients of
-    ``reference_stem``."""
-    return _FusedStem.apply(x, w, scale, bias)
+    ``reference_stem``. Where no gradient is recorded it calls the operator
+    ``slenderobjdet::fused_stem`` directly, as an exported program does."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, scale, bias)):
+        return _FusedStem.apply(x, w, scale, bias)
+    return torch.ops.slenderobjdet.fused_stem(x, w, scale, bias)

@@ -10,7 +10,9 @@
   ``csrc/nms.cu`` (one block per image: the selectable candidates sorted once
   in shared memory, then resolved 32 a round; the class offset is formed in
   the kernel), which gives exactly the plain version's results in one launch.
-  On CPU tensors it runs the plain version.
+  On CPU tensors it runs the plain version. Both go through the registered
+  operator ``slenderobjdet::nms`` (``nms_op``), so that ``torch.export``
+  records the NMS as one node and a reloaded program launches the kernel.
 - ``level_batched_nms``: the RPN's level-aware NMS, ``batched_nms`` with the
   candidates' pyramid level as the class, as one kernel launch over rows of
   (image, level) (``level_rows``) and a merge of the rows' kept lists (the
@@ -25,7 +27,6 @@ image, as ``FCOS.predict`` computes it by vmapping ``batched_nms``.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -165,10 +166,8 @@ def cuda_nms(
     valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``nms_select`` through the CUDA kernel for CUDA tensors; CPU tensors
-    take the plain version."""
-    if boxes.device.type == "cpu":
-        return nms_select(boxes, scores, iou_threshold, max_out, valid=valid)
-    return launch_nms(boxes, scores, None, valid, iou_threshold, max_out)
+    take the plain version (both through the ``slenderobjdet::nms`` op)."""
+    return nms_op(boxes, scores, None, valid, None, iou_threshold, max_out)
 
 
 def cuda_batched_nms(
@@ -181,10 +180,43 @@ def cuda_batched_nms(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``batched_nms`` through the CUDA kernel (which forms the per-image
     class offset itself) for CUDA tensors; CPU tensors take the plain
-    version."""
-    if boxes.device.type == "cpu":
+    version (both through the ``slenderobjdet::nms`` op)."""
+    return nms_op(boxes, scores, idxs, valid, None, iou_threshold, max_out)
+
+
+# The NMS as a registered operator, which ``torch.export`` records as one
+# node: the plain version on CPU tensors, the kernel on CUDA tensors (which
+# raises where the build or the launch fails). ``idxs`` (classes) and
+# ``row_offset`` (a shift a row) exclude each other.
+@torch.library.custom_op(
+    "slenderobjdet::nms", mutates_args=(), device_types="cpu",
+    schema="(Tensor boxes, Tensor scores, Tensor? idxs, Tensor? valid, "
+           "Tensor? row_offset, float iou_threshold, int max_out) -> (Tensor, Tensor)")
+def _nms_plain(boxes, scores, idxs, valid, row_offset, iou_threshold, max_out):
+    if idxs is not None:
         return batched_nms(boxes, scores, idxs, iou_threshold, max_out, valid=valid)
-    return launch_nms(boxes, scores, idxs, valid, iou_threshold, max_out)
+    if row_offset is not None:
+        boxes = boxes + row_offset[:, None, None]
+    return nms_select(boxes, scores, iou_threshold, max_out, valid=valid)
+
+
+@_nms_plain.register_kernel("cuda")
+def _nms_kernel(boxes, scores, idxs, valid, row_offset, iou_threshold, max_out):
+    return launch_nms(boxes, scores, idxs, valid, iou_threshold, max_out,
+                      row_offset=row_offset)
+
+
+@_nms_plain.register_fake
+def _nms_fake(boxes, scores, idxs, valid, row_offset, iou_threshold, max_out):
+    shape = (scores.shape[0], max_out)
+    return (scores.new_empty(shape, dtype=torch.int32),
+            scores.new_empty(shape, dtype=torch.bool))
+
+
+def nms_op(boxes, scores, idxs, valid, row_offset, iou_threshold, max_out):
+    """One call of the ``slenderobjdet::nms`` operator."""
+    return torch.ops.slenderobjdet.nms(boxes, scores, idxs, valid, row_offset,
+                                       float(iou_threshold), int(max_out))
 
 
 def _order_key(scores: torch.Tensor, index: torch.Tensor,
@@ -199,16 +231,25 @@ def _order_key(scores: torch.Tensor, index: torch.Tensor,
     return torch.where(selectable, high * 2 ** 32 + low, -2 ** 63)
 
 
-@functools.lru_cache(maxsize=None)
+_LEVEL_INDEX: dict = {}
+
+
 def _level_index(counts: Tuple[int, ...], device: torch.device):
     """For levels of ``counts`` candidates: which of the (L, K) row
     positions hold one, K the largest count, and its candidate index (0 in
     the padding). Kept per shape, so that a call copies nothing from the
-    host."""
+    host (except while ``torch.export`` traces, whose tensors must not
+    outlive the trace)."""
+    key = (counts, device)
+    if key in _LEVEL_INDEX:
+        return _LEVEL_INDEX[key]
     starts = torch.tensor([sum(counts[:i]) for i in range(len(counts))], device=device)
     pos = torch.arange(max(counts), device=device)
     filled = pos[None] < torch.tensor(counts, device=device)[:, None]
-    return filled, torch.where(filled, starts[:, None] + pos[None], 0)
+    entry = filled, torch.where(filled, starts[:, None] + pos[None], 0)
+    if not torch.compiler.is_compiling():
+        _LEVEL_INDEX[key] = entry
+    return entry
 
 
 def level_rows(boxes: torch.Tensor, scores: torch.Tensor, counts,
@@ -269,13 +310,13 @@ def level_batched_nms(
     bsz = scores.shape[0]
     row_boxes, row_scores, row_valid, offset, index = level_rows(boxes, scores, counts,
                                                                  valid)
-    if boxes.device.type == "cpu":
-        kept, kept_valid = nms_select(row_boxes + offset[:, None, None], row_scores,
-                                      iou_threshold, max_out, valid=row_valid)
-    else:
+    if rounds is not None and boxes.device.type == "cuda":
         kept, kept_valid = launch_nms(row_boxes, row_scores, None, row_valid,
                                       iou_threshold, max_out, rounds=rounds,
                                       row_offset=offset)
+    else:
+        kept, kept_valid = nms_op(row_boxes, row_scores, None, row_valid, offset,
+                                  iou_threshold, max_out)
     # rows' kept lists -> candidate indices, merged per image
     levels, width = index.shape
     gidx = torch.gather(index[None].expand(bsz, -1, -1).reshape(bsz * levels, width),

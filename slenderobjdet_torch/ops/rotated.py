@@ -19,7 +19,9 @@ coordinates (y down): detectron2's RotatedBoxes convention.
 - ``pairwise_rotated_iou`` and ``rotated_nms``: on CPU tensors the plain
   versions; on CUDA tensors the kernels of ``csrc/rotated.cu``
   (``launch_rotated_iou``, ``launch_rotated_nms``; one wrapper call counts
-  one launch), which give the plain versions' results bit for bit.
+  one launch), which give the plain versions' results bit for bit; both
+  through the registered operators ``slenderobjdet::rotated_iou`` and
+  ``slenderobjdet::rotated_nms``, which ``torch.export`` records.
 - ``get_rotated_deltas`` / ``apply_rotated_deltas``: Box2BoxTransformRotated
   (the angle difference floor-modded into [-180, 180)).
 """
@@ -295,22 +297,59 @@ def launch_rotated_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold:
     return nms_from_inputs(nms_kernel_inputs(boxes, scores, max_out, valid), iou_threshold)
 
 
+# The two kernels as registered operators, which ``torch.export`` records as
+# one node each: the plain versions on CPU tensors, the kernels on CUDA
+# tensors (which raise where the build or a launch fails).
+@torch.library.custom_op("slenderobjdet::rotated_iou", mutates_args=(), device_types="cpu",
+                         schema="(Tensor boxes1, Tensor boxes2) -> Tensor")
+def _iou_plain(boxes1, boxes2):
+    return plain_pairwise_rotated_iou(boxes1, boxes2)
+
+
+@_iou_plain.register_kernel("cuda")
+def _iou_kernel(boxes1, boxes2):
+    return launch_rotated_iou(boxes1, boxes2)
+
+
+@_iou_plain.register_fake
+def _iou_fake(boxes1, boxes2):
+    dtype = torch.float32 if boxes1.device.type == "cuda" else boxes1.dtype
+    return boxes1.new_empty((boxes1.shape[0], boxes2.shape[0]), dtype=dtype)
+
+
+@torch.library.custom_op(
+    "slenderobjdet::rotated_nms", mutates_args=(), device_types="cpu",
+    schema="(Tensor boxes, Tensor scores, Tensor? valid, float iou_threshold, "
+           "int max_out) -> (Tensor, Tensor)")
+def _nms_plain(boxes, scores, valid, iou_threshold, max_out):
+    return plain_rotated_nms(boxes, scores, iou_threshold, max_out, valid=valid)
+
+
+@_nms_plain.register_kernel("cuda")
+def _nms_kernel(boxes, scores, valid, iou_threshold, max_out):
+    return launch_rotated_nms(boxes, scores, iou_threshold, max_out, valid=valid)
+
+
+@_nms_plain.register_fake
+def _nms_fake(boxes, scores, valid, iou_threshold, max_out):
+    shape = (scores.shape[0], max_out)
+    return (scores.new_empty(shape, dtype=torch.int32),
+            scores.new_empty(shape, dtype=torch.bool))
+
+
 def pairwise_rotated_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     """(N, 5), (M, 5) -> (N, M) exact IoU: the kernel on CUDA tensors, the
-    plain version on CPU tensors."""
-    if boxes1.device.type == "cpu":
-        return plain_pairwise_rotated_iou(boxes1, boxes2)
-    return launch_rotated_iou(boxes1, boxes2)
+    plain version on CPU tensors (the ``slenderobjdet::rotated_iou`` op)."""
+    return torch.ops.slenderobjdet.rotated_iou(boxes1, boxes2)
 
 
 def rotated_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
                 max_out: int, valid: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy rotated NMS over a batch (B, N, 5): the kernel on CUDA tensors,
-    the plain version on CPU tensors."""
-    if boxes.device.type == "cpu":
-        return plain_rotated_nms(boxes, scores, iou_threshold, max_out, valid=valid)
-    return launch_rotated_nms(boxes, scores, iou_threshold, max_out, valid=valid)
+    the plain version on CPU tensors (the ``slenderobjdet::rotated_nms`` op)."""
+    return torch.ops.slenderobjdet.rotated_nms(boxes, scores, valid, float(iou_threshold),
+                                               int(max_out))
 
 
 def offset_boxes(boxes: torch.Tensor, groups: torch.Tensor) -> torch.Tensor:

@@ -164,7 +164,7 @@ def test_ablation_yamls_build_at_full_width_on_the_cpu(yaml_name, head, adaption
     assert float(model.head.cls_out.bias[0].detach()) == pytest.approx(-np.log(99.0))
 
 
-@pytest.mark.parametrize("key", ["TPU.PACK_HEAD_LEVELS", "TPU.INT8_PREDICT"])
+@pytest.mark.parametrize("key", ["TPU.PACK_HEAD_LEVELS"])
 def test_unported_options_raise(key):
     with pytest.raises(NotImplementedError, match=key.split(".")[-1]):
         torch_build_model(tiny_cfg(torch_get_cfg, **{key: True}), device="cpu")

@@ -215,8 +215,8 @@ def test_registry_holds_all_twenty_eight_names():
     assert len(META_ARCHS) == 28 and set(META_ARCHS) == set(META_ARCH_REGISTRY.keys())
     model = torch_build_model(tiny_cfg(torch_get_cfg), device="cpu")
     assert type(model) is tcn.CornerNet and model.size_divisibility == 32
-    with pytest.raises(NotImplementedError, match="INT8_PREDICT"):
-        torch_build_model(tiny_cfg(torch_get_cfg, **{"TPU.INT8_PREDICT": True}), device="cpu")
+    model = torch_build_model(tiny_cfg(torch_get_cfg, **{"TPU.INT8_PREDICT": True}), device="cpu")
+    assert type(model) is tcn.CornerNet and model.int8_predict
 
 
 def test_corner_yaml_builds_at_full_width():

@@ -29,6 +29,7 @@ from slenderobjdet_tpu.engine import events as jevents
 from slenderobjdet_tpu.evaluation import ar_recall as jar
 from slenderobjdet_tpu.evaluation import coco_api as japi
 from slenderobjdet_tpu.evaluation import coco_evaluation as jce
+from slenderobjdet_tpu.evaluation import native as jnative
 from slenderobjdet_tpu.evaluation import slender_cocoeval as jsc
 from slenderobjdet_tpu.structures import boxes as jboxes
 from slenderobjdet_tpu.structures import masks as jmasks
@@ -255,6 +256,18 @@ def test_backend_is_numpy_where_no_compiler_exists(monkeypatch, tmp_path):
     assert not tnative.available() and tnative.backend() == "numpy"
 
 
+def load_jax_matcher(monkeypatch):
+    """The JAX package's C matcher, loaded now. Its loader rebuilds the
+    tracked ``.so`` in place at collection time when a checkout left it older
+    than its source, in every worker at once; a worker that loaded a
+    half-written file keeps the numpy path from then on (``_tried``). By
+    test time the file is whole: load it again, and it must load."""
+    if jnative._lib is None:
+        monkeypatch.setattr(jnative, "_lib", None)
+        monkeypatch.setattr(jnative, "_tried", False)
+    assert jnative.available()
+
+
 def _run_cocoeval(module, api, path, dts, use_native):
     coco = api.COCO(path)
     ev = module.SlenderCOCOeval(coco, coco.loadRes([dict(d) for d in dts]), "bbox")
@@ -272,7 +285,9 @@ def _coco_results(gt):
 
 
 @pytest.mark.parametrize("use_native", [True, False], ids=["c_matcher", "numpy_path"])
-def test_slender_cocoeval_equals_the_jax_package(registered, use_native):
+def test_slender_cocoeval_equals_the_jax_package(registered, use_native, monkeypatch):
+    if use_native:
+        load_jax_matcher(monkeypatch)
     gt, path = registered
     dts = _coco_results(gt)
     assert len(dts) > 30
@@ -317,6 +332,8 @@ def test_ar_matrix_equals_the_jax_package(registered):
 @pytest.mark.parametrize("use_native", [True, False], ids=["c_matcher", "numpy_path"])
 def test_coco_evaluator_equals_the_jax_package(registered, use_native, tmp_path, monkeypatch):
     """(b): the same fixed predictions through both COCOEvaluators."""
+    if use_native:
+        load_jax_matcher(monkeypatch)
     gt, _ = registered
     monkeypatch.setattr(jsc.SlenderCOCOeval, "use_native", use_native, raising=False)
     monkeypatch.setattr(tsc.SlenderCOCOeval, "use_native", use_native, raising=False)

@@ -94,7 +94,6 @@ def _flagship(**overrides):
 
 @pytest.mark.parametrize("key,value", [
     ("TPU.PACK_HEAD_LEVELS", True),
-    ("TPU.INT8_PREDICT", True),
 ])
 def test_unported_options_raise(key, value):
     with pytest.raises(NotImplementedError, match=key.split(".")[-1]):
@@ -138,19 +137,25 @@ def test_build_model_builds_on_the_card_by_default():
 
 
 def test_nvcc_command_targets_sm90a(tmp_path, monkeypatch):
-    """The build compiles every source for sm_90a, and its cache key hashes
-    the shared header too, so an edit to the header rebuilds."""
-    cmd = _build.nvcc_command("lib.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert cmd[cmd.index("-o") + 1] == "lib.so"
-    for src in _build.SOURCES:
+    """The build compiles every source for sm_90a, one command a source
+    (run together), and links the objects into the library; its cache key
+    hashes the shared header too, so an edit to the header rebuilds."""
+    compiles, link = _build.nvcc_commands("lib.so")
+    assert len(compiles) == len(_build.SOURCES)
+    objects = []
+    for src, cmd in zip(_build.SOURCES, compiles):
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
         assert (_build.CSRC / src).exists()
-        assert any(c.endswith(src) for c in cmd)
+        assert [c for c in cmd if c.endswith(".cu")] == [str(_build.CSRC / src)]
+        objects.append(cmd[cmd.index("-o") + 1])
+    assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
+    assert link[link.index("-o") + 1] == "lib.so"
+    assert link[link.index("-o") + 2:] == objects and len(set(objects)) == len(objects)
     assert _build.BUILD_ROOT == ROOT / "build" / "torch_kernels"
     hashed = {p.name for p in _build.hashed_files()}
     assert hashed == set(_build.SOURCES) | set(_build.HEADERS)
     for header in _build.HEADERS:
-        assert not any(c.endswith(header) for c in cmd)
+        assert not any(c.endswith(header) for c in sum(compiles, link))
         users = [s for s in _build.SOURCES
                  if f'#include "{header}"' in (_build.CSRC / s).read_text()]
         assert set(users) >= {"fused_bottleneck.cu", "dma_streams_probe.cu"}
@@ -879,3 +884,55 @@ def test_corner_pool_kernel_matches_plain_on_gpu(shape, corner, dtype):
     assert bool(got.isnan().any()) and torch.equal(got.isnan(), want.isnan())
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
     check_gradients(a, b, torch.float64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantize", [False, True], ids=["float", "int8_weights"])
+def test_exported_flagship_reloads_and_launches_the_kernels_on_gpu(tmp_path, quantize):
+    """The bf16 flagship with the fused flags on, exported at B = 2, 128 x
+    192 (``serving.export_detector``) and reloaded: the same launches as the
+    live model (1 NMS, 1 stem, 13 bottleneck wrappers), the outputs bit-equal
+    (float weights) or within the export tool's ``--verify`` tolerances
+    (int8 weights, the classifier at the focal prior)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from slenderobjdet_torch import serving
+    from slenderobjdet_torch.tools.export_serving import verify_outputs
+
+    model = build_model(_flagship(**{"MODEL.RESNETS.DEPTH": 50, "MODEL.RESNETS.FUSED_STEM": True,
+                                     "MODEL.RESNETS.FUSED_BLOCKS": True}))
+    serving.export_detector(model, str(tmp_path / "a"), batch_size=2, image_hw=(128, 192),
+                            quantize=quantize)
+    predict_fn = serving.load_detector(str(tmp_path / "a"))
+    rs = np.random.RandomState(0)
+    batch = {"image": rs.randint(0, 256, (2, 128, 192, 3)).astype(np.uint8),
+             "scale": np.ones(2, np.float32), "orig_size": np.array([[128, 192]] * 2, np.float32)}
+    counts, outs = [], []
+    for fn in (model.predict, predict_fn):
+        _build.reset_launch_counts()
+        outs.append(fn(batch))
+        torch.cuda.synchronize()
+        counts.append({k: v for k, v in _build.launch_counts().items() if v})
+    want, out = outs
+    assert counts[0] == counts[1] == {"nms": 1, "fused_stem": 1, "fused_bottleneck": 13}
+    if quantize:
+        verify_outputs(out, want, quantize=True)
+    else:
+        for k in want:
+            assert torch.equal(out[k], want[k]), k
+
+
+@pytest.mark.gpu
+def test_int8_predict_runs_on_gpu():
+    """The flagship (bf16, flags off) under ``TPU.INT8_PREDICT``: dynamic
+    int8 through ``torch._int_mm`` on the card, finite, different from bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model = build_model(_flagship(**{"MODEL.RESNETS.DEPTH": 50, "TPU.INT8_PREDICT": True}))
+    batch = {"image": np.random.RandomState(1).randint(0, 256, (2, 128, 192, 3)).astype(np.uint8),
+             "scale": np.ones(2, np.float32), "orig_size": np.array([[128, 192]] * 2, np.float32)}
+    out = model.predict(batch)
+    model.int8_predict = False
+    ref = model.predict(batch)
+    assert bool(torch.isfinite(out["boxes"]).all()) and out["boxes"].shape == (2, 100, 4)
+    assert not torch.equal(out["boxes"], ref["boxes"])

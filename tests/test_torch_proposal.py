@@ -216,9 +216,9 @@ def test_registry_dispatches_as_jax():
             model = torch_build_model(cfg, device="cpu")
             jdet = jax_build_model(tiny_cfg(jax_get_cfg, generator, arch))
             assert type(model) is cls and type(jdet).__name__ == cls.__name__
-    with pytest.raises(NotImplementedError, match="INT8_PREDICT"):
-        torch_build_model(tiny_cfg(torch_get_cfg, "ProposalNetworkWithMasks",
-                                   **{"TPU.INT8_PREDICT": True}), device="cpu")
+    model = torch_build_model(tiny_cfg(torch_get_cfg, "ProposalNetworkWithMasks",
+                                       **{"TPU.INT8_PREDICT": True}), device="cpu")
+    assert type(model) is ProposalNetworkWithMasks and model.int8_predict
 
 
 def test_bridge_carries_each_tree(setups):

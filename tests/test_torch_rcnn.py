@@ -537,14 +537,6 @@ def test_rcnn_names_build_from_the_yaml(arch):
     assert model.rpn.post_nms_topk == {True: 1000, False: 1000}
 
 
-@pytest.mark.parametrize("overrides,match", [
-    ({"TPU.INT8_PREDICT": True}, "INT8_PREDICT"),
-])
-def test_unported_rcnn_options_raise(overrides, match):
-    with pytest.raises(NotImplementedError, match=match):
-        torch_build_model(tiny_cfg(torch_get_cfg, **overrides), device="cpu")
-
-
 # ------------------------------------------------------------------ trainer
 NAME = "torch_rcnn_synth"
 TINY = {

@@ -715,7 +715,7 @@ def test_build_model_lists_what_is_available():
     assert all(name in str(err.value) for name in ELEVEN)
 
 
-@pytest.mark.parametrize("key", ["TPU.PACK_HEAD_LEVELS", "TPU.INT8_PREDICT"])
+@pytest.mark.parametrize("key", ["TPU.PACK_HEAD_LEVELS"])
 def test_unported_retinanet_options_raise(key):
     with pytest.raises(NotImplementedError, match=key.split(".")[-1]):
         torch_build_model(tiny_cfg(torch_get_cfg, **{key: True}), device="cpu")

@@ -8,6 +8,7 @@ size (R-18, 64-pixel images, float32):
 - ``train_net_torch.main`` trains, resumes and evaluates with
   ``--device cpu``, and fails without a card when no device is named
   (RetinaNet's trainer tests are ``tests/test_torch_trainer_retinanet.py``);
+- ``--eval-only`` with test-time augmentation (``TEST.AUG.ENABLED``);
 - what is not ported raises, metrics are fetched on logging iterations only,
   the profiler window writes its trace, and no file of the port imports JAX
   or the JAX package.
@@ -191,9 +192,9 @@ def test_main_fails_without_a_card_unless_the_cpu_is_asked_for(synth, monkeypatc
 
 # ------------------------------------------------------- options and windows
 @pytest.mark.parametrize("overrides,match", [
-    ({"TEST.AUG.ENABLED": True}, "TEST.AUG.ENABLED"),
-    ({"MODEL.META_ARCHITECTURE": "RepPointsDetector",
-      "MODEL.REPPOINTS.TRANSFORM_METHOD": "moment"}, "moment_transfer"),
+    pytest.param({"MODEL.META_ARCHITECTURE": "RepPointsDetector",
+                  "MODEL.REPPOINTS.TRANSFORM_METHOD": "moment"}, "moment_transfer",
+                 id="overrides1-moment_transfer"),
 ])
 def test_unported_trainer_options_raise(synth, overrides, match):
     cfg = make_cfg(torch_get_cfg, synth / "unported", **{"SOLVER.MAX_ITER": 1}, **overrides)
@@ -215,6 +216,46 @@ def test_rotated_evaluator_type_raises(synth):
             trainer.test()
     finally:
         meta.set(evaluator_type="coco")
+
+
+TTA = {"TEST.AUG.ENABLED": True, "TEST.AUG.MIN_SIZES": (48, 64), "TEST.AUG.MAX_SIZE": 128,
+       "TEST.AUG.FLIP": True, "MODEL.FCOS.INFERENCE_TH": 0.0}
+
+
+def test_main_eval_only_with_tta_on_the_cpu(synth, monkeypatch):
+    """``TEST.AUG.ENABLED`` routes ``--eval-only`` through ``tta_predict``,
+    one call an image, into the evaluator (the JAX trainer's
+    ``test_eval_with_tta``); an "rcoco" dataset keeps the plain loader path,
+    as in the JAX trainer."""
+    seen = []
+    real = ttrainer.tta_predict
+
+    def recording(model, d, cfg, predict_fns=None):
+        seen.append(d["image_id"])
+        return real(model, d, cfg, predict_fns=predict_fns)
+
+    monkeypatch.setattr(ttrainer, "tta_predict", recording)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # 24 small predicts: one thread, under six workers
+    try:
+        results = train_net_torch.main(cli_args(synth / "tta_out", "--device", "cpu",
+                                                "--eval-only", **TTA))
+    finally:
+        torch.set_num_threads(threads)
+    assert sorted(seen) == list(range(1, 7))
+    bbox = results[NAME]["bbox"]
+    assert set(STATS_NAMES) <= set(bbox) and np.isfinite(bbox["AP"])
+    assert "AR@100" in results[NAME]["ar"]
+    cfg = make_cfg(torch_get_cfg, synth / "tta_out", **TTA)
+    trainer = ttrainer.BaseTrainer(cfg, device="cpu")
+    meta = tcatalog.MetadataCatalog.get(NAME)
+    meta.set(evaluator_type="rcoco")
+    try:
+        with pytest.raises(ValueError, match="rcoco evaluator takes rotated"):
+            trainer.test()
+    finally:
+        meta.set(evaluator_type="coco")
+    assert len(seen) == 6
 
 
 def test_profile_window_writes_a_trace(synth):
