@@ -12,6 +12,7 @@
     python3 chip_smoke.py rotated_retinanet rotated_rcnn   # the rotated boxes
     python3 chip_smoke.py cornernet   # CornerNet and the corner-pool kernel
     python3 chip_smoke.py serving int8 tta   # the serving path
+    python3 chip_smoke.py pvt vt_fpn   # the PVT, PVTv2 and VT-FPN trunks
 
 Builds the port's CUDA kernels from ``slenderobjdet_torch/ops/csrc`` (at
 first use, into ``build/torch_kernels/``), then, each phase failing the run
@@ -294,6 +295,26 @@ if it fails:
    ``train_net_torch.main --eval-only`` with ``TEST.AUG.ENABLED``
    (MIN_SIZES 640 and 800, FLIP) on 8 synthetic images: four views an image
    with 1 + 13 + 1 launches each, a finite AP, ms an image.
+
+36. PVT, PVTv2 and VT-FPN (``pvt``, ``pvt_train``, ``pvt_trainer``,
+   ``vt_fpn``), RetinaNet R-50's yaml with the backbone overridden, bf16,
+   seeded weights, full widths: ``pvt`` builds PVT-Small and PVTv2 (B2's
+   depths) and, at both buckets, B = 8: head outputs against an fp32 copy
+   (<= HEAD_TOL), the NMS kernel on the model's own 5,000 candidates
+   against ``batched_nms`` (exactly), then ``comparable_retinanet`` and 2
+   requests each launching exactly 1 NMS (no stem, no bottleneck),
+   detections matched against the fp32 copy (>= MATCH_MIN of the slots);
+   predict ms, img/s and peak memory; device ms of trunk, FPN, head and
+   postprocess and the SR attention calls' share of the trunk.
+   ``pvt_train``: PVT-Small's step at the largest of PVT_BATCHES that fits,
+   PVT_STEPS steps launching nothing, the loss falling, img/s, peak memory
+   and the saved attention scores reckoned beside it. ``pvt_trainer``:
+   ``train_net_torch.main`` at that batch (4 steps, 8 test batches of 1 NMS,
+   ``--resume`` bit-equal, ``--eval-only``). ``vt_fpn``: R-50 VT-FPN with
+   the fused flags on and off: heads against fp32, exactly 1 stem + 13
+   bottleneck + 1 NMS a predict call with them on, >= MATCH_MIN of the slots
+   matched on against off, predict ms in turns, 4 steps at B = 16 with 1 +
+   13 launches each.
 
 Every kernel's time stands beside its bound, the least time the card could
 take: the larger of its bytes (inputs read once, outputs written once) over
@@ -5580,6 +5601,393 @@ def phase_cornernet_trainer(kernels, dev, smi, report):
                    overrides={"SOLVER.IMS_PER_BATCH": n, "TPU.REMAT_BACKBONE": True})
 
 
+# ------------------------------------------------- PVT, PVTv2 and VT-FPN
+PVT_HW = LOADER_SHAPES                 # both buckets, 896 x 1408 and 1408 x 896
+PVT_NAMES = {"pvt": "build_retinanet_pvt_fpn_backbone",
+             "pvtv2": "build_retinanet_pvtv2_fpn_backbone"}
+PVT_OVERRIDES = {"MODEL.PVT.DEPTH": "small", "MODEL.FPN.IN_FEATURES": ["pvt2", "pvt3", "pvt4"]}
+VT_FPN_NAME = "build_retinanet_resnet_vt_fpn_backbone_use_p5"
+PVT_PREDICT = {"nms": 1}               # no stem and no bottleneck on a PVT trunk
+VT_FPN_PREDICT = {"nms": 1, "fused_stem": 1, "fused_bottleneck": 13}
+VT_FPN_STEP = {"fused_stem": 1, "fused_bottleneck": 13}
+PVT_BATCHES = (16, 8)                  # the step: the largest that fits
+PVT_STEPS = 8                          # on one batch; the loss must fall
+PVT_SCORE_BYTES = 6                    # a saved score: the fp32 softmax and its bf16 copy
+
+
+def pvt_cfg(family, fused=False, dtype="bfloat16", batch=None, lr=None):
+    """The RetinaNet R-50 yaml with ``family``'s backbone: "pvt" (PVT-Small),
+    "pvtv2" (PVTv2-B2's depths) or "vt_fpn" (R-50 VT-FPN, FrozenBN, the
+    fused flags ``fused``); ``batch`` sets SOLVER.IMS_PER_BATCH and ``lr``
+    BASE_LR with WARMUP_ITERS 0 (a test setting)."""
+    cfg = flagship_cfg(fused, dtype, RETINANET_YAML)
+    cfg.defrost()
+    if family == "vt_fpn":
+        opts = {"MODEL.BACKBONE.NAME": VT_FPN_NAME}
+    else:
+        opts = {"MODEL.BACKBONE.NAME": PVT_NAMES[family], **PVT_OVERRIDES}
+    if batch is not None:
+        opts["SOLVER.IMS_PER_BATCH"] = batch
+    if lr is not None:
+        opts.update({"SOLVER.BASE_LR": lr, "SOLVER.WARMUP_ITERS": 0})
+    cfg.merge_from_list([x for kv in opts.items() for x in kv])
+    cfg.freeze()
+    return cfg
+
+
+def sr_attention_calls(model, x):
+    """Every SRAttention module of the trunk with the arguments one trunk
+    call gave it, recorded by forward pre-hooks."""
+    from slenderobjdet_torch.models.backbones.pvt import SRAttention
+
+    calls = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: calls.append((mod, args)))
+             for m in model.backbone.bottom_up.modules() if isinstance(m, SRAttention)]
+    try:
+        with torch.inference_mode():
+            model.backbone.bottom_up(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def attention_scores(model, hw, batch):
+    """The scores (query x key pairs, every head) of one trunk call at
+    ``hw``: the elements each SRAttention's softmax holds."""
+    trunk = model.backbone.bottom_up
+    total = 0
+    for i, depth in enumerate(trunk.depths):
+        s = i + 1
+        grid = [n // 2 ** (s + 1) for n in hw]
+        for j in range(depth):
+            attn = getattr(trunk, f"stage{s}_block{j}").attn
+            keys = (grid[0] // attn.sr_ratio) * (grid[1] // attn.sr_ratio)
+            total += batch * attn.num_heads * grid[0] * grid[1] * keys
+    return total
+
+
+def predict_launches(label, model, reqs, want):
+    """Each request through ``model.predict`` with the launch counts set to 0
+    just before it and read just after; each must be ``want``. Returns the
+    outputs and the launches summed over the requests."""
+    from slenderobjdet_torch.ops import _build
+
+    outs, per_call = [], []
+    for r in reqs:
+        _build.reset_launch_counts()
+        outs.append(model.predict(r))
+        torch.cuda.synchronize()
+        per_call.append({k: v for k, v in _build.launch_counts().items() if v})
+    if any(c != want for c in per_call):
+        raise AssertionError(f"{label} predict launched {per_call}, expected {want}")
+    for out in outs:
+        check_outputs(out, reqs[0]["image"].shape[0])
+    if sum(int(o["valid"].sum()) for o in outs) <= 0:
+        raise AssertionError(f"{label}: no valid detections")
+    return outs, {k: v * len(reqs) for k, v in want.items()}
+
+
+def matched_share(label, ref, reqs, outs):
+    """``match_detections`` of ``outs`` against ``ref``'s predict of the same
+    requests; fails under MATCH_MIN."""
+    matched = same_box = total = 0
+    diffs = []
+    for r, out in zip(reqs, outs):
+        other = ref.predict(r)
+        m, sb, t, d = match_detections(out, other, r["image"].shape[0])
+        matched, same_box, total, diffs = matched + m, same_box + sb, total + t, diffs + d
+    share = matched / max(total, 1)
+    log(f"{label}: {matched}/{total} slots matched by class with score diff <= {SCORE_TOL} "
+        f"({same_box} with the same box); score diff median {np.median(diffs):.3e}, max "
+        f"{np.max(diffs):.3e}")
+    if share < MATCH_MIN:
+        raise AssertionError(f"{label}: {share:.4f} of slots matched")
+
+
+def predict_ms(model, req, iters=5):
+    """Host ms of ``model.predict(req)`` to a synchronise, after 2 warm-up
+    calls, and the peak device memory over the timed calls (the weights of
+    every model on the card included)."""
+    for _ in range(2):
+        model.predict(req)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        model.predict(req)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def phase_pvt(kernels, dev, smi):
+    """RetinaNet on PVT-Small and on PVTv2 (B2's depths) at full width, bf16,
+    seeded weights, predict at B = 8 on both buckets: head outputs against an
+    fp32 copy on both buckets; the classifier's bias moved so that the coarsest level's 99.5th
+    percentile score sits on SCORE_THRESH_TEST, then the NMS kernel against
+    ``batched_nms`` on the model's own 5,000 candidates (exactly); then
+    ``comparable_retinanet`` and 2 requests a bucket, each launching exactly
+    1 NMS (no stem, no bottleneck), matched against the fp32 copy by
+    ``match_detections``; predict ms, img/s and peak memory a bucket; device
+    ms of trunk, FPN, head and postprocess and the SR attention's share of the
+    trunk."""
+    from slenderobjdet_torch.models import build_model
+
+    for family in PVT_NAMES:
+        gen = torch.Generator().manual_seed(60)
+        model = build_model(pvt_cfg(family), device=dev, generator=gen)
+        ref32 = build_model(pvt_cfg(family, dtype="float32"), device=dev)
+        ref32.load_state_dict(model.state_dict())
+        n_params = sum(p.numel() for p in model.parameters())
+        bucket_reqs = [requests(2, 8, seed=61 + b, hw=hw) for b, hw in enumerate(PVT_HW)]
+        for hw, reqs in zip(PVT_HW, bucket_reqs):      # the drawn weights
+            with torch.inference_mode():
+                images = torch.as_tensor(reqs[0]["image"], device=dev)
+                heads = [m(images) for m in (model, ref32)]
+            for part, got, want in zip(("logits", "deltas"), *heads):
+                err = max(ratio(g, w) for g, w in zip(got, want))
+                log(f"head {family} {hw[0]}x{hw[1]} {part}: bf16 vs fp32 err ratio {err:.3e} "
+                    f"(<= {HEAD_TOL})")
+                if err > HEAD_TOL:
+                    raise AssertionError(f"head {family} {hw} {part}: bf16 err {err}")
+            del heads, images
+        for b, (hw, reqs) in enumerate(zip(PVT_HW, bucket_reqs)):
+            label = f"{family} {hw[0]}x{hw[1]}"
+            images = torch.as_tensor(reqs[0]["image"], device=dev)
+            if b == 0:
+                with torch.inference_mode():
+                    top = model(images)[0][-1].flatten()
+                    shift = RETINANET_CLS_BIAS - float(torch.kthvalue(
+                        top.float(), int(0.995 * top.numel())).values)
+                    for m in (model, ref32):
+                        classifier(m).bias.add_(shift)
+                    boxes, scores, classes, valid, _ = model.candidates(*model(images), hw)
+                if tuple(boxes.shape) != (len(boxes), 5000, 4):
+                    raise AssertionError(f"{label} candidates {tuple(boxes.shape)}")
+                nms_check(kernels, smi, family, "predict_B8", boxes, scores, valid,
+                          model.nms_thresh, model.max_dets, classes=classes)
+                del top, boxes, scores, classes, valid
+                comparable_retinanet(torch.Generator().manual_seed(62), model, ref32)
+            del images
+            outs, launched = predict_launches(label, model, reqs, PVT_PREDICT)
+            by_path = kernels["nms"].setdefault("launches_by_path", {})
+            by_path[f"{family}_predict"] = by_path.get(f"{family}_predict", 0) + launched["nms"]
+            matched_share(f"{label} bf16 vs fp32 detections", ref32, reqs, outs)
+            del outs
+            ms, peak = predict_ms(model, reqs[0])
+            log(f"time {family} predict ({smi}): B=8 {hw[0]}x{hw[1]} {ms:.3f} ms/batch, "
+                f"{8e3 / ms:.2f} img/s, peak {peak:.2f} GiB; {n_params} parameters")
+            if b == 0:
+                with torch.inference_mode():
+                    images = torch.as_tensor(reqs[0]["image"], device=dev)
+                    x = ((images.float() - model.pixel_mean) / model.pixel_std).to(model.dtype)
+                    x = x.permute(0, 3, 1, 2)
+                    feats = model.backbone(x)
+                    feats_l = [feats[f] for f in model.in_features]
+                    logits_l, regs_l = model.head(feats_l)
+                    scale = torch.ones(len(images), device=dev)
+                    orig = torch.tensor([hw] * len(images), dtype=torch.float32, device=dev)
+                    trunk = cuda_ms(lambda: model.backbone.bottom_up(x), 5)
+                    parts = {
+                        "trunk": trunk,
+                        "fpn": cuda_ms(lambda: model.backbone(x), 5) - trunk,
+                        "head": cuda_ms(lambda: model.head(feats_l), 5),
+                        "postprocess": cuda_ms(lambda: model.postprocess(
+                            logits_l, regs_l, hw, scale, orig), 5),
+                    }
+                calls = sr_attention_calls(model, x)
+                with torch.inference_mode():
+                    attn = sum(cuda_ms(lambda m=m, a=a: m(*a), 3, warmup=1) for m, a in calls)
+                n_scores = attention_scores(model, hw, len(images))
+                log(f"time {family} predict parts ({smi}), B=8 {hw[0]}x{hw[1]}, device ms: "
+                    + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+                    + f"; the {len(calls)} SR attention calls alone {attn:.3f} ms, "
+                    f"{attn / trunk:.4f} of the trunk; {n_scores / 1e6:.1f} M scores a call")
+                del x, feats, feats_l, logits_l, regs_l, images, calls
+            torch.cuda.empty_cache()
+        del model, ref32
+        torch.cuda.empty_cache()
+
+
+def phase_pvt_train(kernels, dev, smi, report):
+    """The PVT-Small train step at the largest of PVT_BATCHES that fits
+    (896 x 1408, 100 padded gt, bf16, BASE_LR RETINANET_TRAIN_LR without
+    warm-up): PVT_STEPS steps on one batch, none launching a kernel, the
+    loss finite and falling; img/s, peak memory, and the bytes the saved
+    attention scores take (PVT_SCORE_BYTES a score) beside that peak. Leaves
+    the batch in ``report``."""
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.ops import _build
+    from slenderobjdet_torch.solver import build_optimizer
+
+    hw = PVT_HW[0]
+    for n in PVT_BATCHES:
+        cfg = pvt_cfg("pvt", batch=n, lr=RETINANET_TRAIN_LR)
+        model = build_model(cfg, generator=torch.Generator().manual_seed(63))
+        step = make_train_step(model, build_optimizer(cfg, model), cfg)
+        batch = train_batch(n, 64, hw=hw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        totals, times = [], []
+        try:
+            for i in range(PVT_STEPS):
+                _build.reset_launch_counts()
+                t0 = time.perf_counter()
+                metrics = step(batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                counts = {k: v for k, v in _build.launch_counts().items() if v}
+                if counts:
+                    raise AssertionError(f"pvt step {i} launched {counts}")
+                totals.append(float(metrics["total_loss"]))
+        except torch.cuda.OutOfMemoryError:
+            log(f"pvt step at B={n}: out of device memory; trying the next size")
+            del model, step, batch
+            torch.cuda.empty_cache()
+            continue
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not (all(np.isfinite(totals)) and totals[-1] < totals[0]):
+            raise AssertionError(f"pvt step at B={n}: totals {totals}")
+        ms = float(np.mean(times[2:])) * 1e3
+        scores_gib = attention_scores(model, hw, n) * PVT_SCORE_BYTES / 2 ** 30
+        log(f"time pvt train ({smi}): B={n} {hw[0]}x{hw[1]}, 100 padded gt: totals "
+            f"{[round(t, 4) for t in totals]}; {ms:.1f} ms/step, {n * 1e3 / ms:.2f} img/s, "
+            f"peak {peak:.2f} GiB, of which the saved attention scores reckon "
+            f"{scores_gib:.2f} GiB ({scores_gib / peak:.3f}); no kernel launched")
+        report.update(batch=n, ms=ms, peak_gib=peak, scores_gib=scores_gib)
+        return
+    raise AssertionError(f"no PVT step of {PVT_BATCHES} fits")
+
+
+def phase_pvt_trainer(kernels, dev, smi, report):
+    """``train_net_torch.main`` with the PVT-Small overrides over the
+    synthetic dataset (``family_trainer``) at the batch ``phase_pvt_train``
+    reached: 4 steps launching nothing, 8 test batches of 1 NMS each, a
+    save, ``--resume`` bit-equal, evaluation, ``--eval-only``."""
+    n = report.get("batch", PVT_BATCHES[-1])
+    family_trainer(kernels, smi, "pvt", RETINANET_YAML, 65, {}, predict_nms=1, batch=n,
+                   test_launches=PVT_PREDICT,
+                   overrides={"MODEL.BACKBONE.NAME": PVT_NAMES["pvt"], **PVT_OVERRIDES,
+                              "SOLVER.IMS_PER_BATCH": n})
+
+
+def shape_vt_fpn(model, images):
+    """Scale the tokenizers' 1x1 scores, and the projectors' query and key
+    (weights and biases), so that every softmax of the VT-FPN sees scores of
+    unit spread on ``images``. The random R-50's laterals, which no norm
+    scales, are hundreds wide: drawn, those softmaxes are one-hot, and
+    rounding a score to bf16 moves a token or a pixel's weight wholesale (on
+    the CPU at 256 x 384, B = 2: the projector's output 0.16 of its largest
+    value from fp32 in bf16, the laterals 0.012)."""
+    seen = {}
+
+    def record(name):
+        def hook(mod, args, out):
+            seen[name] = (args, out)
+        return hook
+
+    for kind in ("tokenizer", "projector"):
+        mods = {n: m for n, m in model.backbone.named_children() if n.startswith(kind)}
+        hooks = [(m.attn if kind == "tokenizer" else m).register_forward_hook(record(n))
+                 for n, m in mods.items()]
+        try:
+            with torch.no_grad():
+                model(images)
+        finally:
+            for h in hooks:
+                h.remove()
+        with torch.no_grad():
+            for n, m in mods.items():
+                args, out = seen.pop(n)
+                if kind == "tokenizer":
+                    layers, f = (m.attn,), 1 / float(out.float().std())
+                else:
+                    x, tokens = args
+                    q = m.q(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1, x.shape[1])).float()
+                    scores = q @ m.k(tokens).float().transpose(1, 2) * x.shape[1] ** -0.5
+                    layers, f = (m.q, m.k), float(scores.std()) ** -0.5
+                for layer in layers:
+                    layer.weight.mul_(f)
+                    layer.bias.mul_(f)
+
+
+def phase_vt_fpn(kernels, dev, smi):
+    """RetinaNet R-50 VT-FPN at full width, bf16, seeded weights (FrozenBN
+    away from identity, ``shape_vt_fpn``), the fused flags on and off: head outputs against
+    fp32 (``check_heads``); after ``comparable_retinanet`` 2 requests of 8
+    at 896 x 1408, each launching exactly 1 stem, 13 bottleneck and 1 NMS
+    with the flags on (1 NMS with them off), >= MATCH_MIN of the slots
+    matched between on and off; predict ms on and off in turns; then, from
+    weights drawn anew, 4 train steps at B = 16 with the flags on and
+    BASE_LR RETINANET_TRAIN_LR without warm-up, each launching 1 stem and 13
+    bottleneck wrappers, the loss finite and falling; img/s and peak
+    memory."""
+    from slenderobjdet_torch.engine import make_train_step
+    from slenderobjdet_torch.models import build_model
+    from slenderobjdet_torch.ops import _build
+    from slenderobjdet_torch.solver import build_optimizer
+
+    hw = PVT_HW[0]
+    gen = torch.Generator().manual_seed(66)
+    model = build_model(pvt_cfg("vt_fpn", fused=True), device=dev, generator=gen)
+    randomize_frozen_bn(model, gen)
+    reqs = requests(2, 8, seed=67, hw=hw)
+    shape_vt_fpn(model, torch.as_tensor(reqs[0]["image"], device=dev))
+    plain = build_model(pvt_cfg("vt_fpn"), device=dev)
+    plain.load_state_dict(model.state_dict())
+    ref32 = build_model(pvt_cfg("vt_fpn", dtype="float32"), device=dev)
+    ref32.load_state_dict(model.state_dict())
+    check_heads("vt_fpn", ("logits", "deltas"), reqs[0], dev, model, plain, ref32)
+    del ref32
+    torch.cuda.empty_cache()
+    comparable_retinanet(torch.Generator().manual_seed(68), model, plain)
+    outs, launched = predict_launches("vt_fpn flags on", model, reqs, VT_FPN_PREDICT)
+    predict_launches("vt_fpn flags off", plain, reqs[:1], PVT_PREDICT)
+    for k, v in launched.items():
+        kernels[k].setdefault("launches_by_path", {})["vt_fpn_predict"] = v
+    matched_share("vt_fpn flags on vs off detections", plain, reqs, outs)
+    del outs
+    times = {"on": [], "off": []}
+    for key, m in (("on", model), ("off", plain), ("off", plain), ("on", model)):
+        times[key].append(predict_ms(m, reqs[0])[0])
+    log(f"time vt_fpn predict ({smi}): B=8 {hw[0]}x{hw[1]}, flags on "
+        f"{', '.join(f'{t:.3f}' for t in times['on'])} ms/batch, off "
+        f"{', '.join(f'{t:.3f}' for t in times['off'])} (in turns on, off, off, on)")
+    del model, plain
+    torch.cuda.empty_cache()
+
+    cfg = pvt_cfg("vt_fpn", fused=True, lr=RETINANET_TRAIN_LR)
+    gen = torch.Generator().manual_seed(70)
+    model = build_model(cfg, device=dev, generator=gen)
+    randomize_frozen_bn(model, gen)
+    shape_vt_fpn(model, torch.as_tensor(reqs[0]["image"], device=dev))
+    step = make_train_step(model, build_optimizer(cfg, model), cfg)
+    batch = train_batch(cfg.SOLVER.IMS_PER_BATCH, 69, hw=hw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    totals, times = [], []
+    for i in range(4):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = {k: v for k, v in _build.launch_counts().items() if v}
+        if counts != VT_FPN_STEP:
+            raise AssertionError(f"vt_fpn step {i} launched {counts}, expected {VT_FPN_STEP}")
+        totals.append(float(metrics["total_loss"]))
+    if not (all(np.isfinite(totals)) and totals[-1] < totals[0]):
+        raise AssertionError(f"vt_fpn steps: totals {totals}")
+    for k, v in VT_FPN_STEP.items():
+        kernels[k].setdefault("launches_by_path", {})["vt_fpn_train_step"] = v
+    n = batch["image"].shape[0]
+    ms = float(np.mean(times[2:])) * 1e3
+    log(f"time vt_fpn train ({smi}): B={n} {hw[0]}x{hw[1]}, flags on: totals "
+        f"{[round(t, 4) for t in totals]}; {ms:.1f} ms/step, {n * 1e3 / ms:.2f} img/s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; every step {VT_FPN_STEP}")
+
+
 # ------------------------------------------------- serving, int8 and TTA
 SERVING_HW = LOADER_SHAPES[0]       # the loader's landscape bucket, 896 x 1408
 SERVING_BATCH = 8
@@ -6126,6 +6534,15 @@ def main() -> int:
     run("cornernet_train", phase_cornernet_train, kernels, dev, smi, corner)
     torch.cuda.empty_cache()
     run("cornernet_trainer", phase_cornernet_trainer, kernels, dev, smi, corner)
+    torch.cuda.empty_cache()
+    run("pvt", phase_pvt, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    pvt = {}
+    run("pvt_train", phase_pvt_train, kernels, dev, smi, pvt)
+    torch.cuda.empty_cache()
+    run("pvt_trainer", phase_pvt_trainer, kernels, dev, smi, pvt)
+    torch.cuda.empty_cache()
+    run("vt_fpn", phase_vt_fpn, kernels, dev, smi)
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

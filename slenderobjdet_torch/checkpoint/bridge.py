@@ -53,6 +53,19 @@ torch ``state_dict``:
   ``FrozenBatchNorm_0`` -> ``norm``; ``Residual_{i}``, ``hg{s}``, the
   nested ``HourglassBlock_0``, ``inter_res{s}``, ``tl_head{i}``,
   ``br_head{i}`` and ``{heat,tag,offset}_{conv,out}`` keep their names;
+- PVT and PVTv2 (``patch_embed{i}``, ``embed_norm{i}``, ``stage{s}_block{b}``
+  with ``norm1``, ``attn/{q,sr,sr_norm,kv,proj}``, ``norm2``, ``fc1``,
+  ``dwconv``, ``fc2``; ``stage_norm{i}``) and the VT-FPN (``lateral{i}``,
+  ``tokenizer{i}/attn``, ``transformer/{ln1_i,attn{i},ln2_i,fc1_i,fc2_i}``,
+  ``projector{i}/{q,k,v}``, ``output{i}``) keep their paths; a LayerNorm's
+  ``scale`` is its ``weight``; PVTv2's depthwise ``dwconv`` kernel (3, 3, 1,
+  C) becomes (C, 1, 3, 3) by the conv rule;
+- ``pos_embed{i}`` keeps its path and its (1, 7, 7, C) layout (the port's
+  PVT resizes it channels last, as the JAX module does);
+- Flax ``nn.SelfAttention``'s ``DenseGeneral`` leaves: the ``query``,
+  ``key`` and ``value`` kernels (C, H, D) -> ``nn.Linear``'s (H * D, C),
+  their (H, D) biases -> (H * D,), and the ``out`` kernel (H, D, C) -> (C,
+  H * D), heads outermost as the port splits them;
 - every other ``kernel`` / ``bias`` keeps its path, ``kernel`` as ``weight``.
 
 It raises on any leaf it cannot place. ``load_flax_variables`` also checks
@@ -131,7 +144,7 @@ def _torch_name(collection: str, path, basic_blocks, bn_nodes, conv_bn_nodes) ->
         return ".".join(mods + ["scale"])
     if leaf in ("kernel", "weight", "scale"):       # a norm's scale is its weight
         return ".".join(mods + ["weight"])
-    if leaf in ("bias", "moment_transfer"):
+    if leaf in ("bias", "moment_transfer") or re.fullmatch(r"pos_embed\d+", leaf):
         return ".".join(mods + [leaf])
     raise KeyError(f"unknown parameter {'/'.join(path)}")
 
@@ -167,6 +180,11 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
                 a = a.transpose(3, 2, 0, 1)
             elif a.ndim == 2 and name.endswith(".weight"):
                 a = a.T
+            elif a.ndim == 3 and path[-1] == "kernel":      # DenseGeneral over heads
+                a = (a.reshape(-1, a.shape[-1]) if path[-2] == "out"
+                     else a.reshape(a.shape[0], -1)).T
+            elif a.ndim == 2 and path[-1] == "bias":
+                a = a.reshape(-1)
             if name in out:
                 raise KeyError(f"two Flax leaves map to {name}")
             out[name] = torch.tensor(a)

@@ -1,5 +1,5 @@
 """Checkpointing: save and resume of the train state, and detectron2-pkl
-weight import (counterpart of ``slenderobjdet_tpu/checkpoint/checkpointer.py``
+and PVT zoo weight import (counterpart of ``slenderobjdet_tpu/checkpoint/checkpointer.py``
 and of the reference's `DetectionCheckpointer`,
 `slender_det/checkpoint/checkpoint.py:11-63` + fvcore Checkpointer):
 
@@ -9,11 +9,13 @@ and of the reference's `DetectionCheckpointer`,
 - MODEL.WEIGHTS loading: a ``.pkl`` in the detectron2 model-zoo format is
   imported by name into the port's ``state_dict`` with the BatchNorm
   statistics folded into FrozenBN's scale and bias; a ``.pth`` written by
-  `DetectionCheckpointer.save` gives its model weights.
+  `DetectionCheckpointer.save` gives its model weights; a PVT / PVTv2 zoo
+  ``.pth`` (keys from ``patch_embed1``) fills the PVT trunk.
 
 The d2 import fills the same tensors with the same values as the JAX
 package's import followed by ``checkpoint/bridge.py``
-(``tests/test_torch_checkpoint.py``). The PVT zoo import is not ported yet.
+(``tests/test_torch_checkpoint.py``); so does the PVT / PVTv2 zoo import
+(``import_pvt_weights``, ``tests/test_torch_pvt_import.py``).
 """
 
 from __future__ import annotations
@@ -280,10 +282,75 @@ def import_d2_weights(state_dict: Dict[str, np.ndarray],
             own[key].copy_(torch.from_numpy(np.ascontiguousarray(value)))
 
 
-def import_pvt_weights(state_dict, model: nn.Module) -> None:
-    raise NotImplementedError(
-        "import_pvt_weights is not ported: the PVT / PVTv2 zoo import comes "
-        "with the PVT and VT-FPN backbones")
+# zoo name (after block{s}.{b}.) -> the port's name inside stage{s}_block{b}
+_PVT_BLOCK_NAMES = {"norm1": "norm1", "norm2": "norm2", "attn.q": "attn.q",
+                    "attn.kv": "attn.kv", "attn.proj": "attn.proj", "attn.sr": "attn.sr",
+                    "attn.norm": "attn.sr_norm", "mlp.fc1": "fc1", "mlp.fc2": "fc2",
+                    "mlp.dwconv.dwconv": "dwconv"}
+
+
+def _pvt_port_name(name: str) -> Optional[str]:
+    """A PVT / PVTv2 zoo parameter's name inside the port's PVT, or None for
+    the classification-only leaves (``cls_token``, ``head.*``, v1's final
+    ``norm.*``)."""
+    m = re.fullmatch(r"patch_embed(\d)\.proj\.(weight|bias)", name)
+    if m:
+        return f"patch_embed{m.group(1)}.{m.group(2)}"
+    m = re.fullmatch(r"patch_embed(\d)\.norm\.(weight|bias)", name)
+    if m:
+        return f"embed_norm{m.group(1)}.{m.group(2)}"
+    if re.fullmatch(r"pos_embed\d", name):
+        return name
+    m = re.fullmatch(r"norm(\d)\.(weight|bias)", name)       # PVTv2's per-stage norm
+    if m:
+        return f"stage_norm{m.group(1)}.{m.group(2)}"
+    m = re.fullmatch(r"block(\d)\.(\d+)\.(.+)\.(weight|bias)", name)
+    if m and m.group(3) in _PVT_BLOCK_NAMES:
+        return f"stage{m.group(1)}_block{m.group(2)}.{_PVT_BLOCK_NAMES[m.group(3)]}.{m.group(4)}"
+    return None
+
+
+@torch.no_grad()
+def import_pvt_weights(state_dict: Dict[str, Any], model: nn.Module) -> None:
+    """Import a PVT / PVTv2 classification checkpoint (the zoo's torch
+    ``.pth`` layout, ``pvt_tiny`` / ``pvt_small`` / ``pvt_v2_b*``) into the
+    PVT trunk of ``model``, as the JAX package's ``import_pvt_weights`` does
+    into its Flax tree: the zoo's convs and linear layers are the port's own
+    layout; the classification leaves are skipped; the v2 files' per-stage
+    ``norm{i}`` fill ``stage_norm{i}`` (v1 files have none: those keep their
+    values); ``pos_embed{i}`` drops stage 4's cls slot and is resampled from
+    the zoo's square grid to the parameter's 7 x 7 by
+    ``backbones.pvt.resize_pos_embed``. Tensors of the model that the file
+    does not name keep their values; names the model lacks (a deeper zoo
+    model) are skipped. Raises when the model has no PVT trunk, when nothing
+    matches, and on a shape mismatch."""
+    from ..models.backbones.pvt import resize_pos_embed
+
+    own = model.state_dict()
+    anchor = [k for k in own if k.endswith("patch_embed1.weight")]
+    if not anchor:
+        raise ValueError("no PVT trunk (patch_embed1) in the model")
+    prefix = anchor[0][: -len("patch_embed1.weight")]
+    loaded = 0
+    for name, value in state_dict.items():
+        port = _pvt_port_name(name.split("module.", 1)[-1])
+        if port is None or prefix + port not in own:
+            continue
+        dst = own[prefix + port]
+        value = torch.as_tensor(np.asarray(value), dtype=torch.float32)
+        if port.startswith("pos_embed"):
+            n = value.shape[1]
+            side = int(round(n ** 0.5))
+            if side * side != n and int(round((n - 1) ** 0.5)) ** 2 == n - 1:
+                value, side = value[:, 1:], int(round((n - 1) ** 0.5))    # stage 4's cls slot
+            value = resize_pos_embed(value.reshape(1, side, side, -1), tuple(dst.shape[1:3]))
+        if tuple(dst.shape) != tuple(value.shape):
+            raise ValueError(f"shape mismatch {prefix + port}: {tuple(dst.shape)} vs "
+                             f"{tuple(value.shape)}")
+        dst.copy_(value)
+        loaded += 1
+    if loaded == 0:
+        raise ValueError("no weights matched the PVT name mapping")
 
 
 def _frozen_bn_path(own: Dict[str, torch.Tensor], module: str,

@@ -11,7 +11,13 @@ from torch import nn
 
 from ..layers import Conv2d, get_norm
 from .hourglass import build_hourglass_backbone
+from .pvt import PVT_STRIDES
 from .resnet import RESNET_STRIDES, resnet_from_cfg, resnet_output_channels
+from .vt_fpn import (build_retinanet_pvt_fpn_backbone, build_retinanet_pvtv2_fpn_backbone,
+                     build_retinanet_resnet_vt_fpn)
+
+# strides of the bottom-up feature names (ResNet and PVT)
+FEATURE_STRIDES = {**RESNET_STRIDES, **PVT_STRIDES}
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -48,7 +54,7 @@ class FPN(nn.Module):
                 self.add_module(f"fpn_output{idx}_norm",
                                 get_norm(norm, out_channels))
         self.norm = norm
-        self.start_stage = RESNET_STRIDES[self.in_features[0]].bit_length() - 1
+        self.start_stage = FEATURE_STRIDES[self.in_features[0]].bit_length() - 1
         if top_block in ("p6p7_p5", "p6p7_res5"):
             src = out_channels if top_block == "p6p7_p5" else in_channels[-1]
             self.top_p6 = Conv2d(src, out_channels, 3, 2, 1)
@@ -131,6 +137,10 @@ BACKBONES = {
         build_retinanet_resnet_fpn_backbone_use_p5,
     "build_resnet_backbone": build_resnet_backbone,
     "build_hourglass_backbone": build_hourglass_backbone,
+    "build_retinanet_pvt_fpn_backbone": build_retinanet_pvt_fpn_backbone,
+    "build_retinanet_pvtv2_fpn_backbone": build_retinanet_pvtv2_fpn_backbone,
+    "build_retinanet_resnet_vt_fpn": build_retinanet_resnet_vt_fpn,
+    "build_retinanet_resnet_vt_fpn_backbone_use_p5": build_retinanet_resnet_vt_fpn,
 }
 
 

@@ -136,6 +136,28 @@ class Scale(nn.Module):
         return x * self.scale.to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """Layer normalisation over the last axis as the JAX package runs Flax's
+    ``nn.LayerNorm(dtype=float32)``: the input taken to float32, eps 1e-6
+    (Flax's default; torch's is 1e-5), the output cast back to the input's
+    dtype. ``weight`` and ``bias`` are the Flax ``scale`` and ``bias``."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias,
+                            self.eps).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Flax's ``nn.gelu``: the tanh approximation (torch defaults to erf)."""
+    return F.gelu(x, approximate="tanh")
+
+
 class FrozenBatchNorm(nn.Module):
     """Fixed per-channel affine y = x * scale + bias, computed in x's dtype.
 
@@ -346,13 +368,27 @@ def init_detector_weights(model: nn.Module, generator: torch.Generator) -> None:
     (K, Cin, Cout) weight is drawn from normal(0, 0.01) wherever it sits, and
     a ``DFConv2d``'s ``offset_conv`` starts at zero, so that its samples
     start on the plain conv's grid (a conv of another name or parent is
-    drawn like any other)."""
+    drawn like any other). The transformer trunks' linear layers are drawn
+    lecun-normal with zero biases (Flax's ``Dense`` and ``DenseGeneral``),
+    their LayerNorms at identity and their ``pos_embed{i}`` from normal(0,
+    0.02); the R-CNN box head's linear layers (``roi_box.``) are left to
+    ``RCNN.init_weights``, which draws them with its own deviations."""
     def normal(t, std):
         t.copy_(torch.randn(t.shape, generator=generator) * std)
 
     dcn_offsets = {id(m.offset_conv) for m in model.modules() if isinstance(m, DFConv2d)}
     for name, m in model.named_modules():
-        if isinstance(m, DeformConvLayer):
+        for pname, p in m.named_parameters(recurse=False):
+            if pname.startswith("pos_embed"):
+                normal(p, 0.02)
+        if isinstance(m, nn.Linear) and not name.startswith("roi_box."):
+            normal(m.weight, 1.0 / math.sqrt(m.in_features))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, DeformConvLayer):
             normal(m.weight, 0.01)
             m.bias.zero_()
         elif id(m) in dcn_offsets:

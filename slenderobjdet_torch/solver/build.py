@@ -7,8 +7,8 @@
 - ``build_optimizer``: ``MODEL.BACKBONE.FREEZE_AT`` as ``requires_grad_(False)``
   (the JAX package zeroes those updates, weight decay included), then
   parameter groups labelled in detectron2's order (any ``bias``, a norm's
-  included, is a bias; a GroupNorm or BatchNorm weight or ``Scale.scale`` is a norm; the
-  rest is regular) with ``WEIGHT_DECAY{,_NORM,_BIAS}`` and
+  included, is a bias; a GroupNorm, BatchNorm or LayerNorm weight or
+  ``Scale.scale``, the Flax ``scale`` leaves, is a norm; the rest is regular) with ``WEIGHT_DECAY{,_NORM,_BIAS}`` and
   ``BIAS_LR_FACTOR`` as each group's ``lr_factor``.
 - ``clip_gradients``: ``SOLVER.CLIP_GRADIENTS`` as optax's ``clip`` (by
   value) or ``clip_by_global_norm``.
@@ -29,7 +29,7 @@ from typing import Callable, Dict, List
 import torch
 from torch import nn
 
-from ..models.layers import BatchNorm, Scale
+from ..models.layers import BatchNorm, LayerNorm, Scale
 
 
 class Adagrad(torch.optim.Optimizer):
@@ -110,7 +110,7 @@ def param_labels(model: nn.Module) -> Dict[str, str]:
         for pname, _ in module.named_parameters(recurse=False):
             if pname == "bias":
                 label = "bias"
-            elif isinstance(module, (nn.GroupNorm, BatchNorm, Scale)):
+            elif isinstance(module, (nn.GroupNorm, BatchNorm, LayerNorm, Scale)):
                 label = "norm"
             else:
                 label = "regular"
