@@ -13,6 +13,7 @@
     python3 chip_smoke.py cornernet   # CornerNet and the corner-pool kernel
     python3 chip_smoke.py serving int8 tta   # the serving path
     python3 chip_smoke.py pvt vt_fpn   # the PVT, PVTv2 and VT-FPN trunks
+    python3 chip_smoke.py full_size tools   # FCOS against JAX at full size; the tools
 
 Builds the port's CUDA kernels from ``slenderobjdet_torch/ops/csrc`` (at
 first use, into ``build/torch_kernels/``), then, each phase failing the run
@@ -315,6 +316,22 @@ if it fails:
    bottleneck + 1 NMS a predict call with them on, >= MATCH_MIN of the slots
    matched on against off, predict ms in turns, 4 steps at B = 16 with 1 +
    13 launches each.
+
+37. FCOS R-50-FPN against the JAX package at the loader's full size
+   (``full_size``; ``slenderobjdet_torch/tools/full_size_check.py``): the
+   weights rebuilt in numpy from ``tests/data/fcos_r50_full_size.npz``'s
+   manifest (its checksum), both buckets at B = 1: in fp32 with TF32 off and
+   the fused kernels on, the head sample and the 100 detections against the
+   committed JAX outputs under the CPU test's rule; in bf16 the head within
+   HEAD_TOL and at least FULL_SIZE_BF16_SHARE of JAX's slots paired; exactly
+   1 stem + 13 bottleneck + 1 NMS a call.
+38. The tools (``tools``), in this process on 16 synthetic PNG images at
+   800x1333 / 1333x800: ``inference_obj365`` (FCOS, B = 8, 1 + 13 + 1 a
+   batch), ``eval_and_save_proposals`` (Faster R-CNN, 1 + 13 + 2 a batch of
+   4), ``vis_feat_adaption`` (RepPoints, 1 + 13 an image),
+   ``mask_to_rbox``, ``generate_border_maps``, ``visualize_json_results``:
+   launch counts exact, output files checked, img/s through each model tool;
+   neither cv2 nor jax imported.
 
 Every kernel's time stands beside its bound, the least time the card could
 take: the larger of its bytes (inputs read once, outputs written once) over
@@ -6374,6 +6391,253 @@ def phase_tta(kernels, dev, smi):
         f"first ({secs[0] * 1e3:.1f} ms), launches {want} ({smi})")
 
 
+# ---------------------------------------------------------------- full size
+FULL_SIZE_PREDICT = {"fused_stem": 1, "fused_bottleneck": 13, "nms": 1}
+FULL_SIZE_BF16_BOX_ATOL = 2.0     # px, and the score step below: a bf16 detection's partner
+FULL_SIZE_BF16_SCORE_ATOL = 2e-2
+FULL_SIZE_BF16_SHARE = 0.75       # of JAX's 100 slots; 0.920 measured at both buckets (H100 80GB, 700 W)
+
+
+def phase_full_size(kernels, dev, smi):
+    """FCOS R-50-FPN at the loader's full size against the JAX package's
+    committed outputs (``slenderobjdet_torch/tools/full_size_check.py``):
+    the weights rebuilt from the file's manifest (checksum), both buckets at
+    B = 1 in fp32 (TF32 off, the fused kernels on) under the CPU test's rule,
+    exactly 1 stem + 13 bottleneck + 1 NMS a call; then in bf16: the head
+    against JAX's fp32 within HEAD_TOL (the other phases' bf16 bound) and at
+    least FULL_SIZE_BF16_SHARE of JAX's slots paired by a bf16 detection at
+    FULL_SIZE_BF16_{BOX,SCORE}_ATOL (the scores of 100 random-weight
+    detections crowd into 0.07, so bf16 reorders the cut)."""
+    from slenderobjdet_torch.checkpoint.bridge import variables_checksum
+    from slenderobjdet_torch.ops import _build
+    from slenderobjdet_torch.tools import full_size_check as F
+
+    ref = F.load_reference()
+    variables = F.reference_variables(ref)
+    if variables_checksum(variables) != str(ref["checksum"]):
+        raise AssertionError("full_size: the numpy re-draw differs from the file's checksum")
+    for dtype in ("float32", "bfloat16"):
+        model = F.build_reference_model(ref, variables, device="cuda", dtype=dtype)
+        for bucket in F.BUCKETS:
+            batch = F.bucket_batch(ref, bucket)
+            F.run_bucket(model, batch)                      # warm-up
+            _build.reset_launch_counts()
+            t = time.perf_counter()
+            res = F.run_bucket(model, batch)
+            ms = (time.perf_counter() - t) * 1e3
+            counts = {k: v for k, v in _build.launch_counts().items() if v}
+            if counts != FULL_SIZE_PREDICT:
+                raise AssertionError(f"full_size {dtype} {bucket}: launched {counts}")
+            errs = F.head_errors(res["heads"], ref, bucket)
+            worst = max(errs, key=errs.get)
+            want = F.reference_dets(ref, bucket)
+            if dtype == "float32":
+                m = F.match_detections(res["dets"], want)
+                log(f"full_size fp32 {bucket}: head max rel {errs[worst]:.3e} ({worst}; tol "
+                    f"{F.HEAD_RTOL}), detections {m}, predict call {ms:.1f} ms, "
+                    f"launches {counts} [{smi}]")
+                if errs[worst] > F.HEAD_RTOL or not m["ok"]:
+                    raise AssertionError(f"full_size fp32 {bucket} differs from JAX")
+            else:
+                share = F.matched_share(res["dets"], want, FULL_SIZE_BF16_BOX_ATOL,
+                                        FULL_SIZE_BF16_SCORE_ATOL)
+                log(f"full_size bf16 {bucket}: head max rel {errs[worst]:.3e} ({worst}; tol "
+                    f"{HEAD_TOL}), {share:.3f} of JAX's slots paired within "
+                    f"{FULL_SIZE_BF16_BOX_ATOL} px / {FULL_SIZE_BF16_SCORE_ATOL} (at least "
+                    f"{FULL_SIZE_BF16_SHARE}), predict call {ms:.1f} ms [{smi}]")
+                if errs[worst] > HEAD_TOL or share < FULL_SIZE_BF16_SHARE:
+                    raise AssertionError(f"full_size bf16 {bucket}: head {errs[worst]:.3e}, "
+                                         f"share {share:.3f}")
+        del model
+        torch.cuda.empty_cache()
+
+
+# -------------------------------------------------------------------- tools
+TOOLS_IMAGES = 16
+TOOLS_BATCH = 8                     # inference_obj365's --batch-size
+TOOLS_HW = ((800, 1333), (1333, 800))
+TOOLS_FUSED = ["MODEL.RESNETS.FUSED_STEM", "True", "MODEL.RESNETS.FUSED_BLOCKS", "True"]
+TOOLS_OBJ365 = {"fused_stem": 1, "fused_bottleneck": 13, "nms": 1}     # a batch
+TOOLS_PROPOSALS = {"fused_stem": 1, "fused_bottleneck": 13, "nms": 2}  # a batch
+TOOLS_ADAPTION = {"fused_stem": 1, "fused_bottleneck": 13}             # an image
+
+
+def png_dataset(tmp, n=TOOLS_IMAGES, seed=30, num_classes=80):
+    """A COCO json of ``n`` PNG images (written by ``utils/png.py``) at the
+    loader's two orientations, 3-8 integer-pixel boxes each with a polygon
+    segmentation; returns (json path, image root)."""
+    import os
+
+    from slenderobjdet_torch.utils import png
+
+    rs = np.random.RandomState(seed)
+    root = os.path.join(tmp, "images")
+    os.makedirs(root)
+    images, anns = [], []
+    for i in range(1, n + 1):
+        h, w = TOOLS_HW[i % 2]
+        img = rs.randint(0, 60, (h, w, 3)).astype(np.uint8)
+        for _ in range(rs.randint(3, 9)):
+            bw, bh = int(rs.randint(16, 300)), int(rs.randint(16, 300))
+            x, y = int(rs.randint(0, w - bw)), int(rs.randint(0, h - bh))
+            img[y:y + bh, x:x + bw] = rs.randint(120, 255, 3)
+            anns.append({"id": len(anns) + 1, "image_id": i, "iscrowd": 0,
+                         "category_id": int(rs.randint(1, num_classes + 1)),
+                         "bbox": [float(x), float(y), float(bw), float(bh)],
+                         "area": float(bw * bh),
+                         "segmentation": [[x, y, x + bw, y, x + bw, y + bh, x, y + bh]]})
+        name = f"{i:06d}.png"
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(png.encode(img, level=1))
+        images.append({"id": i, "file_name": name, "height": h, "width": w})
+    path = os.path.join(tmp, "instances.json")
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": [
+            {"id": c, "name": f"class{c}"} for c in range(1, num_classes + 1)]}, f)
+    return path, root
+
+
+def tool_run(label, fn, argv, per_unit, units):
+    """``fn(argv)`` with the launch counts set to 0 just before and read just
+    after; they must be ``per_unit`` times ``units``. Returns the result and
+    the seconds it took."""
+    from slenderobjdet_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    out = fn(argv)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t
+    counts = {k: v for k, v in _build.launch_counts().items() if v}
+    want = {k: v * units for k, v in per_unit.items()}
+    if counts != want:
+        raise AssertionError(f"tools {label}: launched {counts}, expected {want}")
+    return out, s
+
+
+TOOLS_TIMEOUT_S = 300
+
+
+def phase_tools(kernels, dev, smi):
+    """``tools_child`` in a fresh process (the kernels already built), so
+    that its ``sys.modules`` shows what the tools import: earlier phases may
+    import cv2 where it is installed (the loader resizes TTA's views with
+    it)."""
+    import os
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.tools_child()"],
+                       cwd=here, timeout=TOOLS_TIMEOUT_S)
+    if r.returncode:
+        raise AssertionError(f"tools: the child process exited {r.returncode}")
+
+
+def tools_child():
+    """The port's model-driving and drawing tools on a synthetic PNG dataset
+    at the loader's shapes, in this process: ``inference_obj365`` (FCOS
+    R-50-FPN, 16 images at B = 8, run twice: 2 x (1 + 13 + 1) launches each,
+    chunks, results, metrics), ``eval_and_save_proposals`` (Faster R-CNN R-50-FPN, B = 4: 4 x
+    (1 + 13 + 2), the pkl's schema), ``vis_feat_adaption`` (RepPoints
+    R-50-FPN, 2 images of 1 + 13), ``mask_to_rbox``, ``generate_border_maps``
+    and ``visualize_json_results``; every PNG decodes at its shape, and
+    neither cv2 nor jax is in ``sys.modules``."""
+    import os
+    import pickle
+    import tempfile
+
+    smi = card_line()
+
+    from slenderobjdet_torch.data import DatasetCatalog
+    from slenderobjdet_torch.data.datasets import register_coco_instances
+    from slenderobjdet_torch.tools import (eval_and_save_proposals, generate_border_maps,
+                                           inference_obj365, mask_to_rbox, vis_feat_adaption,
+                                           visualize_json_results)
+    from slenderobjdet_torch.utils import png
+
+    name = "chip_smoke_tools"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        t = time.perf_counter()
+        path, root = png_dataset(tmp)
+        log(f"tools: {TOOLS_IMAGES} PNG images written in {time.perf_counter() - t:.1f} s")
+        for run in ("warm-up", "timed"):      # the first pays this process's CUDA set-up
+            out = os.path.join(tmp, f"obj365_{run}")
+            results, s = tool_run("inference_obj365", inference_obj365.main, [
+                "--config-file", FCOS_YAML, "--gt-json", path, "--image-root", root,
+                "--out-dir", out, "--batch-size", str(TOOLS_BATCH), "--chunk", "8",
+                *TOOLS_FUSED, "MODEL.FCOS.PRIOR_PROB", "0.5"],
+                TOOLS_OBJ365, TOOLS_IMAGES // TOOLS_BATCH)
+        files = sorted(os.listdir(out))
+        for f in ("results_chunk_0000.json", "results_chunk_0001.json",
+                  "coco_instances_results.json", "obj365_metrics.json"):
+            if f not in files:
+                raise AssertionError(f"tools inference_obj365: no {f} in {files}")
+        with open(os.path.join(out, "coco_instances_results.json")) as f:
+            n_dets = len(json.load(f))
+        if "bbox" not in results or not n_dets:
+            raise AssertionError(f"tools inference_obj365: {n_dets} results, {list(results)}")
+        log(f"tools inference_obj365: {TOOLS_IMAGES / s:.2f} img/s through the tool "
+            f"(model build and PNG decode included, {s:.1f} s), {n_dets} results, "
+            f"bbox AP {results['bbox'].get('AP', float('nan')):.3f} [{smi}]")
+
+        if name in DatasetCatalog:
+            DatasetCatalog.remove(name)
+        register_coco_instances(name, path, root)
+        pkl = os.path.join(tmp, "box_proposals.pkl")
+        data, s = tool_run("eval_and_save_proposals", eval_and_save_proposals.main, [
+            "--config-file", RCNN_YAML, "--out", pkl, "--max-images", str(TOOLS_IMAGES),
+            *TOOLS_FUSED, "DATASETS.TEST", f"('{name}',)"],
+            TOOLS_PROPOSALS, TOOLS_IMAGES // eval_and_save_proposals.BATCH)
+        with open(pkl, "rb") as f:
+            saved = pickle.load(f)
+        if sorted(saved) != ["anchors", "bbox_mode", "boxes", "ids", "objectness_logits"] \
+                or sorted(saved["ids"]) != list(range(1, TOOLS_IMAGES + 1)) \
+                or any(b.shape[1] != 4 or len(b) != len(g) or not len(b)
+                       for b, g in zip(saved["boxes"], saved["objectness_logits"])):
+            raise AssertionError("tools eval_and_save_proposals: the pkl's schema")
+        log(f"tools eval_and_save_proposals: {TOOLS_IMAGES / s:.2f} img/s through the tool "
+            f"(model build and PNG decode included, {s:.1f} s), "
+            f"{np.mean([len(b) for b in saved['boxes']]):.0f} proposals an image [{smi}]")
+
+        views, s = tool_run("vis_feat_adaption", vis_feat_adaption.main, [
+            "--config-file", REPPOINTS_YAML, "--gt-json", path, "--image-root", root,
+            "--out-dir", os.path.join(tmp, "adapt"), "--num-images", "2", *TOOLS_FUSED],
+            TOOLS_ADAPTION, 2)
+        for v in views:
+            if png.imread(v).shape[2] != 3 or png.imread(v).shape[:2] not in LOADER_SHAPES:
+                raise AssertionError(f"tools vis_feat_adaption: {v}")
+
+        rjson = os.path.join(tmp, "rcoco.json")
+        mask_to_rbox.main(["--gt-json", path, "--out", rjson])
+        with open(rjson) as f:
+            anns = json.load(f)["annotations"]
+        if not anns or any(len(a["rbox"]) != 5 for a in anns):
+            raise AssertionError("tools mask_to_rbox: rboxes")
+        maps = os.path.join(tmp, "maps")
+        done = generate_border_maps.main(["--gt-json", path, "--out-dir", maps])
+        for f in sorted(os.listdir(maps)):
+            with np.load(os.path.join(maps, f)) as z:
+                if sorted(z.files) != ["border", "center", "sizes"]:
+                    raise AssertionError(f"tools generate_border_maps: {f} holds {z.files}")
+        panels = visualize_json_results.main([
+            "--result", os.path.join(out, "coco_instances_results.json"), "--gt-json", path,
+            "--image-root", root, "--output", os.path.join(tmp, "vis"),
+            "--conf-threshold", "0.0", "--max-images", "4"])
+        for p in panels:
+            if png.imread(p).shape[1] not in (2 * 1333, 2 * 800):
+                raise AssertionError(f"tools visualize_json_results: {p}")
+        log(f"tools: {len(views)} adaption views, {len(anns)} rboxes, {done} map files, "
+            f"{len(panels)} result panels")
+    import importlib.util
+
+    loaded = [m for m in ("cv2", "jax") if m in sys.modules]
+    log("tools: installed on this machine: "
+        f"{[m for m in ('cv2', 'jax') if importlib.util.find_spec(m)]}; imported: {loaded}")
+    if loaded:
+        raise AssertionError(f"tools: the process imported {loaded}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -6543,6 +6807,10 @@ def main() -> int:
     run("pvt_trainer", phase_pvt_trainer, kernels, dev, smi, pvt)
     torch.cuda.empty_cache()
     run("vt_fpn", phase_vt_fpn, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("full_size", phase_full_size, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("tools", phase_tools, kernels, dev, smi)
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

@@ -204,3 +204,68 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> None:
             raise ValueError(f"{k}: Flax shape {tuple(v.shape)} != port "
                              f"shape {tuple(own[k].shape)}")
     model.load_state_dict(sd, strict=True)
+
+
+# Draw rules of ``seeded_flax_variables``: He-normal kernels (fan in = every
+# axis but the last, HWIO or (in, out)), FrozenBN scales in [0.75, 1.25] and
+# small biases (so that a folded norm is not the identity), and constants.
+INIT_RULES = ("he_normal", "frozen_bn_scale", "frozen_bn_bias", "zeros", "ones")
+
+
+def manifest_of(variables: Mapping, rule_of) -> list:
+    """``[(collection/path, shape, dtype, rule), ...]`` of a Flax tree (array
+    or ``jax.ShapeDtypeStruct`` leaves), sorted by path; ``rule_of(path,
+    shape)`` names each leaf's rule from ``INIT_RULES``."""
+    out = []
+    for path, leaf in _leaves(variables):
+        name = "/".join(path)
+        shape = tuple(int(d) for d in leaf.shape)
+        rule = rule_of(name, shape)
+        if rule not in INIT_RULES:
+            raise ValueError(f"{name}: unknown init rule {rule!r}")
+        out.append((name, shape, str(np.dtype(leaf.dtype)), rule))
+    return sorted(out)
+
+
+def seeded_flax_variables(manifest, seed: int) -> Dict:
+    """A Flax ``{"params", "buffers"}`` tree drawn in numpy from ``seed``:
+    the manifest's leaves in sorted path order, one legacy
+    ``RandomState`` stream (its sequence is fixed across numpy versions), so
+    that any machine rebuilds the same weights without JAX."""
+    rs = np.random.RandomState(seed)
+    tree: Dict = {}
+    for name, shape, dtype, rule in sorted((tuple(m) for m in manifest),
+                                           key=lambda m: m[0]):
+        shape = tuple(shape)
+        if rule == "he_normal":
+            fan_in = int(np.prod(shape[:-1]))
+            a = rs.standard_normal(shape) * np.sqrt(2.0 / fan_in)
+        elif rule == "frozen_bn_scale":
+            a = rs.uniform(0.75, 1.25, shape)
+        elif rule == "frozen_bn_bias":
+            a = rs.standard_normal(shape) * 0.05
+        elif rule == "zeros":
+            a = np.zeros(shape)
+        elif rule == "ones":
+            a = np.ones(shape)
+        else:
+            raise ValueError(f"{name}: unknown init rule {rule!r}")
+        node = tree
+        *parents, leaf = name.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.array(a, dtype=np.dtype(dtype))      # keeps 0-d leaves 0-d
+    return tree
+
+
+def variables_checksum(variables: Mapping) -> str:
+    """sha256 over the leaves' paths, shapes and bytes in sorted path order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for path, leaf in sorted(_leaves(variables), key=lambda pl: "/".join(pl[0])):
+        a = np.array(leaf)
+        h.update("/".join(path).encode())
+        h.update(str(a.shape).encode() + str(a.dtype).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()

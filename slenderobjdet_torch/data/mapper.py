@@ -32,10 +32,20 @@ import numpy as np
 from ..structures.borders import BorderMasks
 from . import transforms as T
 
-try:
-    import cv2
-except Exception:  # pragma: no cover
-    cv2 = None
+cv2 = LAZY = object()    # imported at first use: a loader that needs no decode and no
+                         # resize never imports cv2 (tests set this to None to take it away)
+
+
+def _cv2():
+    """cv2 where it is installed, else None; imported when first needed."""
+    global cv2
+    if cv2 is LAZY:
+        try:
+            import cv2 as module
+        except Exception:  # pragma: no cover
+            module = None
+        cv2 = module
+    return cv2
 
 
 def read_image(dataset_dict: Dict, fmt: str = "BGR") -> np.ndarray:
@@ -43,6 +53,7 @@ def read_image(dataset_dict: Dict, fmt: str = "BGR") -> np.ndarray:
     if "image" in dataset_dict:
         img = dataset_dict["image"]
     else:
+        cv2 = _cv2()
         if cv2 is None:
             raise RuntimeError(
                 f"read_image: cannot read {dataset_dict.get('file_name')!r}: "
@@ -281,6 +292,7 @@ class DatasetMapper:
 def _decode(raw: bytes, name: str) -> np.ndarray:
     """A packed or object-storage image record -> HWC uint8 BGR, by
     ``cv2.imdecode``; without cv2 a RuntimeError, never another decoder."""
+    cv2 = _cv2()
     if cv2 is None:
         raise RuntimeError(
             f"cannot decode the image record {name!r}: packed and "

@@ -20,10 +20,20 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-try:
-    import cv2
-except Exception:  # pragma: no cover
-    cv2 = None
+cv2 = LAZY = object()    # imported at first use: a loader that needs no decode and no
+                         # resize never imports cv2 (tests set this to None to take it away)
+
+
+def _cv2():
+    """cv2 where it is installed, else None; imported when first needed."""
+    global cv2
+    if cv2 is LAZY:
+        try:
+            import cv2 as module
+        except Exception:  # pragma: no cover
+            module = None
+        cv2 = module
+    return cv2
 
 
 def bilinear_resize(image: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
@@ -44,6 +54,7 @@ def bilinear_resize(image: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
 
 def resize(image: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
     """Bilinear resize to (new W, new H): cv2 where it imports, else torch."""
+    cv2 = _cv2()
     if cv2 is not None:
         return cv2.resize(image, size_wh, interpolation=cv2.INTER_LINEAR)
     return bilinear_resize(image, size_wh)

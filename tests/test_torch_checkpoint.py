@@ -37,6 +37,9 @@ from slenderobjdet_torch.solver import build_optimizer  # noqa: E402
 from slenderobjdet_tpu.checkpoint import checkpointer as jckpt  # noqa: E402
 from slenderobjdet_tpu.config import get_cfg as jax_get_cfg  # noqa: E402
 from slenderobjdet_tpu.models import build_model as jax_build_model  # noqa: E402
+from torch_threads import default_torch_threads, one_torch_thread_module  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_module")
 
 CONFIG = Path(__file__).resolve().parents[1] / "configs/fcos/fcos_R_50_FPN_1x.yaml"
 NAME = "torch_ckpt_synth"

@@ -35,6 +35,9 @@ from slenderobjdet_tpu.config import get_cfg as jax_get_cfg
 from slenderobjdet_tpu.models import build_model as jax_build_model
 from slenderobjdet_tpu.models.layers import DFConv2d as JDFConv2d
 from slenderobjdet_tpu.ops import deform_conv as jdc
+from torch_threads import default_torch_threads, one_torch_thread_module  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_module")
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -333,6 +336,7 @@ def _assert_levels_match(got, want):
             assert ratio(g.numpy(), w) <= MODEL_TOL, (part, lvl)
 
 
+@pytest.mark.usefixtures("default_torch_threads")   # one thread moves it past its tolerance
 def test_deformable_conv_retinanet_matches_jax():
     model, got, want = _forward_pair("configs/retina/retinanet_dc_R_50_FPN_1x.yaml", 20,
                                      **{"MODEL.RESNETS.DEPTH": 18})

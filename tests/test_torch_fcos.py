@@ -24,6 +24,9 @@ from slenderobjdet_torch.models import build_model as torch_build_model
 from slenderobjdet_torch.ops import _build
 from slenderobjdet_tpu.config import get_cfg as jax_get_cfg
 from slenderobjdet_tpu.models import build_model as jax_build_model
+from torch_threads import default_torch_threads, one_torch_thread_module  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_module")
 
 CONFIG = Path(__file__).resolve().parents[1] / "configs/fcos/fcos_R_50_FPN_1x.yaml"
 FEATURE_TOL = 1e-4   # max |diff| / max |ref|: fp32, different conv sum orders

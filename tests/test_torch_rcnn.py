@@ -60,6 +60,9 @@ from slenderobjdet_tpu.models import sampling as jsampling  # noqa: E402
 from slenderobjdet_tpu.models.roi_heads import roi_heads as jroi  # noqa: E402
 from slenderobjdet_tpu.ops import nms as jnms  # noqa: E402
 from slenderobjdet_tpu.ops import roi_align as jra  # noqa: E402
+from torch_threads import default_torch_threads, one_torch_thread_module  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_module")
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = ROOT / "configs/faster/faster_rcnn_R_50_FPN_1x.yaml"
@@ -470,6 +473,7 @@ def predict_batch(seed):
             "image_size": np.array([[64, 64], [60, 52]], np.int32)}
 
 
+@pytest.mark.usefixtures("default_torch_threads")   # one thread moves it past its tolerance
 @pytest.mark.parametrize("arch", ["ProposalVisibleRCNN", "ProposalVisibleRCNNWithAnchor"])
 def test_rcnn_predict_matches_jax(rcnn_pair, arch):
     """Detections and proposals slot for slot: validity and classes exactly,

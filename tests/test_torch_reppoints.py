@@ -59,6 +59,9 @@ from slenderobjdet_tpu.engine.train_loop import make_train_step as jax_train_ste
 from slenderobjdet_tpu.models import build_model as jax_build_model  # noqa: E402
 from slenderobjdet_tpu.models.meta_arch import reppoints as jrep  # noqa: E402
 from slenderobjdet_tpu.solver import build as jsolver  # noqa: E402
+from torch_threads import default_torch_threads, one_torch_thread_module  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_module")
 
 ROOT = Path(__file__).resolve().parents[1]
 RP_CONFIG = ROOT / "configs/rep-points/rep_points_detector_R_50_FPN_1x.yaml"

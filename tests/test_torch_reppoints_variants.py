@@ -36,6 +36,9 @@ from test_torch_reppoints import (MODEL_LOSS_RTOL, RP_CONFIG, _predict_pair,  # 
                                   _randomize, assert_detections_equal, jnp_batch,
                                   port_model, rp_variables, tiny_cfg, train_batch,
                                   variables_for)
+from torch_threads import default_torch_threads, one_torch_thread_module  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_module")
 
 NEW_NAMES = ["RepPointsDetector", "RepPointsCenterness", "RepPointsV2", "FCOSRepPoints",
              "ReppointsRetinaNet", "DeformableConvRetinaNet"]

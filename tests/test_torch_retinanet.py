@@ -38,6 +38,9 @@ from slenderobjdet_tpu.models import matchers as jmatch
 from slenderobjdet_tpu.models.meta_arch import reppoints as jrep
 from slenderobjdet_tpu.models.meta_arch import retinanet as jretina
 from slenderobjdet_tpu.structures import boxes as jbox
+from torch_threads import default_torch_threads, one_torch_thread_module  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_module")
 
 ROOT = Path(__file__).resolve().parents[1]
 RETINA = ROOT / "configs/retina"
@@ -525,6 +528,7 @@ def assert_detections_equal(got, want, keys):
         np.testing.assert_allclose(got[k].numpy()[valid], want[k][valid], rtol=0, atol=1e-3)
 
 
+@pytest.mark.usefixtures("default_torch_threads")   # one thread moves it past its tolerance
 @pytest.mark.parametrize("arch", ["RetinaNet", "RetinaNetWithAnchor"])
 def test_retinanet_predict_matches_jax(arch, retina_variables):
     """A classifier drawn at std 0.005 (logits of std 0.5) with bias -5.1 puts

@@ -33,6 +33,9 @@ from slenderobjdet_tpu.models import build_model as jax_build_model
 from slenderobjdet_tpu.models.meta_arch import fcos as jfcos
 from slenderobjdet_tpu.ops import losses as jl
 from slenderobjdet_tpu.solver import build as jsolver
+from torch_threads import default_torch_threads, one_torch_thread_module  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_module")
 
 CONFIG = Path(__file__).resolve().parents[1] / "configs/fcos/fcos_R_50_FPN_1x.yaml"
 LOSS_RTOL = 1e-5     # elementwise losses: same fp ops, float32

@@ -43,6 +43,9 @@ from slenderobjdet_tpu.config import get_cfg as jax_get_cfg  # noqa: E402
 from slenderobjdet_tpu.data import catalog as jcatalog  # noqa: E402
 from slenderobjdet_tpu.data.datasets import coco as jcoco  # noqa: E402
 from slenderobjdet_tpu.engine import trainer as jtrainer  # noqa: E402
+from torch_threads import default_torch_threads, one_torch_thread_module  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_module")
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = ROOT / "configs/fcos/fcos_R_50_FPN_1x.yaml"
@@ -87,6 +90,7 @@ def cli_args(out, *flags, config=CONFIG, **overrides):
 
 
 # ------------------------------------------------- (d) against the JAX trainer
+@pytest.mark.usefixtures("default_torch_threads")   # one thread moves it past its tolerance
 def test_trainer_matches_the_jax_trainer_over_four_steps(synth, monkeypatch):
     steps = 4
     over = {"SOLVER.MAX_ITER": steps, "SOLVER.CHECKPOINT_PERIOD": 100,

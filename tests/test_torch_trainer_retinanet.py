@@ -25,6 +25,9 @@ from slenderobjdet_tpu.config import get_cfg as jax_get_cfg  # noqa: E402
 from slenderobjdet_tpu.engine import trainer as jtrainer  # noqa: E402
 from test_torch_trainer import (MODEL_LOSS_RTOL, NAME, PARAM_RTOL, ROOT,  # noqa: E402,F401
                                 cli_args, make_cfg, synth)
+from torch_threads import default_torch_threads, one_torch_thread_module  # noqa: E402,F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread_module")
 
 RETINA_CONFIG = ROOT / "configs/retina/retinanet_R_50_FPN_1x.yaml"
 RETINA_TINY = {"MODEL.RETINANET.NUM_CLASSES": 3}
