@@ -14,6 +14,7 @@
     python3 chip_smoke.py serving int8 tta   # the serving path
     python3 chip_smoke.py pvt vt_fpn   # the PVT, PVTv2 and VT-FPN trunks
     python3 chip_smoke.py full_size tools   # FCOS against JAX at full size; the tools
+    python3 chip_smoke.py convergence   # FCOS R-50-FPN trained by convergence_run
 
 Builds the port's CUDA kernels from ``slenderobjdet_torch/ops/csrc`` (at
 first use, into ``build/torch_kernels/``), then, each phase failing the run
@@ -331,7 +332,23 @@ if it fails:
    4), ``vis_feat_adaption`` (RepPoints, 1 + 13 an image),
    ``mask_to_rbox``, ``generate_border_maps``, ``visualize_json_results``:
    launch counts exact, output files checked, img/s through each model tool;
-   neither cv2 nor jax imported.
+   then ``data_time`` on 64 generated PNG images, from files and from a
+   RecordPack, and its stage budget (PNG decode, torch resize: no cv2),
+   img/s and the decoder printed; ``compare_matchers`` (Faster R-CNN's RPN
+   anchors and both matchers on the card); the readers ``result_statistic``,
+   ``ar_result``, ``coco_class_info``, ``data_statistic`` and ``regression``
+   over ``inference_obj365``'s results; ``watch_evaluate --once`` (its
+   subprocess's pkl equal to ``result_statistic``'s); ``run_experiments
+   --dry-run``'s command lines; neither cv2 nor jax imported.
+39. FCOS R-50-FPN trained by ``convergence_run`` (``convergence``): full
+   width, bf16, FUSED_STEM and FUSED_BLOCKS on, CONVERGENCE_STEPS steps of
+   B = 8 at 256 x 256 on its generated batches. The stem and the five
+   bottleneck shapes at that size are first held against their plain
+   versions (bf16 tolerance). The run must launch exactly 1 stem + 13
+   bottleneck kernels a step and 1 + 13 + 1 NMS a held-out predict call (4
+   calls), keep its logged losses finite and end below
+   CONVERGENCE_LOSS_FACTOR of its first; prints the first and last loss,
+   the held-out precision and recall at IoU 0.5 and the seconds.
 
 Every kernel's time stands beside its bound, the least time the card could
 take: the larger of its bytes (inputs read once, outputs written once) over
@@ -6452,6 +6469,103 @@ def phase_full_size(kernels, dev, smi):
         torch.cuda.empty_cache()
 
 
+# -------------------------------------------------------------- convergence
+CONVERGENCE_STEPS = 500
+CONVERGENCE_BATCH = 8
+CONVERGENCE_HW = (256, 256)
+CONVERGENCE_LOSS_FACTOR = 0.75    # last logged loss <= this x the first (centerness BCE stays)
+CONVERGENCE_STEP = {"fused_stem": 1, "fused_bottleneck": 13}
+CONVERGENCE_PREDICT = {"fused_stem": 1, "fused_bottleneck": 13, "nms": 1}
+
+
+def convergence_kernel_checks(dev, batch, hw):
+    """The stem and the five bottleneck shapes at ``hw`` and ``batch`` in bf16
+    against their plain versions (BF16_TOL): shapes no other phase gives
+    them (res5 is 8 x 8 at 256 x 256)."""
+    from slenderobjdet_torch.ops.fused_bottleneck import (bottleneck_plan, fused_bottleneck,
+                                                          reference_bottleneck)
+    from slenderobjdet_torch.ops.fused_stem import fused_stem, reference_stem, stem_plan
+
+    h, w = hw
+    x, wt, scale, bias = stem_inputs(batch, h, w, 64, dev, seed=40)
+    xb = x.to(torch.bfloat16)
+    err = ratio(fused_stem(xb, wt, scale, bias), reference_stem(xb, wt, scale, bias))
+    route = stem_plan(torch.bfloat16, batch, h, w, 64)["route"]
+    log(f"convergence stem B={batch} {h}x{w} bf16 ({route}): err ratio {err:.3e} "
+        f"(tol {BF16_TOL})")
+    if not (route == "mma" and err <= BF16_TOL):
+        raise AssertionError(f"convergence stem: {route}, err {err}")
+    g = torch.Generator(device="cpu").manual_seed(41)
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to(dev)
+
+    for name, bh, bw, cin, cm, cout, proj, _ in loader_blocks(h, w):
+        args = (rnd(cin, cm, s=cin ** -0.5), rnd(cm, s=0.1),
+                rnd(3, 3, cm, cm, s=(9 * cm) ** -0.5), rnd(cm, s=0.1),
+                rnd(cm, cout, s=cm ** -0.5), rnd(cout, s=0.1),
+                *((rnd(cin, cout, s=cin ** -0.5), rnd(cout, s=0.1)) if proj else (None, None)))
+        xb = torch.relu(rnd(batch, bh, bw, cin)).to(torch.bfloat16)
+        plan = bottleneck_plan(torch.bfloat16, batch, bh, bw, cin, cm, cout)
+        err = ratio(fused_bottleneck(xb, *args), reference_bottleneck(xb, *args))
+        log(f"convergence bottleneck {name} B={batch} {bh}x{bw} bf16 ({plan['route']}, "
+            f"{plan.get('m_tiles')} pixel tiles): err ratio {err:.3e} (tol {BF16_TOL})")
+        if not (plan["route"] == "wgmma" and err <= BF16_TOL):
+            raise AssertionError(f"convergence bottleneck {name}: {plan['route']}, err {err}")
+
+
+def phase_convergence(kernels, dev, smi):
+    """``convergence_run.main`` on FCOS R-50-FPN as a user runs it, with the
+    launch counts read around its training and around its held-out predict
+    calls."""
+    from slenderobjdet_torch.ops import _build
+    from slenderobjdet_torch.tools import convergence_run
+
+    convergence_kernel_checks(dev, CONVERGENCE_BATCH, CONVERGENCE_HW)
+    counts = {}
+    held_out = convergence_run.held_out
+
+    def counted_held_out(*args):
+        torch.cuda.synchronize()
+        counts["train"] = {k: v for k, v in _build.launch_counts().items() if v}
+        _build.reset_launch_counts()
+        out = held_out(*args)
+        torch.cuda.synchronize()
+        counts["predict"] = {k: v for k, v in _build.launch_counts().items() if v}
+        return out
+
+    argv = ["--config-file", FCOS_YAML, "--steps", str(CONVERGENCE_STEPS),
+            "--batch", str(CONVERGENCE_BATCH), "--hw", *map(str, CONVERGENCE_HW),
+            "MODEL.RESNETS.FUSED_STEM", "True", "MODEL.RESNETS.FUSED_BLOCKS", "True",
+            "TPU.COMPUTE_DTYPE", "bfloat16"]
+    convergence_run.held_out = counted_held_out
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t = time.perf_counter()
+        res = convergence_run.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+    finally:
+        convergence_run.held_out = held_out
+    want = {"train": {k: v * CONVERGENCE_STEPS for k, v in CONVERGENCE_STEP.items()},
+            "predict": {k: v * convergence_run.HELD_OUT_BATCHES
+                        for k, v in CONVERGENCE_PREDICT.items()}}
+    losses = [loss for _, loss in res["log"]]
+    log(f"convergence FCOS R-50-FPN bf16 fused, B={CONVERGENCE_BATCH} "
+        f"{CONVERGENCE_HW[0]}x{CONVERGENCE_HW[1]}, {CONVERGENCE_STEPS} steps: first_loss "
+        f"{res['first_loss']:.4f}, last_loss {res['last_loss']:.4f} "
+        f"({res['last_loss'] / res['first_loss']:.3f} of the first; at most "
+        f"{CONVERGENCE_LOSS_FACTOR}), precision@0.5 {res['precision@0.5']}, recall@0.5 "
+        f"{res['recall@0.5']}, {seconds:.1f} s (model build included), launches {counts} "
+        f"[{smi}]")
+    if counts != want:
+        raise AssertionError(f"convergence: launched {counts}, expected {want}")
+    if not all(np.isfinite(losses)) or not res["last_loss"] <= \
+            CONVERGENCE_LOSS_FACTOR * res["first_loss"]:
+        raise AssertionError(f"convergence: logged losses {res['log']}")
+
+
 # -------------------------------------------------------------------- tools
 TOOLS_IMAGES = 16
 TOOLS_BATCH = 8                     # inference_obj365's --batch-size
@@ -6535,19 +6649,21 @@ def phase_tools(kernels, dev, smi):
 
 
 def tools_child():
-    """The port's model-driving and drawing tools on a synthetic PNG dataset
-    at the loader's shapes, in this process: ``inference_obj365`` (FCOS
+    """The port's tools on a synthetic PNG dataset at the loader's shapes, in
+    this process: ``inference_obj365`` (FCOS
     R-50-FPN, 16 images at B = 8, run twice: 2 x (1 + 13 + 1) launches each,
     chunks, results, metrics), ``eval_and_save_proposals`` (Faster R-CNN R-50-FPN, B = 4: 4 x
     (1 + 13 + 2), the pkl's schema), ``vis_feat_adaption`` (RepPoints
     R-50-FPN, 2 images of 1 + 13), ``mask_to_rbox``, ``generate_border_maps``
-    and ``visualize_json_results``; every PNG decodes at its shape, and
-    neither cv2 nor jax is in ``sys.modules``."""
+    and ``visualize_json_results``; every PNG decodes at its shape; then
+    ``root_tools``; and neither cv2 nor jax is in ``sys.modules``."""
     import os
     import pickle
     import tempfile
 
     smi = card_line()
+    importers = ImportWitness(("cv2", "jax"))
+    sys.meta_path.insert(0, importers)
 
     from slenderobjdet_torch.data import DatasetCatalog
     from slenderobjdet_torch.data.datasets import register_coco_instances
@@ -6629,13 +6745,111 @@ def tools_child():
                 raise AssertionError(f"tools visualize_json_results: {p}")
         log(f"tools: {len(views)} adaption views, {len(anns)} rboxes, {done} map files, "
             f"{len(panels)} result panels")
+        root_tools(tmp, path, os.path.join(out, "coco_instances_results.json"), name, smi)
     import importlib.util
 
     loaded = [m for m in ("cv2", "jax") if m in sys.modules]
     log("tools: installed on this machine: "
         f"{[m for m in ('cv2', 'jax') if importlib.util.find_spec(m)]}; imported: {loaded}")
     if loaded:
+        for name in loaded:
+            log(f"tools: {name} first imported from\n{importers.stacks.get(name)}")
         raise AssertionError(f"tools: the process imported {loaded}")
+
+
+class ImportWitness:
+    """A ``sys.meta_path`` finder that finds nothing: it keeps the stack of
+    the first import of each of ``names``, so that a failed import check
+    says who imported the module."""
+
+    def __init__(self, names):
+        self.names, self.stacks = names, {}
+
+    def find_spec(self, name, path=None, target=None):
+        if name in self.names and name not in self.stacks:
+            self.stacks[name] = "".join(traceback.format_stack()[:-1])
+        return None
+
+
+DATA_TIME_IMAGES = 64
+DATA_TIME_ARGS = ["--config-file", FCOS_YAML, "--iters", "8", "--decoder", "png"]
+
+
+def root_tools(tmp, gt_json, results_json, dataset, smi):
+    """The root tools of ``tools_child``'s second half: ``data_time`` (PNG
+    files and a PNG RecordPack, and the stage budget), ``compare_matchers``
+    on the card, the five readers over ``results_json``, ``watch_evaluate
+    --once`` and ``run_experiments --dry-run``."""
+    import os
+    import pickle
+    import shutil
+
+    from slenderobjdet_torch.config import get_cfg
+    from slenderobjdet_torch.tools import (ar_result, coco_class_info, compare_matchers,
+                                           data_statistic, data_time, regression,
+                                           result_statistic, run_experiments, watch_evaluate)
+
+    for extra in ([], ["--pack"]):
+        r = data_time.main(DATA_TIME_ARGS + ["--synthetic", str(DATA_TIME_IMAGES), *extra])
+        source = "a RecordPack" if extra else "files"
+        if r["decoder"] != "png" or r["shapes"]["image"][1:] not in \
+                [(*hw, 3) for hw in LOADER_SHAPES]:
+            raise AssertionError(f"tools data_time: {r['decoder']}, {r['shapes']}")
+        log(f"tools data_time: {r['img_s']:.1f} img/s from {source} ({r['images']} images "
+            f"of 480x640 in {r['batches']} batches of {r['shapes']['image']}), decoder "
+            f"{data_time.DECODER_NAMES[r['decoder']]}, host {os.cpu_count()} cores [{smi}]")
+    rows = data_time.main(DATA_TIME_ARGS + ["--stage-budget"])["rows"]
+    if [n for n, _ in rows][0] != "png decode":
+        raise AssertionError(f"tools data_time --stage-budget: {rows}")
+
+    cfg = get_cfg()
+    cfg.merge_from_file(RCNN_YAML)
+    cfg.DATASETS.TEST = (dataset,)
+    cfg_file = os.path.join(tmp, "rcnn_matchers.yaml")
+    with open(cfg_file, "w") as f:
+        f.write(cfg.dump())
+    m = compare_matchers.main(["--config-file", cfg_file, "--num-images", "8"])
+    if m["images"] != 8 or not (np.mean(m["topk"]) > 0 and np.mean(m["iou"]) > 0):
+        raise AssertionError(f"tools compare_matchers: {m}")
+
+    pkl = os.path.join(tmp, "restat.pkl")
+    metrics = result_statistic.main(["--prediction", results_json, "--gt-json", gt_json,
+                                     "--out", pkl])
+    ar = ar_result.main(["--results", results_json, "--gt-json", gt_json])
+    classes = coco_class_info.main(["--gt-json", gt_json])
+    buckets = data_statistic.main(["--gt-json", gt_json])
+    metrics_json = os.path.join(tmp, "evaluate_metrics.json")
+    with open(metrics_json, "w") as f:
+        json.dump(metrics, f, default=float)
+    reg = regression.main(["--metrics", metrics_json, "--coco-json", gt_json])
+    if not (np.isfinite(metrics["bbox"]["AP"]) and np.isfinite(ar["ar"]) and classes
+            and sum(buckets.values()) and len(reg["x"]) >= 2):
+        raise AssertionError("tools readers")
+
+    watch = os.path.join(tmp, "watch")
+    os.makedirs(watch)
+    watched = os.path.join(watch, "coco_instances_results.json")
+    shutil.copy(results_json, watched)
+    done = watch_evaluate.main(["--watch-dir", watch, "--gt-json", gt_json, "--once"])
+    with open(os.path.join(watch, "coco_instances_results.pkl"), "rb") as f:
+        again = pickle.load(f)
+    if done != [(watched, 0)] or not os.path.exists(watched + ".evaluated") \
+            or json.dumps(again, default=float) != json.dumps(metrics, default=float):
+        raise AssertionError(f"tools watch_evaluate: {done}")
+
+    runs = run_experiments.main(["--model", "fcos", "--dry-run", "--opts",
+                                 "SOLVER.MAX_ITER", "20"])
+    for depth, cmd in zip((50, 101, 152), runs["commands"]):
+        if cmd[1:4] != ["train_net_torch.py", "--resume", "--config-file"] or \
+                cmd[4] != f"configs/group_exp_for_backbone/fcos/r-{depth}.yaml" or \
+                not cmd[6].endswith(f"_fcos_R_{depth}_FPN_1x") or \
+                cmd[-2:] != ["SOLVER.MAX_ITER", "20"]:
+            raise AssertionError(f"tools run_experiments: {cmd}")
+    log(f"tools readers: bbox AP {metrics['bbox']['AP']:.3f}, AR@100 {ar['ar'] * 100:.2f}, "
+        f"{len(classes)} classes, buckets {buckets}, regression over {len(reg['x'])} "
+        f"categories; compare_matchers iou {np.mean(m['iou']):.2f} / topk "
+        f"{np.mean(m['topk']):.2f} positives a gt; watch_evaluate {done}; "
+        f"run_experiments {len(runs['commands'])} commands")
 
 
 def main() -> int:
@@ -6811,6 +7025,8 @@ def main() -> int:
     run("full_size", phase_full_size, kernels, dev, smi)
     torch.cuda.empty_cache()
     run("tools", phase_tools, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("convergence", phase_convergence, kernels, dev, smi)
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

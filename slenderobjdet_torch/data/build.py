@@ -25,6 +25,7 @@ of one is the unsharded stream.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import queue
 import threading
@@ -56,7 +57,8 @@ def mp_map_stream(dataset_dicts, mapper, idx_iter, num_workers: int,
         rng = np.random.default_rng((seed, seq))
         return mapper(dataset_dicts[idx], rng=rng)
 
-    with ThreadPoolExecutor(max_workers=num_workers) as pool:
+    pool = ThreadPoolExecutor(max_workers=num_workers)
+    try:
         pending: "queue.Queue" = queue.Queue()
         it = enumerate(idx_iter)
         # keep num_workers * depth examples in flight
@@ -67,6 +69,9 @@ def mp_map_stream(dataset_dicts, mapper, idx_iter, num_workers: int,
             for item in itertools.islice(it, 1):
                 pending.put(pool.submit(run_one, item))
             yield fut.result()
+    finally:
+        # closed early: what has not started is dropped, what runs ends here
+        pool.shutdown(wait=True, cancel_futures=True)
 
 
 # ------------------------------------------------------------------ samplers
@@ -126,6 +131,7 @@ class _Prefetcher:
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._gen = gen
         self._done = object()
+        self._stop = threading.Event()
         self._thread = threading.Thread(target=self._work, daemon=True)
         self._thread.start()
 
@@ -133,7 +139,10 @@ class _Prefetcher:
         try:
             for item in self._gen:
                 self._q.put(item)
+                if self._stop.is_set():
+                    break
         finally:
+            self._gen.close()       # a worker pool's in-flight examples finish here
             self._q.put(self._done)
 
     def __iter__(self):
@@ -144,6 +153,17 @@ class _Prefetcher:
         if item is self._done:
             raise StopIteration
         return item
+
+    def close(self):
+        """Stop an infinite loader: the producing thread and its worker pool
+        end before this returns, so that nothing reads the dataset after."""
+        self._stop.set()
+        while self._thread.is_alive():
+            try:
+                self._q.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        self._thread.join()
 
 
 # -------------------------------------------------------------------- loaders
@@ -249,14 +269,18 @@ def build_detection_train_loader(cfg, mapper: Optional[DatasetMapper] = None,
 
             pool = (ThreadPoolExecutor(max_workers=num_workers)
                     if num_workers > 1 else None)
-            for gbatch in _global_batch_indices(dataset_dicts, sampler,
-                                                batch_size):
-                part = gbatch[shard_id * local_bs:(shard_id + 1) * local_bs]
+            try:
+                for gbatch in _global_batch_indices(dataset_dicts, sampler,
+                                                    batch_size):
+                    part = gbatch[shard_id * local_bs:(shard_id + 1) * local_bs]
+                    if pool is not None:
+                        examples = list(pool.map(map_one, part))
+                    else:
+                        examples = [map_one(p) for p in part]
+                    yield _stack_batch(examples)
+            finally:
                 if pool is not None:
-                    examples = list(pool.map(map_one, part))
-                else:
-                    examples = [map_one(p) for p in part]
-                yield _stack_batch(examples)
+                    pool.shutdown()
 
         return _Prefetcher(sharded_gen())
 
@@ -268,12 +292,13 @@ def build_detection_train_loader(cfg, mapper: Optional[DatasetMapper] = None,
             g = np.random.default_rng(seed + 1)
             examples = (mapper(dataset_dicts[idx], rng=g) for idx in sampler)
         buckets: Dict[bool, List[Dict]] = {True: [], False: []}
-        for ex in examples:
-            is_landscape = ex["image"].shape[1] >= ex["image"].shape[0]
-            buckets[is_landscape].append(ex)
-            if len(buckets[is_landscape]) == batch_size:
-                yield _stack_batch(buckets[is_landscape])
-                buckets[is_landscape] = []
+        with contextlib.closing(examples):     # a closed loader stops its pool
+            for ex in examples:
+                is_landscape = ex["image"].shape[1] >= ex["image"].shape[0]
+                buckets[is_landscape].append(ex)
+                if len(buckets[is_landscape]) == batch_size:
+                    yield _stack_batch(buckets[is_landscape])
+                    buckets[is_landscape] = []
 
     return _Prefetcher(gen())
 
@@ -304,14 +329,15 @@ def build_detection_test_loader(cfg, dataset_name: str, batch_size: int = 1,
             g = np.random.default_rng(0)
             examples = (mapper(d, rng=g) for d in dataset_dicts)
         buckets: Dict[bool, List[Dict]] = {True: [], False: []}
-        for ex in examples:
-            is_landscape = ex["image"].shape[1] >= ex["image"].shape[0]
-            buckets[is_landscape].append(ex)
-            if len(buckets[is_landscape]) == batch_size:
-                batch = _stack_batch(buckets[is_landscape])
-                batch["batch_valid"] = [True] * batch_size
-                yield batch
-                buckets[is_landscape] = []
+        with contextlib.closing(examples):     # a closed loader stops its pool
+            for ex in examples:
+                is_landscape = ex["image"].shape[1] >= ex["image"].shape[0]
+                buckets[is_landscape].append(ex)
+                if len(buckets[is_landscape]) == batch_size:
+                    batch = _stack_batch(buckets[is_landscape])
+                    batch["batch_valid"] = [True] * batch_size
+                    yield batch
+                    buckets[is_landscape] = []
         for remaining in buckets.values():
             if remaining:
                 n = len(remaining)

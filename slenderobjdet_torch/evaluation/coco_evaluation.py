@@ -41,15 +41,17 @@ STATS_NAMES = [
 
 
 def _pipe_table(headers, rows) -> str:
-    """A markdown pipe table; floats with three decimals, None as blank."""
+    """A markdown pipe table as ``tabulate(rows, headers, tablefmt="pipe",
+    floatfmt=".3f", numalign="left")`` prints it: floats with three
+    decimals, None as blank, each column as wide as its header plus 2 or
+    its widest cell."""
     def cell(v):
         if v is None:
             return ""
         return f"{v:.3f}" if isinstance(v, float) else str(v)
 
     body = [[cell(v) for v in row] for row in rows]
-    widths = [max(len(h), *(len(r[i]) for r in body)) if body else len(h)
-              for i, h in enumerate(headers)]
+    widths = [max(len(h) + 2, *(len(r[i]) for r in body)) for i, h in enumerate(headers)]
 
     def line(cells):
         return "| " + " | ".join(c.ljust(w) for c, w in zip(cells, widths)) + " |"

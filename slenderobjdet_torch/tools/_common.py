@@ -8,6 +8,7 @@ import os
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..data.mapper import DatasetMapper, read_image
 from ..utils import png
@@ -34,13 +35,13 @@ def load_cfg(config_file: str, opts: Optional[List[str]] = None):
     return cfg
 
 
-def build_and_load(cfg, weights: str = "", device: Optional[str] = None):
+def build_and_load(cfg, weights: str = "", device: Optional[str] = None, seed: int = 0):
     """The detector on ``device`` (the card unless ``cpu``), weights from
-    ``weights`` where given, else drawn from seed 0."""
+    ``weights`` where given, else drawn from ``seed``."""
     from ..checkpoint.checkpointer import load_model_weights
     from ..models import build_model
 
-    model = build_model(cfg, device=device)
+    model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(seed))
     if weights:
         load_model_weights(weights, model)
     return model
@@ -53,22 +54,36 @@ def read_bgr(path: str) -> Optional[np.ndarray]:
     if not os.path.exists(path):
         return None
     if path.lower().endswith(".png"):
-        img = png.imread(path)
-        if img.ndim == 2:
-            img = np.repeat(img[:, :, None], 3, axis=2)
-        return np.ascontiguousarray(img[:, :, :3])
+        with open(path, "rb") as f:
+            return png_bgr(f.read())
     return read_image({"file_name": path})
 
 
+def png_bgr(buf: bytes) -> np.ndarray:
+    """PNG bytes as uint8 BGR (H, W, 3)."""
+    img = png.decode(buf)
+    if img.ndim == 2:
+        img = np.repeat(img[:, :, None], 3, axis=2)
+    return np.ascontiguousarray(img[:, :, :3])
+
+
 class PNGReadingMapper(DatasetMapper):
-    """The test mapper, with PNG files decoded by ``utils/png.py`` before
-    ``read_image`` would reach cv2: the tools' loaders run on a machine
-    without an image codec. The pixels are the same (PNG is lossless)."""
+    """The mapper, with PNG images decoded by ``utils/png.py`` before
+    ``read_image`` or a pack's ``cv2.imdecode`` would reach cv2: the tools'
+    loaders run on a machine without an image codec. The pixels are the
+    same (PNG is lossless). A PNG is read from the config's image pack
+    (``USE_NORI``, ``NORI_PATH``) where the pack holds it, else from its
+    file."""
 
     def __call__(self, dataset_dict, rng=None):
         name = dataset_dict.get("file_name", "")
         if "image" not in dataset_dict and name.lower().endswith(".png"):
-            dataset_dict = dict(dataset_dict, image=read_bgr(name))
+            base = os.path.basename(name)
+            if self.image_pack is not None and base in self.image_pack:
+                img = png_bgr(self.image_pack.get(base))
+            else:
+                img = read_bgr(name)
+            dataset_dict = dict(dataset_dict, image=img)
         return super().__call__(dataset_dict, rng=rng)
 
 

@@ -4,13 +4,17 @@ Each function transcribes the OpenCV 5.0 routine named beside it and gives
 its pixels on uint8 (H, W, C) images: ``tests/test_torch_visualizer.py``
 holds them pixel-equal to cv2 5.0 on seeded and hypothesis-drawn shapes,
 shapes clipped at the image border included. Only what the JAX package's
-visualizer calls is here: thickness 1 (or filled) with ``LINE_8`` and no
-fractional shift.
+visualizer calls is here: ``LINE_8`` on integer points (no fractional
+shift).
 
-- ``line``: ``cv2.line`` (``LineIterator``, 8-connected, walked left to
-  right after ``clipLine``);
+- ``line``: ``cv2.line`` (``ThickLine``): at thickness 1 ``LineIterator``,
+  8-connected, walked left to right after ``clipLine``; thicker, the
+  segment clipped to the image grown by the thickness, the quadrilateral
+  half the thickness either side filled by ``FillConvexPoly`` in 16.16
+  fixed point (its outline by OpenCV 5.0's ``Line2``) and a filled circle
+  capping each end;
 - ``polylines`` and ``rectangle``: ``cv2.polylines`` / ``cv2.rectangle``,
-  one ``line`` an edge;
+  one ``line`` an edge, capped as ``PolyLine`` caps them;
 - ``fill_poly``: ``cv2.fillPoly`` (``CollectPolyEdges``, which also draws
   each edge as a ``line``, then the scan of ``FillEdgeCollection`` in 16.16
   fixed point);
@@ -119,31 +123,151 @@ def line_pixels(w: int, h: int, p1, p2) -> Tuple[np.ndarray, np.ndarray]:
     return y1 + ystep * k, x1 + i
 
 
-def line(img: np.ndarray, p1, p2, color) -> np.ndarray:
-    """``cv2.line(img, p1, p2, color, 1)`` in place."""
-    ys, xs = line_pixels(img.shape[1], img.shape[0], p1, p2)
-    img[ys, xs] = color
-    return img
+def line(img: np.ndarray, p1, p2, color, thickness: int = 1) -> np.ndarray:
+    """``cv2.line(img, p1, p2, color, thickness)`` in place (``LINE_8``)."""
+    return _thick_line(img, p1, p2, color, thickness, 3)
 
 
-def polylines(img: np.ndarray, polys: Sequence, closed: bool, color) -> np.ndarray:
-    """``cv2.polylines(img, polys, closed, color, 1)`` in place."""
+def polylines(img: np.ndarray, polys: Sequence, closed: bool, color,
+              thickness: int = 1) -> np.ndarray:
+    """``cv2.polylines(img, polys, closed, color, thickness)`` in place
+    (``PolyLine``: a closed polygon caps each edge's end, an open one also
+    the first edge's start)."""
     for poly in polys:
         pts = [(int(x), int(y)) for x, y in np.asarray(poly).reshape(-1, 2)]
         if not pts:
             continue
-        start = len(pts) - 1 if closed else 0
-        p0 = pts[start]
+        flags = 2 + (not closed)
+        p0 = pts[len(pts) - 1 if closed else 0]
         for p in pts[0 if closed else 1:]:
-            line(img, p0, p, color)
-            p0 = p
+            _thick_line(img, p0, p, color, thickness, flags)
+            p0, flags = p, 2
     return img
 
 
-def rectangle(img: np.ndarray, p1, p2, color) -> np.ndarray:
-    """``cv2.rectangle(img, p1, p2, color, 1)`` in place."""
+def rectangle(img: np.ndarray, p1, p2, color, thickness: int = 1) -> np.ndarray:
+    """``cv2.rectangle(img, p1, p2, color, thickness)`` in place (thickness
+    >= 1: the closed polyline of its four corners)."""
     (x1, y1), (x2, y2) = (int(p1[0]), int(p1[1])), (int(p2[0]), int(p2[1]))
-    return polylines(img, [[(x1, y1), (x2, y1), (x2, y2), (x1, y2)]], True, color)
+    return polylines(img, [[(x1, y1), (x2, y1), (x2, y2), (x1, y2)]], True, color, thickness)
+
+
+def _thick_line(img, p0, p1, color, thickness: int, flags: int):
+    """``ThickLine`` for integer points, ``LINE_8``: thickness 1 is the
+    8-connected ``line``; a thicker one is the convex quadrilateral of the
+    segment pushed out by half the thickness in 16.16 fixed point, filled,
+    and a filled circle at each end whose bit is set in ``flags`` (1: the
+    start, 2: the end)."""
+    h, w = img.shape[:2]
+    if thickness <= 1:
+        ys, xs = line_pixels(w, h, p0, p1)
+        img[ys, xs] = color
+        return img
+    # OpenCV 5.0 first clips the segment to the image grown by the
+    # thickness on every side (``clipLine``'s moved ends, drawn either way)
+    m = thickness
+    _, ((x0, y0), (x1, y1)) = clip_line(w + 2 * m, h + 2 * m, (int(p0[0]) + m, int(p0[1]) + m),
+                                        (int(p1[0]) + m, int(p1[1]) + m))
+    x0, y0 = (x0 - m) << XY_SHIFT, (y0 - m) << XY_SHIFT
+    x1, y1 = (x1 - m) << XY_SHIFT, (y1 - m) << XY_SHIFT
+    dx, dy = (x0 - x1) / XY_ONE, (y1 - y0) / XY_ONE
+    r = dx * dx + dy * dy
+    odd = thickness & 1
+    half = thickness << (XY_SHIFT - 1)
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (half + odd * XY_ONE * 0.5) / np.sqrt(r)
+        ox, oy = int(np.rint(dy * r)), int(np.rint(dx * r))   # cvRound: half to even
+        _fill_convex_poly(img, [(x0 + ox, y0 + oy), (x0 - ox, y0 - oy),
+                                (x1 - ox, y1 - oy), (x1 + ox, y1 + oy)], color)
+    for bit, (x, y) in ((1, (x0, y0)), (2, (x1, y1))):
+        if flags & bit:
+            center = ((x + (XY_ONE >> 1)) >> XY_SHIFT, (y + (XY_ONE >> 1)) >> XY_SHIFT)
+            circle_filled(img, center, (half + (XY_ONE >> 1)) >> XY_SHIFT, color)
+    return img
+
+
+def _line_fixed(img, p1, p2, color):
+    """``Line2`` as OpenCV 5.0 draws a convex polygon's outline: the
+    16.16 fixed-point segment, clipped, walked along its major axis from its
+    end of the smaller major coordinate, rounded, in (end - start) >> 16 + 1
+    steps of one pixel, the minor coordinate rounded at each; the other
+    end's rounded pixel is set too."""
+    h, w = img.shape[:2]
+    ok, ((x1, y1), (x2, y2)) = clip_line(w << XY_SHIFT, h << XY_SHIFT, p1, p2)
+    if not ok:
+        return
+    half = XY_ONE >> 1
+    dx, dy = x2 - x1, y2 - y1
+    x_major = abs(dx) > abs(dy)
+    if (dx if x_major else dy) < 0:
+        x1, y1, x2, y2, dx, dy = x2, y2, x1, y1, -dx, -dy
+    k = np.arange(((x2 - x1) if x_major else (y2 - y1)) // XY_ONE + 1, dtype=object)
+    if x_major:
+        xs = ((x1 + half) >> XY_SHIFT) + k
+        ys = (y1 + half + k * _cdiv(dy << XY_SHIFT, abs(dx) | 1)) >> XY_SHIFT
+    else:
+        xs = (x1 + half + k * _cdiv(dx << XY_SHIFT, abs(dy) | 1)) >> XY_SHIFT
+        ys = ((y1 + half) >> XY_SHIFT) + k
+    xs = np.append(xs, (x2 + half) >> XY_SHIFT).astype(np.int64)
+    ys = np.append(ys, (y2 + half) >> XY_SHIFT).astype(np.int64)
+    keep = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    img[ys[keep], xs[keep]] = color
+
+
+def _fill_convex_poly(img, v, color):
+    """``FillConvexPoly`` for 16.16 fixed-point points, ``LINE_8``: the
+    outline by ``Line2``, then per row the span between the two edges that
+    walk down from the top vertex, both ends rounded to the nearest pixel."""
+    h, w = img.shape[:2]
+    delta = XY_ONE >> 1
+    npts = len(v)
+    p0 = v[-1]
+    for p in v:
+        _line_fixed(img, p0, p, color)
+        p0 = p
+    xs, ys = [p[0] for p in v], [p[1] for p in v]
+    imin = int(np.argmin(ys))             # the first of the top vertices
+    xmin, xmax = (min(xs) + delta) >> XY_SHIFT, (max(xs) + delta) >> XY_SHIFT
+    ymin, ymax = (min(ys) + delta) >> XY_SHIFT, (max(ys) + delta) >> XY_SHIFT
+    if npts < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
+        return
+    ymax = min(ymax, h - 1)
+    edge = [{"idx": imin, "di": 1, "ye": ymin, "x": -XY_ONE, "dx": 0},
+            {"idx": imin, "di": npts - 1, "ye": ymin, "x": -XY_ONE, "dx": 0}]
+    edges = npts
+    y = ymin
+    while True:
+        for e in edge:
+            if y >= e["ye"]:
+                idx0 = e["idx"]
+                idx = (idx0 + e["di"]) % npts
+                while edges > 0:
+                    edges -= 1
+                    ty = (v[idx][1] + delta) >> XY_SHIFT
+                    if ty > y:
+                        xs0, xe = v[idx0][0], v[idx][0]
+                        e["ye"] = ty
+                        e["dx"] = _cdiv((xe - xs0) * 2 + (ty - y), 2 * (ty - y))
+                        e["x"] = xs0
+                        e["idx"] = idx
+                        break
+                    idx0 = idx
+                    idx = (idx + e["di"]) % npts
+                else:
+                    edges -= 1            # the C loop's test decrements once more
+        if edges < 0:
+            break
+        if y >= 0:
+            left, right = (1, 0) if edge[0]["x"] > edge[1]["x"] else (0, 1)
+            xx1 = (edge[left]["x"] + delta) >> XY_SHIFT
+            xx2 = (edge[right]["x"] + delta) >> XY_SHIFT
+            if xx2 >= 0 and xx1 < w:
+                img[y, max(xx1, 0):min(xx2, w - 1) + 1] = color
+        edge[0]["x"] += edge[0]["dx"]
+        edge[1]["x"] += edge[1]["dx"]
+        y += 1
+        if y > ymax:
+            break
 
 
 class _Edge:
@@ -164,10 +288,13 @@ def _collect_poly_edges(img, pts, edges, color):
         line(img, t0, t1, color)
         pt0c, pt1c = list(pt0), list(pt1)
         if not (0 <= t0[0] < w and 0 <= t1[0] < w and 0 <= t0[1] < h and 0 <= t1[1] < h):
+            # a clipped edge takes the clipped x's always, and the clipped
+            # y's only where they differ (else it keeps its own rows and
+            # runs straight down the border column)
             _, (c0, c1) = clip_line(w, h, t0, t1)
             if c0[1] != c1[1]:
-                pt0c = [c0[0] << XY_SHIFT, c0[1]]
-                pt1c = [c1[0] << XY_SHIFT, c1[1]]
+                pt0c[1], pt1c[1] = c0[1], c1[1]
+            pt0c[0], pt1c[0] = c0[0] << XY_SHIFT, c1[0] << XY_SHIFT
         if pt0[1] != pt1[1]:
             dx = _cdiv(pt1c[0] - pt0c[0], pt1c[1] - pt0c[1])
             if pt0[1] < pt1[1]:

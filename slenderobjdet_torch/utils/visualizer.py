@@ -57,13 +57,11 @@ class Visualizer:
                    color_by_ratio: bool = True, thickness: int = 1
                    ) -> np.ndarray:
         """boxes: (N, 4) XYXY."""
-        if thickness != 1:
-            raise NotImplementedError("the cv2-free rectangle draws thickness 1 only")
         for i, box in enumerate(np.asarray(boxes)):
             x1, y1, x2, y2 = [int(v) for v in box]
             color = (RATIO_COLORS[ratio_group(x2 - x1, y2 - y1)]
                      if color_by_ratio else (0, 255, 0))
-            draw.rectangle(self.img, (x1, y1), (x2, y2), color)
+            draw.rectangle(self.img, (x1, y1), (x2, y2), color, thickness)
             label = _label(i, scores, classes, self.class_names)
             if label:
                 put_label(self.img, label, x1, y1, color)
@@ -71,12 +69,10 @@ class Visualizer:
 
     def draw_rotated_boxes(self, rboxes: np.ndarray, thickness: int = 1
                            ) -> np.ndarray:
-        if thickness != 1:
-            raise NotImplementedError("the cv2-free polyline draws thickness 1 only")
         for box in np.asarray(rboxes):
             cx, cy, w, h, a = [float(v) for v in box]
             pts = draw.box_points((cx, cy), (w, h), -a).astype(np.int32)
-            draw.polylines(self.img, [pts], True, RATIO_COLORS[ratio_group(w, h)])
+            draw.polylines(self.img, [pts], True, RATIO_COLORS[ratio_group(w, h)], thickness)
         return self.img
 
     def draw_proposals(self, proposals: np.ndarray, max_n: int = 50
