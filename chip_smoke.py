@@ -15,6 +15,7 @@
     python3 chip_smoke.py pvt vt_fpn   # the PVT, PVTv2 and VT-FPN trunks
     python3 chip_smoke.py full_size tools   # FCOS against JAX at full size; the tools
     python3 chip_smoke.py convergence   # FCOS R-50-FPN trained by convergence_run
+    python3 chip_smoke.py profiles   # the staged profile tools
 
 Builds the port's CUDA kernels from ``slenderobjdet_torch/ops/csrc`` (at
 first use, into ``build/torch_kernels/``), then, each phase failing the run
@@ -349,6 +350,18 @@ if it fails:
    calls), keep its logged losses finite and end below
    CONVERGENCE_LOSS_FACTOR of its first; prints the first and last loss,
    the held-out precision and recall at IoU 0.5 and the seconds.
+40. The staged profile tools (``profiles``), in a child process: the
+   ports of ``tools/predict_profile.py``, ``postprocess_probe.py``,
+   ``profile_backbone.py`` and ``rcnn_profile.py`` (each with and without
+   ``--fused`` / ``--all-level-pool``), ``reppoints_profile.py --full`` and
+   ``corner_profile.py --stages``, at B = 8
+   (CornerNet B = 4 at 512 x 768) and 2 reps. Each must print the JAX
+   script's labels in its order after the card line, give finite positive
+   times, and launch exactly the kernels of PROFILE_LAUNCHES a call in each
+   stage: the NMS kernel where a stage runs predict's NMS (Faster R-CNN's
+   full predict twice), 3 / 3 / 5 / 2 / 13 bottleneck kernels in res2-res5
+   and the trunk with ``--fused``, and 2 corner-pool kernels a CornerNet
+   heads call; neither cv2 nor jax imported. Each tool's table is logged.
 
 Every kernel's time stands beside its bound, the least time the card could
 take: the larger of its bytes (inputs read once, outputs written once) over
@@ -6852,6 +6865,110 @@ def root_tools(tmp, gt_json, results_json, dataset, smi):
         f"run_experiments {len(runs['commands'])} commands")
 
 
+# ----------------------------------------------------------------- profiles
+PROFILES_TIMEOUT_S = 400
+PROFILE_ARGS = ["--batch", "8", "--reps", "2"]
+_NMS = {"nms": 1}
+_BLOCKS = {"res2": 3, "res3": 3, "res4": 5, "res5": 2, "full-resnet50": 13,
+           "backbone+FPN(graph)": 13, "fwd(backbone+head)": 13, "predict(full)": 13}
+_CORNER = {"corner_pool": 2}
+_BACKBONE_LABELS = ["B=8 800x1344", "stage", "GFLOP/img", "TFLOPS", "stem(norm+7x7+pool)",
+                    "res2", "res3", "res4", "res5", "full-resnet50", "backbone+FPN(graph)",
+                    "fwd(backbone+head)", "predict(full)"]
+_RCNN_LABELS = ["B=8 800x1344:", "backbone+RPN fwd", "+RPN proposals", "+ROIAlign pool",
+                "+box head", "full predict", "ms/img final NMS", "total"]
+_RCNN_LAUNCHES = {"+RPN proposals": _NMS, "+ROIAlign pool": _NMS, "+box head": _NMS,
+                  "full predict": {"nms": 2}}
+# (tool, argv, the JAX script's labels in the order it prints them, the
+# kernel launches a call of each stage; a stage not named launches none)
+PROFILES = [
+    ("predict_profile", PROFILE_ARGS, ["fwd ", "fwd+cand ", "full "], {"full": _NMS}),
+    ("postprocess_probe", ["--batch", "8"],
+     ["cand 100x168 (L= 16800)", "cand  50x 84 (L=  4200)", "cand  25x 42 (L=  1050)",
+      "cand  13x 21 (L=   273)", "cand   7x 11 (L=    77)", "cand total",
+      "nms  (B,5000)x100"], {"nms": _NMS}),
+    ("profile_backbone", PROFILE_ARGS, _BACKBONE_LABELS, {"predict(full)": _NMS}),
+    ("profile_backbone", [*PROFILE_ARGS, "--fused"], _BACKBONE_LABELS,
+     {**{k: {"fused_bottleneck": v} for k, v in _BLOCKS.items()},
+      "predict(full)": {"fused_bottleneck": 13, "nms": 1}}),
+    ("rcnn_profile", PROFILE_ARGS, _RCNN_LABELS, _RCNN_LAUNCHES),
+    ("rcnn_profile", [*PROFILE_ARGS, "--all-level-pool"], _RCNN_LABELS, _RCNN_LAUNCHES),
+    ("reppoints_profile", [*PROFILE_ARGS, "--full"],
+     ["B=8 800x1344:", "backbone+FPN", "full head forward", "ms/img head", "full predict",
+      "ms/img post", "P3 2C gather alone"], {"full predict": _NMS}),
+    ("corner_profile", ["--reps", "2", "--stages"],
+     ["decode stages (vs fwd", "NOTE", "+corner topk", "+pairing", "+NMS", "B=4 512x768:",
+      "hourglass backbone", "+pools/heads", "full predict", "ms/img decode", "total"],
+     {"+pools/heads": _CORNER, "full predict": {**_CORNER, **_NMS}, "decode topk": _CORNER,
+      "decode pair": _CORNER, "decode nms": {**_CORNER, **_NMS}}),
+]
+
+
+def labels_in_order(text, labels):
+    """The first of ``labels`` not found in ``text`` after the one before
+    it, or None."""
+    at = 0
+    for label in labels:
+        at = text.find(label, at)
+        if at < 0:
+            return label
+        at += len(label)
+    return None
+
+
+def phase_profiles(kernels, dev, smi):
+    """``profiles_child`` in a fresh process, so that its ``sys.modules``
+    shows what the profile tools import."""
+    import os
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.profiles_child()"],
+                       cwd=here, timeout=PROFILES_TIMEOUT_S)
+    if r.returncode:
+        raise AssertionError(f"profiles: the child process exited {r.returncode}")
+
+
+def profiles_child():
+    """Each of PROFILES through its ``main`` on the card: its printed table
+    logged and checked for the JAX script's labels, its stage times finite
+    and positive, each stage's kernel launches a call as listed; then
+    neither cv2 nor jax is in ``sys.modules``."""
+    import importlib
+    import io
+
+    smi = card_line()
+    importers = ImportWitness(("cv2", "jax"))
+    sys.meta_path.insert(0, importers)
+    failed = []
+    for name, argv, labels, launches in PROFILES:
+        tool = importlib.import_module(f"slenderobjdet_torch.tools.{name}")
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = tool.main(list(argv))
+        s = time.perf_counter() - t
+        text = out.getvalue()
+        label = " ".join([name, *argv])
+        log(f"profiles {label} ({s:.1f} s with the model build):\n{text.rstrip()}")
+        missing = labels_in_order(text, labels)
+        bad_ms = {k: v for k, v in res["ms"].items() if not (np.isfinite(v) and v > 0)}
+        want = {stage: launches.get(stage, {}) for stage in {*res["launches"], *launches}}
+        if not text.startswith(smi) or missing is not None or bad_ms \
+                or res["launches"] != want:
+            log(f"profiles {label}: FAILED: card line {text.startswith(smi)}, label "
+                f"{missing!r} missing, times {bad_ms}, launches {res['launches']}, "
+                f"expected {want}")
+            failed.append(label)
+        torch.cuda.empty_cache()
+    loaded = [m for m in ("cv2", "jax") if m in sys.modules]
+    for name in loaded:
+        log(f"profiles: {name} first imported from\n{importers.stacks.get(name)}")
+    if failed or loaded:
+        raise AssertionError(f"profiles: failed {failed}, imported {loaded}")
+    log(f"profiles: {len(PROFILES)} runs ok, neither cv2 nor jax imported [{smi}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
@@ -7027,6 +7144,8 @@ def main() -> int:
     run("tools", phase_tools, kernels, dev, smi)
     torch.cuda.empty_cache()
     run("convergence", phase_convergence, kernels, dev, smi)
+    torch.cuda.empty_cache()
+    run("profiles", phase_profiles, kernels, dev, smi)
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

@@ -26,7 +26,7 @@ from torch import nn
 
 from ...ops.losses import smooth_l1_loss
 from ...ops.nms import cuda_batched_nms
-from ...ops.roi_align import multilevel_roi_align_fused
+from ...ops.roi_align import multilevel_roi_align, multilevel_roi_align_fused
 from ...ops.topk import top_k_by_index
 from ...parallel.multihost import global_sum, process_share
 from ...structures import boxes as box_ops
@@ -166,12 +166,14 @@ class StandardROIHeads:
                                  self.box_dim),
             dtype)
 
-    def pool(self, feats, rois: torch.Tensor) -> torch.Tensor:
+    def pool(self, feats, rois: torch.Tensor, fused: bool = True) -> torch.Tensor:
         """feats: the ROI levels, (B, C, H_l, W_l) each; rois (B, R, 4) ->
-        (B, R, P, P, C) float32, differentiable in the features."""
-        return multilevel_roi_align_fused(feats, self.strides, rois,
-                                          output_size=self.pooler_resolution,
-                                          sampling_ratio=self.sampling_ratio)
+        (B, R, P, P, C) float32, differentiable in the features. ``fused``
+        False pools every level and selects (``multilevel_roi_align``), the
+        all-level path ``tools/rcnn_profile.py --all-level-pool`` times."""
+        fn = multilevel_roi_align_fused if fused else multilevel_roi_align
+        return fn(feats, self.strides, rois, output_size=self.pooler_resolution,
+                  sampling_ratio=self.sampling_ratio)
 
     # ----------------------------------------------------------------- loss
     def losses(self, module: ROIBoxModule, feats, proposals, prop_valid,

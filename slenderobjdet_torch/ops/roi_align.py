@@ -1,7 +1,7 @@
 """RoIAlign with the aligned half-pixel grid, multilevel over an FPN
 (counterpart of ``slenderobjdet_tpu/ops/roi_align.py``: ``roi_align``,
-``assign_fpn_levels``, ``multilevel_roi_align_fused`` and
-``multilevel_roi_align_train``).
+``assign_fpn_levels``, ``multilevel_roi_align``,
+``multilevel_roi_align_fused`` and ``multilevel_roi_align_train``).
 
 The JAX package's semantics, not detectron2's CUDA op's: sample
 coordinates are ``(coord * scale - 0.5) + (p + (s + 0.5) / S) * bin``, each
@@ -187,6 +187,35 @@ def multilevel_roi_align_fused(
     out = _pool(level_table(feats), flat_rois, base, heights[lvl], widths[lvl],
                 inv_scale[lvl], output_size, sampling_ratio, roi_chunk)
     return out.view(bsz, R, *out.shape[1:])
+
+
+def multilevel_roi_align(
+    feats: Sequence[torch.Tensor],
+    strides: Sequence[int],
+    rois: torch.Tensor,
+    output_size: int = 7,
+    sampling_ratio: int = 2,
+    canonical_level: int = 4,
+    roi_chunk: int = ROI_CHUNK,
+) -> torch.Tensor:
+    """The pool-every-level-and-select pooler: as
+    ``multilevel_roi_align_fused``, but each image's RoIs are pooled from
+    every level by ``roi_align`` and each keeps the level
+    ``assign_fpn_levels`` gives it, so it gathers as many taps as there are
+    levels for each RoI. The same result up to the order of the bin's sum."""
+    min_level = int(math.log2(strides[0]))
+    max_level = int(math.log2(strides[-1]))
+    out = []
+    for b in range(rois.shape[0]):
+        r = rois[b].float()
+        levels = assign_fpn_levels(r, min_level, max_level, canonical_level=canonical_level)
+        pooled = 0.0
+        for i, (feat, stride) in enumerate(zip(feats, strides)):
+            p = roi_align(feat[b].permute(1, 2, 0), r, 1.0 / stride, output_size,
+                          sampling_ratio, roi_chunk)
+            pooled = pooled + torch.where((levels == min_level + i)[:, None, None, None], p, 0.0)
+        out.append(pooled)
+    return torch.stack(out)
 
 
 # The JAX package keeps a forward-only predict pooler and a custom-VJP train

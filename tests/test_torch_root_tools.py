@@ -93,8 +93,9 @@ def jax_tool(name):
 
 
 def untimed(text):
-    """Printed text with the COCO API's "(t=0.01s)" timings blanked."""
-    return re.sub(r"t=[0-9.]+s", "t=?s", text)
+    """Printed text with the COCO API's timings blanked: its "(t=0.01s)" and
+    its "loading annotations took 0.01s"."""
+    return re.sub(r"took [0-9.]+s", "took ?s", re.sub(r"t=[0-9.]+s", "t=?s", text))
 
 
 def run_jax(mp, name, argv):
@@ -514,7 +515,10 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 tools = [n for n in names if n.startswith('slenderobjdet_torch.tools.')]
-assert len(tools) >= 31, tools
+assert len(tools) >= 38, tools
+profilers = ('predict_profile', 'postprocess_probe', 'profile_backbone', 'rcnn_profile',
+             'reppoints_profile', 'corner_profile')
+assert all('slenderobjdet_torch.tools.' + n in tools for n in profilers), tools
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'slenderobjdet_tpu', 'cv2')]
 print(len(names), bad)
